@@ -7,6 +7,12 @@ metadata blob (`__metadata__`). Files written by either package load in the
 other. bfloat16 leaves are stored as 2-byte void (`V2`) arrays, as numpy
 stores the TPU package's `ml_dtypes` bfloat16, and are viewed back as
 `torch.bfloat16` on load (this package needs no `ml_dtypes`).
+
+A tree is nested dicts, tuples and lists of tensors (or numpy arrays);
+`tree_leaves` and `tree_unflatten` walk it in JAX's flatten order, so an
+optimizer state shaped like optax's, ((count, mu, nu), (sched_count,)),
+has the same leaf order as the TPU package's and its files load in either
+package.
 """
 
 from __future__ import annotations
@@ -28,15 +34,37 @@ def _structure(tree):
     return None
 
 
-def _leaves(tree) -> list:
-    """Leaves in JAX tree-flatten order (None is an empty subtree)."""
+def tree_leaves(tree) -> list:
+    """Leaves in JAX tree-flatten order (dict keys sorted; None is an empty
+    subtree)."""
     if tree is None:
         return []
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in _leaves(v)]
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """A tree shaped like `template` whose leaves are `leaves`, taken in
+    tree_leaves order (the inverse of tree_leaves)."""
+    it = iter(leaves)
+
+    def rebuild(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            out = {k: rebuild(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, (tuple, list)):
+            return type(node)(rebuild(v) for v in node)
+        return next(it)
+
+    out = rebuild(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template has")
+    return out
 
 
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
@@ -53,7 +81,7 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
 
 
 def save_pytree(path: str, tree, metadata: dict | None = None) -> None:
-    pairs = [_to_numpy(v) for v in _leaves(tree)]
+    pairs = [_to_numpy(v) for v in tree_leaves(tree)]
     arrays = {f"leaf_{i:05d}": a for i, (a, _) in enumerate(pairs)}
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     try:
@@ -81,26 +109,40 @@ def peek_metadata(path: str) -> dict:
         return json.loads(str(data["__metadata__"]))
 
 
+def peek_num_leaves(path: str) -> int:
+    """Number of stored leaves (no data read)."""
+    with np.load(path, allow_pickle=False) as data:
+        return sum(1 for k in data.files if k.startswith("leaf_"))
+
+
 def _to_tensor(a: np.ndarray, name: str | None) -> torch.Tensor:
     if a.dtype.kind == "V":
         if name != "bfloat16" or a.dtype.itemsize != 2:
             raise ValueError(f"cannot restore a leaf stored as {a.dtype} "
                              f"with recorded dtype {name!r}")
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a).copy())
+    return torch.from_numpy(np.array(a, order="C"))   # keeps 0-d leaves 0-d
 
 
-def load_pytree(path: str):
-    """Returns (tree of CPU tensors, metadata). The tree is rebuilt from the
-    file's `__structure__`; files without one cannot be restored here."""
+def load_pytree(path: str, template=None):
+    """Returns (tree of CPU tensors, metadata). With `template`, the leaves
+    are unflattened into the template's tree in JAX's flatten order (its
+    leaves only give the count; they may live on the `meta` device);
+    otherwise the tree is rebuilt from the file's `__structure__`."""
     with np.load(path, allow_pickle=False) as data:
         metadata = json.loads(str(data["__metadata__"]))
         structure = json.loads(str(data["__structure__"]))
         names = (json.loads(str(data["__leaf_dtypes__"]))
                  if "__leaf_dtypes__" in data.files else None)
         arrays = [data[k] for k in sorted(data.files) if k.startswith("leaf_")]
-    if structure is None:
-        raise ValueError(f"{path} has no __structure__ record to restore its tree")
     leaves = [_to_tensor(a, names[i] if names else None)
               for i, a in enumerate(arrays)]
+    if template is not None:
+        want = len(tree_leaves(template))
+        if want != len(leaves):
+            raise ValueError(f"{path} holds {len(leaves)} leaves, the "
+                             f"template {want}")
+        return tree_unflatten(template, leaves), metadata
+    if structure is None:
+        raise ValueError(f"{path} has no __structure__ record to restore its tree")
     return _rebuild(structure, leaves), metadata

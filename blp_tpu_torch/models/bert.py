@@ -1,31 +1,48 @@
-"""BERT encoder for BLP inference, in plain PyTorch.
+"""BERT encoder for BLP, in plain PyTorch: inference and the training pass.
 
-Port of blp_tpu/models/bert.py, deterministic (inference) only. Parameters
-are a nested dict of tensors in the TPU package's layout: (in, out) matrices
-used as ``x @ W``, the encoder layers either stacked on a leading
-(num_layers,) axis or unstacked into a tuple of per-layer dicts.
+Port of blp_tpu/models/bert.py. Parameters are a nested dict of tensors in
+the TPU package's layout: (in, out) matrices used as ``x @ W``, the encoder
+layers either stacked on a leading (num_layers,) axis or unstacked into a
+tuple of per-layer dicts.
 
 Semantics match `transformers.BertModel` (post-LN, erf-GeLU, eps=1e-12,
 additive -10000 padding mask, token type 0). In fp32 every product runs in
 fp32; set `torch.backends.cuda.matmul.allow_tf32 = False` on the card to keep
-it so. With a bf16 `compute_dtype` and `fast_inference`, the inference layer
-`_encoder_layer_fast` runs: polynomial GeLU, bf16 logits with f32 softmax
-statistics, bf16 GEMM outputs into the LayerNorms (f32 statistics) and, with
-`fused_attention`, the K2 kernel (ops/packed_attention.py). The bf16 GEMMs
-are `torch.matmul` in bf16 (f32 accumulation inside the library, bf16
-output), so a bias is added after one bf16 round where the TPU package adds
-it before; the difference is one bf16 rounding, inside the bf16 noise class.
+it so. With a bf16 `compute_dtype` and `fast_inference`, deterministic
+encodes run the inference layer `_encoder_layer_fast`: polynomial GeLU, bf16
+logits with f32 softmax statistics, bf16 GEMM outputs into the LayerNorms
+(f32 statistics) and, with `fused_attention`, the K2 kernel
+(ops/packed_attention.py). The bf16 GEMMs are `torch.matmul` in bf16 (f32
+accumulation inside the library, bf16 output), so a bias is added after one
+bf16 round where the TPU package adds it before; the difference is one bf16
+rounding, inside the bf16 noise class.
+
+Training (`deterministic=False`) runs the exact layer with dropout at the
+TPU package's four sites (embedding output, attention probabilities,
+attention output, FFN output) and builds an autograd graph; the inference
+path runs under `no_grad`. Each dropout mask is drawn from a generator
+seeded by a per-site integer derived from the step's `dropout_seed`, and the
+backward regenerates it from that seed (`_RngDropout`, the JAX custom_vjp's
+counterpart). The masks therefore do not depend on the global RNG, so the
+recomputed forward of `torch.utils.checkpoint` (`remat`) draws the same masks
+as the first one. The weights are cast to the compute dtype inside the graph,
+so gradients land on the f32 master weights.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from blp_tpu_torch.utils import fold_seed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,11 +57,14 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
-    # Training keys (dropout mask width, rematerialisation): accepted for
-    # config parity, used by the training slice.
+    # Width of the random draw behind each dropout mask (32: f32-uniform
+    # bernoulli; 16/8: integer threshold compare, see _dropout_keep).
     dropout_bits: int = 32
     initializer_range: float = 0.02
     compute_dtype: Any = torch.float32
+    # False | True (every layer under torch.utils.checkpoint) | <int k> (the
+    # first k layers). The TPU package's policy strings ("dots", "names")
+    # are not ported and raise.
     remat: Any = False
     # Sequence packing: fold `pack` sequences into one row with a
     # block-diagonal attention mask. Exact (-10000 cross-block bias
@@ -137,6 +157,63 @@ def restack_layers(bert_params: dict) -> dict:
     out["layers"] = {k: torch.stack([lp[k] for lp in layers])
                      for k in layers[0]}
     return out
+
+
+def _dropout_threshold(rate: float, nbits: int) -> tuple[int | None, float]:
+    """(threshold t, keep probability) of a dropout mask. nbits=32: a
+    bernoulli draw with keep probability 1 - rate (t is None). nbits=8/16:
+    keep iff bits >= t with t = min(round(rate·2^n), 2^n - 1), so the drop
+    probability quantizes to t/2^n and the keep rescale uses the quantized
+    1 - t/2^n (E[dropout(x)] == x stays exact; the clamp keeps rate -> 1
+    from dropping everything)."""
+    if nbits == 32:
+        return None, 1.0 - rate
+    if nbits not in (8, 16):
+        raise ValueError(f"dropout_bits must be 8, 16 or 32, got {nbits}")
+    levels = 1 << nbits
+    t = min(int(round(rate * levels)), levels - 1)
+    return t, 1.0 - t / levels
+
+
+def _dropout_keep(generator: torch.Generator, rate: float, nbits: int, shape):
+    """(keep mask, keep probability), drawn from `generator` on its device.
+    16-bit draws are int32 values in [0, 65536) (torch's uint16 has no
+    comparisons); 8-bit draws are uint8."""
+    t, keep_p = _dropout_threshold(rate, nbits)
+    dev = generator.device
+    if t is None:
+        return torch.rand(shape, generator=generator, device=dev) < keep_p, keep_p
+    dtype = torch.uint8 if nbits == 8 else torch.int32
+    bits = torch.randint(0, 1 << nbits, shape, generator=generator, device=dev,
+                         dtype=dtype)
+    return bits >= t, keep_p
+
+
+def _site_generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+class _RngDropout(torch.autograd.Function):
+    """Dropout that saves only its seed: the backward regenerates the mask
+    from it (the TPU package's `_rng_dropout` custom_vjp), so no mask is
+    stashed and a recomputed forward draws the same mask."""
+
+    @staticmethod
+    def forward(ctx, x, seed: int, rate: float, nbits: int):
+        ctx.seed, ctx.rate, ctx.nbits = seed, rate, nbits
+        keep, keep_p = _dropout_keep(_site_generator(seed, x.device), rate,
+                                     nbits, x.shape)
+        return torch.where(keep, x / keep_p, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        keep, keep_p = _dropout_keep(_site_generator(ctx.seed, g.device),
+                                     ctx.rate, ctx.nbits, g.shape)
+        return torch.where(keep, g / keep_p, 0.0), None, None, None
+
+
+def _rng_dropout(x, seed: int, rate: float, nbits: int = 32):
+    return _RngDropout.apply(x, seed, rate, nbits)
 
 
 def _layer_norm(x, scale, bias, eps: float, out_dtype=None):
@@ -236,10 +313,13 @@ def _use_fast_inference(cfg: BertConfig) -> bool:
     return cfg.fast_inference and cfg.compute_dtype != torch.float32
 
 
-def _encoder_layer(cfg: BertConfig, x, mask_bias, lp: dict):
-    """One post-LN transformer layer (the exact layer, deterministic).
-    x: (B, S, H); mask_bias: additive attention bias broadcastable to
-    (B, nh, S, S)."""
+def _encoder_layer(cfg: BertConfig, x, mask_bias, lp: dict, seeds=None,
+                   rate: float = 0.0):
+    """One post-LN transformer layer (the exact layer). x: (B, S, H);
+    mask_bias: additive attention bias broadcastable to (B, nh, S, S);
+    seeds: the layer's three dropout-site seeds (attention probabilities,
+    attention output, FFN output), None for no dropout; rate: the hidden
+    dropout rate."""
     B, S, H = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     dt = cfg.compute_dtype
@@ -257,11 +337,20 @@ def _encoder_layer(cfg: BertConfig, x, mask_bias, lp: dict):
     logits = _matmul(q, k.transpose(-1, -2), dt).to(torch.float32)
     logits = logits / math.sqrt(hd) + mask_bias
     probs = torch.softmax(logits, dim=-1)
+    if mp:
+        # The bf16 cast the ctx product needs anyway comes before the
+        # dropout, as in the TPU package's mixed-precision layer.
+        probs = probs.to(dt)
+    if seeds is not None and cfg.attention_dropout > 0.0:
+        probs = _rng_dropout(probs, seeds[0], cfg.attention_dropout,
+                             cfg.dropout_bits)
     ctx = _matmul(probs, v, dt).to(torch.float32)            # (B, nh, S, hd)
     ctx = ctx.permute(0, 2, 1, 3).reshape(B, S, H)
 
     od = dt if mp else None
     attn_out = _dense(ctx, lp["attn_out_w"], lp["attn_out_b"], dt, od)
+    if seeds is not None and rate > 0.0:
+        attn_out = _rng_dropout(attn_out, seeds[1], rate, cfg.dropout_bits)
     x = _layer_norm(x + attn_out, lp["attn_ln_scale"], lp["attn_ln_bias"],
                     cfg.layer_norm_eps, out_dtype=res_dt)
     ffn = _dense(x, lp["ffn_in_w"], lp["ffn_in_b"], dt, dt)
@@ -270,6 +359,8 @@ def _encoder_layer(cfg: BertConfig, x, mask_bias, lp: dict):
     else:
         ffn = F.gelu(ffn)
     ffn = _dense(ffn, lp["ffn_out_w"], lp["ffn_out_b"], dt, od)
+    if seeds is not None and rate > 0.0:
+        ffn = _rng_dropout(ffn, seeds[2], rate, cfg.dropout_bits)
     return _layer_norm(x + ffn, lp["ffn_ln_scale"], lp["ffn_ln_bias"],
                        cfg.layer_norm_eps, out_dtype=res_dt)
 
@@ -311,35 +402,70 @@ def embed_inputs(params: dict, input_ids, attention_mask, cfg: BertConfig):
     return x, mask_bias, pack, packed_mask
 
 
-@torch.no_grad()
+def _remat_layers(cfg: BertConfig) -> int:
+    """How many leading layers run under torch.utils.checkpoint."""
+    if isinstance(cfg.remat, str):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: the TPU package's checkpoint policies are "
+            f"not ported (ROADMAP.md, Queue 1: string remat policies); use "
+            f"True or a layer count")
+    if not cfg.remat:
+        return 0
+    if isinstance(cfg.remat, bool):
+        return cfg.num_layers
+    return int(cfg.remat)
+
+
 def bert_encode(params: dict, input_ids, attention_mask, cfg: BertConfig, *,
-                deterministic: bool = True):
+                deterministic: bool = True, dropout_seed: int | None = None):
     """Run the encoder. Returns the last hidden states (B, S, H) in the
     residual dtype: float32 in fp32 mode, compute_dtype otherwise.
 
     attention_mask: (B, S), 1 for real tokens (None = all ones). Stacked and
-    unstacked `layers` layouts both run. Inference only: deterministic=False
-    (dropout) comes with the training slice and raises here.
+    unstacked `layers` layouts both run. deterministic=True is inference,
+    under no_grad. deterministic=False is the training pass: dropout from
+    `dropout_seed` (an int; required), an autograd graph, and `cfg.remat`.
     """
-    if not deterministic:
-        raise NotImplementedError(
-            "bert_encode supports deterministic=True only in this port "
-            "(dropout arrives with the training path)")
+    if not deterministic and dropout_seed is None:
+        raise ValueError("dropout_seed required when deterministic=False")
+    grad_ctx = torch.no_grad() if deterministic else contextlib.nullcontext()
+    with grad_ctx:
+        return _bert_encode(params, input_ids, attention_mask, cfg,
+                            None if deterministic else dropout_seed)
+
+
+def _bert_encode(params, input_ids, attention_mask, cfg: BertConfig,
+                 dropout_seed):
     B, S = input_ids.shape
     x, mask_bias, pack, key_mask = embed_inputs(params, input_ids,
                                                 attention_mask, cfg)
-    if _use_fast_inference(cfg):
-        layer_fn = _encoder_layer_fast
-        mask_arg = (mask_bias, key_mask, S)
-    else:
-        layer_fn = _encoder_layer
-        mask_arg = mask_bias
-
     layers = params["layers"]
     if not isinstance(layers, (tuple, list)):
         layers = unstack_layers(params)["layers"]
-    for lp in layers:
-        x = layer_fn(cfg, x, mask_arg, lp)
+
+    if dropout_seed is None:
+        if _use_fast_inference(cfg):
+            mask_arg = (mask_bias, key_mask, S)
+            for lp in layers:
+                x = _encoder_layer_fast(cfg, x, mask_arg, lp)
+        else:
+            for lp in layers:
+                x = _encoder_layer(cfg, x, mask_bias, lp)
+        return x.reshape(B, S, x.shape[-1]) if pack > 1 else x
+
+    rate = cfg.hidden_dropout
+    if rate > 0.0:
+        x = _rng_dropout(x, fold_seed(dropout_seed, 0), rate, cfg.dropout_bits)
+    layer_seed = fold_seed(dropout_seed, 1)
+    remat_k = _remat_layers(cfg) if torch.is_grad_enabled() else 0
+    for i, lp in enumerate(layers):
+        seeds = tuple(fold_seed(layer_seed, 3 * i + j) for j in range(3))
+        fn = functools.partial(_encoder_layer, cfg, mask_bias=mask_bias, lp=lp,
+                               seeds=seeds, rate=rate)
+        if i < remat_k:
+            x = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = fn(x)
     return x.reshape(B, S, x.shape[-1]) if pack > 1 else x
 
 

@@ -1,15 +1,19 @@
-"""Model assembly for inference: the BLP configuration, init and encode.
+"""Model assembly: the BLP configuration, init, encode and the training loss.
 
 Port of blp_tpu/models/blp.py for the `blp` (BERT -> [CLS] -> bias-free
 projection) and `transductive` (entity lookup table) models. Entity
 embeddings are L2-normalized iff the relational model is TransE. Parameters
 are plain dicts of tensors in the TPU package's layout; `params_from_jax`
 turns that package's parameter tree (numpy leaves) into this one. The
-bow/dkrl encoders and the training loss come with later slices.
+bow/dkrl encoders come with a later slice.
+
+Deterministic encodes are inference and run under `no_grad`; the training
+pass (`deterministic=False`, `train_loss`) builds an autograd graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -17,6 +21,7 @@ import torch
 
 from blp_tpu_torch.models import bert as bert_mod
 from blp_tpu_torch.models import scoring
+from blp_tpu_torch.ops import sddmm
 from blp_tpu_torch.utils import resolve_device
 
 TEXT_MODELS = ("blp", "bert-bow", "bert-dkrl", "glove-bow", "glove-dkrl")
@@ -37,7 +42,7 @@ class ModelConfig:
     emb_dim: int = 300             # word-embedding width for bow/dkrl models
     vocab_size: int = 0            # word-vocab size for bow/dkrl models
     encoder: bert_mod.BertConfig | None = None  # for model == 'blp'
-    sddmm_pallas: bool = False     # fused pos+neg scoring (training slice)
+    sddmm_pallas: bool = False     # K3: fused pos+neg scoring (ops/sddmm.py)
 
     def __post_init__(self):
         if self.model not in ALL_MODELS:
@@ -115,7 +120,7 @@ def _leaf_from_numpy(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":   # ml_dtypes bfloat16 from the JAX side
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a).copy())
+    return torch.from_numpy(np.array(a, order="C"))   # keeps 0-d leaves 0-d
 
 
 def params_from_jax(tree) -> dict:
@@ -147,41 +152,85 @@ def encode_view(params: dict, cfg: ModelConfig) -> dict:
     return out
 
 
-@torch.no_grad()
 def encode_raw(params: dict, cfg: ModelConfig, text_tok, text_mask, *,
-               deterministic: bool = True):
+               deterministic: bool = True, dropout_seed: int | None = None):
     """Encode (B, L) token batches into entity embeddings, WITHOUT the TransE
-    normalization. Runs where `params` live."""
+    normalization. Runs where `params` live; deterministic=False is the
+    training pass (dropout from `dropout_seed`, with a graph)."""
     _require_ported(cfg)
     if cfg.model != "blp":
         raise ValueError(f"{cfg.model} is not a text model")
-    hidden = bert_mod.bert_encode(params["bert"], text_tok, text_mask,
-                                  cfg.encoder, deterministic=deterministic)
-    cls = hidden[:, 0].to(torch.float32)
-    return torch.matmul(cls, params["proj"].to(torch.float32))
+    grad_ctx = torch.no_grad() if deterministic else contextlib.nullcontext()
+    with grad_ctx:
+        hidden = bert_mod.bert_encode(params["bert"], text_tok, text_mask,
+                                      cfg.encoder, deterministic=deterministic,
+                                      dropout_seed=dropout_seed)
+        cls = hidden[:, 0].to(torch.float32)
+        return torch.matmul(cls, params["proj"].to(torch.float32))
 
 
-@torch.no_grad()
 def encode(params: dict, cfg: ModelConfig, text_tok, text_mask, *,
-           deterministic: bool = True, device=None):
+           deterministic: bool = True, dropout_seed: int | None = None,
+           device=None):
     """`encode_raw` + L2 normalization for TransE. Token arrays (numpy or
     tensors) are moved to `device` (default cuda), where `params` must
     live."""
     dev = resolve_device(device)
     tok = torch.as_tensor(text_tok).to(dev)
     mask = None if text_mask is None else torch.as_tensor(text_mask).to(dev)
-    out = encode_raw(params, cfg, tok, mask, deterministic=deterministic)
+    out = encode_raw(params, cfg, tok, mask, deterministic=deterministic,
+                     dropout_seed=dropout_seed)
     if cfg.normalize_embs:
         out = scoring.l2_normalize(out)
     return out
 
 
-@torch.no_grad()
 def encode_entity_ids(params: dict, cfg: ModelConfig, entity_ids):
-    """Transductive lookup + normalization."""
+    """Transductive lookup + normalization (differentiable in
+    `params["ent_emb"]` when it requires grad)."""
     _require_ported(cfg)
     ids = torch.as_tensor(entity_ids, device=params["ent_emb"].device).long()
     out = params["ent_emb"][ids]
     if cfg.normalize_embs:
         out = scoring.l2_normalize(out)
     return out
+
+
+def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+               deterministic: bool = False, dropout_seed: int | None = None):
+    """Link-prediction loss for one batch (0-d float32 tensor on the
+    batch's device).
+
+    batch (tensors on the params' device):
+      blp:          text_tok (B, 2, L), text_mask (B, 2, L)
+      transductive: pos_pairs (B, 2) entity ids
+      both:         rels (B,), neg_idx (B, K, 2)
+    With `cfg.sddmm_pallas` the positive and negative scores come from K3
+    (ops/sddmm.py); otherwise from scoring.compute_loss.
+    """
+    if cfg.is_inductive:
+        text_tok = batch["text_tok"]
+        B, two, L = text_tok.shape
+        mask = batch.get("text_mask")
+        flat_mask = None if mask is None else mask.reshape(B * two, L)
+        ent = encode_raw(params, cfg, text_tok.reshape(B * two, L), flat_mask,
+                         deterministic=deterministic, dropout_seed=dropout_seed)
+        if cfg.normalize_embs:
+            ent = scoring.l2_normalize(ent)
+        ent = ent.reshape(B, 2, -1)
+    else:
+        ent = encode_entity_ids(params, cfg, batch["pos_pairs"])
+
+    rel_embs = params["rel_emb"][batch["rels"].reshape(-1).long()]
+    if cfg.sddmm_pallas:
+        pos, neg = sddmm.sddmm_scores(
+            ent.reshape(-1, ent.shape[-1]), rel_embs, batch["neg_idx"],
+            cfg.rel_model)
+        total = scoring.get_loss_fn(cfg.loss_fn)(pos, neg)
+        if cfg.regularizer:
+            total = total + cfg.regularizer * scoring.l2_regularization(
+                ent[:, 0, :], ent[:, 1, :], rel_embs)
+        return total
+    return scoring.compute_loss(
+        ent, rel_embs, batch["neg_idx"],
+        rel_model=cfg.rel_model, loss_fn=cfg.loss_fn, regularizer=cfg.regularizer)

@@ -1,18 +1,48 @@
-"""Experiment set-up helpers shared with the serve CLI.
+"""Training entry point: the `link_prediction` command on one device.
 
-Port of `make_tokenizer` and `make_model_config` from blp_tpu/train.py. The
-training and node-classification entry points come with the training slice.
+    python -m blp_tpu_torch.train link_prediction with dataset=umls model=blp ...
+
+Port of blp_tpu/train.py. Reference behaviour mirrored: inductive and
+transductive data selection, the filter graph with the large-dataset
+(Wikidata5M) special case, per-epoch unfiltered train-sample and validation
+eval, best-raw-MRR checkpointing, the final filtered valid and test eval from
+the best checkpoint, and the entity-embedding export. The train step samples
+negatives on the device; batches are assembled and copied ahead on a
+background thread; losses stay on the device and are read one log interval
+late; full-state checkpoints resume with `resume=auto` or a file path.
+
+Runs on `device=` (default cuda). Not ported: the mesh and multi-host keys
+(`num_data_shards`, `num_model_shards`, `num_pipe_shards` > 1,
+`coordinator_address`, `multihost_data`) and `node_classification` (it needs
+scikit-learn); each raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import os.path as osp
+import sys
+import time
 
+import numpy as np
 import torch
 
-from blp_tpu_torch.config import ExperimentConfig
+from blp_tpu_torch import checkpoint as ckpt
+from blp_tpu_torch import evaluation, observers, training
+from blp_tpu_torch.config import ExperimentConfig, parse_overrides
+from blp_tpu_torch.data import prefetch
+from blp_tpu_torch.data.datasets import GraphData, TextGraphData
+from blp_tpu_torch.data.filtering import FilterIndex
+from blp_tpu_torch.data.loader import (epoch_batches, num_batches,
+                                       text_train_batch,
+                                       transductive_train_batch)
 from blp_tpu_torch.data.tokenizers import GloVeTokenizer, WordPieceTokenizer
 from blp_tpu_torch.models import bert, blp
+from blp_tpu_torch.utils import fold_seed, get_logger, resolve_device
+
+log = get_logger()
 
 
 def make_tokenizer(cfg: ExperimentConfig):
@@ -58,3 +88,274 @@ def make_model_config(cfg: ExperimentConfig, tokenizer, num_relations: int,
         dim=cfg.dim, num_relations=num_relations, num_entities=num_entities,
         regularizer=cfg.regularizer, emb_dim=emb_dim, vocab_size=vocab_size,
         encoder=encoder)
+
+
+def init_model_params(cfg: ExperimentConfig, mcfg: blp.ModelConfig, seed: int,
+                      device) -> dict:
+    """Random parameters from `seed` (a CPU generator, so every device gets
+    the same weights), or BERT weights from `hf_weights`."""
+    hf_sd = None
+    if cfg.model == "blp" and cfg.hf_weights and osp.exists(cfg.hf_weights):
+        hf_sd = torch.load(cfg.hf_weights, map_location="cpu", weights_only=False)
+        log.info(f"Loaded HF BERT weights from {cfg.hf_weights}")
+    return blp.init_params(mcfg, torch.Generator().manual_seed(seed), device,
+                           hf_state_dict=hf_sd)
+
+
+def _require_single_device(cfg: ExperimentConfig) -> None:
+    if cfg.num_data_shards * cfg.num_model_shards > 1 or cfg.num_pipe_shards > 1:
+        raise NotImplementedError(
+            "mesh training (num_data_shards/num_model_shards/num_pipe_shards "
+            "> 1) is not ported yet (ROADMAP.md, Queue 1: parallel/* and mesh "
+            "eval)")
+    if cfg.coordinator_address or cfg.multihost_data:
+        raise NotImplementedError(
+            "multi-host training (coordinator_address, multihost_data) is not "
+            "ported yet (ROADMAP.md, Queue 1: parallel/* and mesh eval)")
+
+
+def link_prediction(cfg: ExperimentConfig) -> dict:
+    _require_single_device(cfg)
+    device = resolve_device(cfg.device)
+    run_id = cfg.run_id or time.strftime("%Y%m%d-%H%M%S")
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    metrics_log = observers.ObserverSet.from_env(cfg.out_dir, run_id)
+    # close() in a finally: a crash must still flush buffered sinks.
+    try:
+        metrics_log.log_config(dataclasses.asdict(cfg))
+        return _link_prediction(cfg, run_id, metrics_log, device)
+    finally:
+        metrics_log.close()
+
+
+def _link_prediction(cfg: ExperimentConfig, run_id: str,
+                     metrics_log: observers.ObserverSet, device) -> dict:
+    log.info(f"Run {run_id}: {cfg}")
+
+    # ---- data ------------------------------------------------------------
+    is_text = cfg.model != "transductive"
+    if is_text:
+        tokenizer = make_tokenizer(cfg)
+        train_data = TextGraphData.load(
+            cfg.triples_file("train"), tokenizer=tokenizer, max_len=cfg.max_len,
+            write_maps=True, use_cached_text=cfg.use_cached_text)
+    else:
+        tokenizer = None
+        train_data = GraphData.load(cfg.triples_file("train"), write_maps=True)
+
+    valid_data = GraphData.load(cfg.triples_file("dev"))
+    test_data = GraphData.load(cfg.triples_file("test"))
+
+    # Filter graph + new-entity sets (reference: train.py:296-315).
+    train_ent = train_data.entities
+    if not cfg.large_dataset:
+        all_triples = np.concatenate(
+            [train_data.triples, valid_data.triples, test_data.triples])
+        filter_index = FilterIndex(all_triples)
+        train_val_ent = np.unique(np.concatenate([train_ent, valid_data.entities]))
+        train_val_test_ent = np.unique(
+            np.concatenate([train_val_ent, test_data.entities]))
+        val_new = np.setdiff1d(train_val_ent, train_ent)
+        test_new = np.setdiff1d(train_val_test_ent, train_val_ent)
+    else:
+        filter_index = None
+        train_val_ent = valid_data.entities
+        train_val_test_ent = test_data.entities
+        val_new = test_new = None
+    metrics_log.log(0, num_train_entities=int(len(train_ent)))
+
+    # ---- model + optimizer ----------------------------------------------
+    # Transductive tables are sized by the id space (len(ent_ids)).
+    mcfg = make_model_config(cfg, tokenizer, len(train_data.rel_ids),
+                             len(train_data.ent_ids))
+    params = init_model_params(cfg, mcfg, fold_seed(cfg.seed, 0xBEEF), device)
+    if cfg.checkpoint:
+        loaded, meta = ckpt.load_pytree(cfg.checkpoint, template=params)
+        params = blp.to_device(loaded, device)
+        log.info(f"Loaded checkpoint {cfg.checkpoint} ({meta})")
+
+    steps_per_epoch = num_batches(train_data, cfg.batch_size)
+    total_steps = max(steps_per_epoch * cfg.max_epochs, 1)
+    optimizer = training.make_optimizer(cfg.lr, total_steps, cfg.use_scheduler,
+                                        bf16_mu=cfg.adam_bf16_mu)
+    # Training holds the BERT layers unstacked (one leaf per layer); files
+    # and the final eval use the stacked layout. Adam's mu/nu mirror the
+    # training layout.
+    params = training.unstack_params(params)
+    opt_state = optimizer.init(params)
+    train_step = training.make_train_step(
+        mcfg, optimizer, batch_size=cfg.batch_size,
+        num_negatives=cfg.num_negatives, device=device)
+
+    def run_eval(triples, entities, *, prefix, epoch, filtered=False,
+                 new_entities=None, max_num_batches=None, return_embeddings=False):
+        res = evaluation.eval_link_prediction(
+            params, mcfg, triples, train_data, entities,
+            batch_size=cfg.eval_batch_size, emb_batch_size=cfg.emb_batch_size,
+            tile=cfg.tile, filter_index=filter_index if filtered else None,
+            new_entities=new_entities,
+            rel_categories=train_data.rel_categories if train_data.has_rel_categories else None,
+            max_num_batches=max_num_batches,
+            return_embeddings=return_embeddings, device=device, log=log)
+        scalars = res.scalars(prefix)
+        metrics_log.log(epoch, **scalars)
+        log.info("  ".join(f"{k}: {v:.4f}" for k, v in scalars.items()))
+        return res
+
+    # ---- training loop ---------------------------------------------------
+    # Seeds derive from (seed, epoch, step), so a resumed run replays the
+    # remaining schedule exactly.
+    best_mrr = 0.0
+    start_epoch = 1
+    ckpt_file = osp.join(cfg.out_dir, f"model-{run_id}.npz")
+    best_ckpt = ckpt_file  # may be rebound to a prior run's file on resume
+    state_file = osp.join(cfg.out_dir, f"train_state-{run_id}.npz")
+    # resume="auto": this run's own state file if present (set run_id=);
+    # otherwise resume= names a state file.
+    resume_path = state_file if cfg.resume == "auto" else cfg.resume
+    if resume_path and osp.exists(resume_path):
+        meta = ckpt.peek_metadata(resume_path)
+        if meta.get("layout") != "stacked":
+            raise NotImplementedError(
+                f"{resume_path} has no 'layout': 'stacked' marker; legacy "
+                f"state files are not ported (ROADMAP.md, Queue 1: the rest of "
+                f"train.py)")
+        # Load through a stacked template on the meta device (no memory),
+        # then convert to the live unstacked layout.
+        stacked = training.restack_params(blp.to_device(params, "meta"))
+        tmpl = (stacked, optimizer.init(stacked))
+        (p_raw, o_raw), meta = ckpt.load_pytree(resume_path, template=tmpl)
+        params = blp.to_device(training.unstack_params(p_raw), device)
+        opt_state = blp.to_device(training.unstack_opt_state(o_raw), device)
+        start_epoch = int(meta["epoch"]) + 1
+        best_mrr = float(meta.get("best_mrr", 0.0))
+        # The best checkpoint may live under the ORIGINAL run's id.
+        prior_best = meta.get("best_ckpt") or ""
+        if prior_best and osp.exists(prior_best):
+            best_ckpt = prior_best
+        log.info(f"Resumed from {resume_path} at epoch {start_epoch}")
+
+    global_step = (start_epoch - 1) * steps_per_epoch
+    log_every = max(1, int(cfg.log_every_frac * steps_per_epoch))
+    last_epoch = cfg.max_epochs if cfg.stop_after_epochs is None else \
+        min(cfg.max_epochs, cfg.stop_after_epochs)
+
+    def host_batches(epoch: int):
+        """One epoch of host batches; runs on the prefetch thread so the
+        numpy description gathers overlap the device's work."""
+        shuffle_rng = np.random.default_rng(cfg.seed * 1_000_003 + epoch)
+        for triples in epoch_batches(train_data, cfg.batch_size, rng=shuffle_rng):
+            if is_text:
+                yield text_train_batch(train_data, triples)
+            else:
+                yield transductive_train_batch(train_data, triples)
+
+    for epoch in range(start_epoch, last_epoch + 1):
+        step_losses, t0 = [], time.time()
+        for step_i, batch in enumerate(prefetch.prefetch_to_device(
+                host_batches(epoch), device=device)):
+            params, opt_state, loss = train_step(
+                params, opt_state, (cfg.seed, global_step), batch)
+            global_step += 1
+            # Losses stay on the device: a float(loss) here would wait for
+            # every step. The log reads the loss of one interval ago, which
+            # has long been computed, and records it under its own step.
+            step_losses.append(loss)
+            if step_i % log_every == 0 and step_i >= log_every:
+                loss_val = float(step_losses[step_i - log_every])
+                log.info(f"Epoch {epoch}/{cfg.max_epochs} "
+                         f"[{step_i}/{steps_per_epoch}]: {loss_val:.6f}")
+                metrics_log.log(global_step - log_every, batch_loss=loss_val)
+        epoch_loss = (float(torch.stack(step_losses).mean())
+                      if step_losses else 0.0)
+        if step_losses and steps_per_epoch <= log_every:
+            # Epochs too short for a lagged log point still log one loss.
+            metrics_log.log(global_step, batch_loss=float(step_losses[-1]))
+        dt = time.time() - t0
+        tput = steps_per_epoch * cfg.batch_size / max(dt, 1e-9)
+        metrics_log.log(epoch, train_loss=epoch_loss, triples_per_sec=tput)
+        log.info(f"Epoch {epoch}: loss {epoch_loss:.6f} "
+                 f"({tput:,.0f} triples/s)")
+
+        if epoch % cfg.eval_every == 0:
+            if not cfg.large_dataset:
+                log.info("Evaluating on sample of training set")
+                n_val_batches = -(-valid_data.num_triples // cfg.eval_batch_size)
+                run_eval(train_data.triples, train_ent, prefix="train",
+                         epoch=epoch, max_num_batches=n_val_batches)
+            log.info("Evaluating on validation set")
+            res = run_eval(valid_data.triples, train_val_ent, prefix="valid",
+                           epoch=epoch)
+            if res.mrr > best_mrr:
+                best_mrr = res.mrr
+                best_ckpt = ckpt_file
+                # The model file is the user-facing artifact: stacked,
+                # restacked on the host.
+                ckpt.save_pytree(ckpt_file,
+                                 training.restack_params(blp.to_device(params, "cpu")),
+                                 {"epoch": epoch, "mrr": res.mrr,
+                                  "run_id": run_id})
+                log.info(f"New best valid MRR {best_mrr:.4f}; saved {ckpt_file}")
+
+        # Full training state for resume, always in the stacked layout with
+        # a layout marker, restacked on the host.
+        host_p, host_o = blp.to_device((params, opt_state), "cpu")
+        ckpt.save_pytree(state_file,
+                         (training.restack_params(host_p),
+                          training.restack_opt_state(host_o)),
+                         {"epoch": epoch, "best_mrr": best_mrr,
+                          "best_ckpt": best_ckpt if osp.exists(best_ckpt) else "",
+                          "run_id": run_id, "seed": cfg.seed,
+                          "layout": "stacked"})
+
+    # ---- final filtered evaluation from best checkpoint -------------------
+    params = training.restack_params(params)
+    if cfg.max_epochs > 0 and osp.exists(best_ckpt):
+        loaded, _ = ckpt.load_pytree(best_ckpt, template=params)
+        params = blp.to_device(loaded, device)
+
+    if cfg.large_dataset:
+        filter_index = FilterIndex(valid_data.triples)
+    log.info("Evaluating on validation set (with filtering)")
+    run_eval(valid_data.triples, train_val_ent, prefix="valid",
+             epoch=cfg.max_epochs + 1, filtered=True, new_entities=val_new)
+
+    if cfg.large_dataset:
+        filter_index = FilterIndex(test_data.triples)
+    log.info("Evaluating on test set")
+    test_res = run_eval(test_data.triples, train_val_test_ent, prefix="test",
+                        epoch=cfg.max_epochs + 1, filtered=True,
+                        new_entities=test_new, return_embeddings=True)
+
+    emb_path = osp.join(cfg.out_dir, f"ent_emb-{run_id}.npz")
+    np.savez(emb_path, ent_emb=test_res.ent_emb, entities=test_res.entities)
+    log.info(f"Saved entity embeddings to {emb_path}")
+    return {"run_id": run_id, "test_mrr": test_res.mrr,
+            "test_mrr_filt": test_res.mrr_filt, "checkpoint": ckpt_file}
+
+
+def node_classification(cfg: ExperimentConfig) -> dict:
+    raise NotImplementedError(
+        "node_classification is not ported yet: it needs scikit-learn, which "
+        "the card's machine lacks (ROADMAP.md, Queue 1: the rest of "
+        "train.py)")
+
+
+COMMANDS = {"link_prediction": link_prediction,
+            "node_classification": node_classification}
+
+
+def main(argv: list[str] | None = None):
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] not in COMMANDS:
+        print(f"Usage: python -m blp_tpu_torch.train {{{'|'.join(COMMANDS)}}} "
+              f"[with key=value ...]", file=sys.stderr)
+        return 2
+    cfg = parse_overrides(argv[1:])
+    result = COMMANDS[argv[0]](cfg)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,6 +19,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A new 63-bit seed from `seed` and `data` (the splitmix64 finalizer
+    over their combination): the port's counterpart of
+    `jax.random.fold_in`, used to derive per-step and per-site generator
+    seeds on the host, with no device work."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(data) + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
 def make_ent2idx(entities: np.ndarray, max_ent_id: int) -> np.ndarray:
     """Entity id -> position among `entities`; -1 for holes
     (reference: utils.py:31-43)."""

@@ -11,7 +11,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    parallel, into build/kernels/) and print the build seconds.
 3. Check each kernel against its plain PyTorch version on the card: K1
    (TransE rank counts) must give identical counts; K2 (packed attention)
-   must agree within rtol = atol = 2e-2.
+   must agree within rtol = atol = 2e-2; K3 (the SDDMM scorer of training)
+   for all four scorers at B = 64 and 1,024 (K 64, d 128, fp32, negatives
+   from the port's sampler): scores within rtol = atol = 1e-5, margin-loss
+   gradients identical to plain autograd.
 4. Serve (the main path, part 1): a BERT-base BLP-TransE model (12 layers,
    hidden 768, 12 heads, FFN 3072, vocab 28,996, dim 128; random weights
    from seed 0) with bf16 compute and the fused attention kernel encodes a
@@ -23,17 +26,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    plain paths on the same table; (b) the TransE rank pass at Wikidata5M
    scale (4.8M candidates, d 128, eval batch 64, 64 filter columns, 5
    batches, then 30 to separate the per-batch cost from the set-up).
-6. Time each kernel, its plain version and, where one exists, the one
+6. Train (the main path, part 3), with every count set to 0 again just
+   before it: (b) the flagship BERT-base BLP-TransE train step (bf16,
+   dropout 0.1, sddmm_pallas=True, B 64, L 32, 64 negatives, Adam with
+   warmup): 3 warm-up and 20 timed steps with finite losses, a profile of
+   one step, and the same step with sddmm_pallas=False from the same
+   parameters and seeds (loss within rtol 1e-4, `proj` and `rel_emb`
+   gradients within rtol 1e-3, atol 1e-6); (c) the Wikidata5M operating
+   point (B 1,024, L 64, remat=8): 3 steps, ms per step and peak memory;
+   (d) `python -m blp_tpu_torch.train link_prediction` in-process, one
+   epoch on the synthetic graph with the BERT-base encoder in bf16, then
+   `resume=auto` to a second epoch. ((a), the K3 check, is in phase 3.)
+7. Time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function, at the main path's shapes;
-   print one JSON line of kernel records (launch counts come from phases
-   4-5 only, with every count set to 0 just before phase 4).
+   print one JSON line of kernel records. A record's launches are the sum of
+   the counts read after phases 4-5 (inference) and after phase 6 (train),
+   each path driven with every count set to 0 just before it.
 
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -46,13 +63,15 @@ import time
 import numpy as np
 import torch
 
-from blp_tpu_torch import evaluation, serve
+from blp_tpu_torch import evaluation, serve, train, training
+from blp_tpu_torch.data import prefetch, sampling
 from blp_tpu_torch.data.datasets import GraphData, TextGraphData
 from blp_tpu_torch.data.filtering import FilterIndex
+from blp_tpu_torch.data.loader import epoch_batches, text_train_batch
 from blp_tpu_torch.data.synth import write_synth_dataset
 from blp_tpu_torch.data.tokenizers import WordPieceTokenizer
 from blp_tpu_torch.models import bert, blp
-from blp_tpu_torch.ops import _cuda, packed_attention, transe_rank
+from blp_tpu_torch.ops import _cuda, packed_attention, sddmm, transe_rank
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -69,6 +88,11 @@ K1_Q, K1_D = 128, 128            # 2 x eval batch 64, TransE dim 128
 W5M_ENTITIES = 4_800_000
 K2_SHAPE = (1024, 12, 128, 64)   # packed rows, heads, Sp, head dim
 SEG = 32                         # max_len: segment length of a packed row
+K3_BATCHES = (64, 1024)          # flagship and Wikidata5M train batch sizes
+K3_K, K3_D = 64, 128             # negatives per edge, entity width
+# K3's TransE terms per element: the add, the subtract (|.| folds into an
+# operand) and the accumulate, each one non-FMA fp32 instruction.
+K3_TRANSE_OPS = 3
 
 
 def log(msg: str) -> None:
@@ -98,6 +122,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device milliseconds per call: the self time of every kernel the
+    calls launched, summed by torch.profiler. For calls whose kernels take
+    microseconds, where CUDA events around back-to-back calls time the
+    host's launch path instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / reps
+
+
 def wall(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -117,6 +160,8 @@ def _kernel_group(name: str) -> str:
         return "K2 packed_attention"
     if "transe_rank" in low:
         return "K1 transe_rank"
+    if "sddmm" in low:
+        return "K3 sddmm"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
         return "GEMM (cuBLAS)"
     return "other (elementwise, reductions, copies)"
@@ -202,6 +247,49 @@ def check_k2() -> None:
             f"K2 differs from the plain version (max abs err {err})")
     log(f"K2 check: B=64 nh=12 Sp=128 hd=64 seg={SEG}: max abs err {err:.3g} "
         f"(tolerance 2e-2)")
+
+
+def k3_inputs(b: int, seed: int):
+    """fp32 entity and relation rows, and negatives from the port's sampler."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ent = torch.randn((2 * b, K3_D), generator=g, device="cuda")
+    rel = torch.randn((b, K3_D), generator=g, device="cuda")
+    neg = sampling.sample_negative_indices(g, b, K3_K, device="cuda")
+    return ent, rel, neg
+
+
+def _margin_grads(fn, ent, rel, neg, rel_model):
+    e = ent.clone().requires_grad_()
+    r = rel.clone().requires_grad_()
+    pos, negs = fn(e, r, neg, rel_model)
+    torch.relu(1.0 - pos + negs).mean().backward()
+    return pos.detach(), negs.detach(), e.grad, r.grad
+
+
+def check_k3() -> dict:
+    """(a) of the train phase: every scorer at both batch sizes. Returns
+    the largest forward error per batch size."""
+    errs = {}
+    for b in K3_BATCHES:
+        errs[b] = 0.0
+        for i, rel_model in enumerate(sddmm.MODELS):
+            ent, rel, neg = k3_inputs(b, seed=10 + i)
+            got = _margin_grads(sddmm.sddmm_scores, ent, rel, neg, rel_model)
+            want = _margin_grads(sddmm.sddmm_scores_plain, ent, rel, neg,
+                                 rel_model)
+            torch.cuda.synchronize()
+            for x, y in zip(got[:2], want[:2]):
+                errs[b] = max(errs[b], (x - y).abs().max().item())
+                require(torch.allclose(x, y, rtol=1e-5, atol=1e-5),
+                        f"K3 {rel_model} B={b}: scores differ from the plain "
+                        f"version by {(x - y).abs().max().item()}")
+            require(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]),
+                    f"K3 {rel_model} B={b}: margin-loss gradients are not "
+                    f"identical to plain autograd")
+        log(f"K3 check: B={b} K={K3_K} d={K3_D} fp32, transe/distmult/complex/"
+            f"simple: max abs err {errs[b]:.3g} (tolerance 1e-5), margin-loss "
+            f"gradients identical")
+    return errs
 
 
 # -- phase 4: serve ----------------------------------------------------------
@@ -365,7 +453,159 @@ def eval_phase(data_dir: str, cfg, params) -> dict:
             "w5m_marginal_ms_per_batch": marginal_ms, "w5m_profile": w5m_prof}
 
 
-# -- phase 6: timings at the main path's shapes ----------------------------------
+# -- phase 6: train --------------------------------------------------------------
+
+def train_model(num_relations: int, **enc_kw):
+    """BERT-base BLP-TransE for training with K3: bf16, dropout 0.1 (32-bit
+    masks), random weights from seed 0, BERT layers unstacked."""
+    enc = bert.BertConfig(compute_dtype=torch.bfloat16, **enc_kw)
+    cfg = blp.ModelConfig(model="blp", rel_model="transe", dim=128,
+                          num_relations=num_relations, encoder=enc,
+                          sddmm_pallas=True)
+    params = training.unstack_params(blp.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cuda"))
+    return cfg, params
+
+
+def train_batches(data_dir: str, max_len: int, batch_size: int, n: int) -> list:
+    tok = WordPieceTokenizer(os.path.join(data_dir, "vocab.txt"))
+    data = TextGraphData.load(os.path.join(data_dir, "ind-train.tsv"),
+                              tokenizer=tok, max_len=max_len, write_maps=True)
+    out = []
+    for triples in epoch_batches(data, batch_size, rng=np.random.default_rng(0)):
+        out.append(prefetch.to_device(text_train_batch(data, triples), "cuda"))
+        if len(out) == n:
+            return out
+    raise SystemExit(f"FAILED: only {len(out)} batches of {batch_size}")
+
+
+def flagship_train(data_dir: str) -> dict:
+    """(b): the flagship train step, timed, profiled, and held against the
+    same step without K3."""
+    b, k = 64, 64
+    cfg, params = train_model(12)
+    opt = training.make_optimizer(2e-5, 1000)
+    state = opt.init(params)
+    step = training.make_train_step(cfg, opt, batch_size=b, num_negatives=k,
+                                    device="cuda")
+    batches = train_batches(data_dir, SEG, b, 23)
+    losses = []
+    for i in range(3):
+        params, state, loss = step(params, state, (0, i), batches[i])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3, 23):
+        params, state, loss = step(params, state, (0, i), batches[i])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 20
+    losses = torch.stack(losses).cpu()
+    require(bool(torch.isfinite(losses).all()), f"non-finite train loss {losses}")
+    log(f"flagship train step (BERT-base bf16, B={b}, L={SEG}, K={k}, dropout "
+        f"0.1, sddmm_pallas=True): {ms:.2f} ms per step over 20 steps = "
+        f"{b * 1e3 / ms:,.0f} triples/s; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, all finite")
+    prof = device_profile("flagship train step",
+                          lambda: step(params, state, (0, 23), batches[0]))
+
+    # The same step without K3: same parameters, negatives and dropout seed.
+    neg_seed, drop_seed = training.step_seeds((0, 24))
+    batch = dict(batches[1], neg_idx=sampling.sample_negative_indices(
+        torch.Generator(device="cuda").manual_seed(neg_seed), b, k, "cuda"))
+    cfg_plain = dataclasses.replace(cfg, sddmm_pallas=False)
+    loss_k, g_k = training.value_and_grad(params, cfg, batch, dropout_seed=drop_seed)
+    loss_p, g_p = training.value_and_grad(params, cfg_plain, batch,
+                                          dropout_seed=drop_seed)
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    require(rel_loss <= 1e-4, f"sddmm_pallas on/off losses differ by {rel_loss}")
+    for name in ("proj", "rel_emb"):
+        err = (g_k[name] - g_p[name]).abs().max().item()
+        require(torch.allclose(g_k[name], g_p[name], rtol=1e-3, atol=1e-6),
+                f"sddmm_pallas on/off {name} gradients differ by {err}")
+    log(f"flagship step with vs without K3: loss {loss_k.item():.6f} vs "
+        f"{loss_p.item():.6f} (rel {rel_loss:.2g}, limit 1e-4); proj and rel_emb "
+        f"gradients within rtol 1e-3, atol 1e-6 (max abs diff "
+        f"{(g_k['proj'] - g_p['proj']).abs().max().item():.3g}, "
+        f"{(g_k['rel_emb'] - g_p['rel_emb']).abs().max().item():.3g})")
+    return {"train_ms_per_step": ms, "train_triples_per_s": b * 1e3 / ms,
+            "train_losses": [round(float(x), 6) for x in losses],
+            "train_profile": prof, "k3_on_off_rel_loss": rel_loss}
+
+
+def w5m_train(data_dir: str, card: str) -> dict:
+    """(c): the Wikidata5M operating point, B 1,024, L 64, remat=8."""
+    b, k, seq = 1024, 64, 64
+    cfg, params = train_model(12, remat=8)
+    opt = training.make_optimizer(5e-5, 1000)
+    state = opt.init(params)
+    step = training.make_train_step(cfg, opt, batch_size=b, num_negatives=k,
+                                    device="cuda")
+    batches = train_batches(data_dir, seq, b, 3)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i, batch in enumerate(batches):
+        (params, state, loss), s = wall(lambda: step(params, state, (0, i), batch))
+        times.append(s * 1e3)
+        losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses), f"non-finite W5M loss {losses}")
+    log(f"W5M train step (B={b}, L={seq}, remat=8, bf16, sddmm_pallas=True): "
+        f"{[round(t, 1) for t in times]} ms for steps 1-3, "
+        f"{b * 1e3 / times[-1]:,.0f} triples/s at step 3; peak memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated) on {card}")
+    prof = device_profile("W5M train step",
+                          lambda: step(params, state, (0, 3), batches[0]))
+    return {"w5m_train_ms": times, "w5m_train_peak_bytes": peak,
+            "w5m_train_losses": losses, "w5m_train_profile": prof}
+
+
+def cli_train(data_dir: str) -> dict:
+    """(d): the link_prediction command, one epoch, then resume to two."""
+    out_dir = os.path.join(WORK_DIR, "cli_out")
+    argv = ["link_prediction", "with", f"data_dir={os.path.dirname(data_dir)}",
+            f"dataset={os.path.basename(data_dir)}", f"out_dir={out_dir}",
+            "run_id=smoke", "bf16=true", "device=cuda", "emb_batch_size=4096"]
+    results = []
+    for extra in (["max_epochs=1"], ["max_epochs=2", "resume=auto"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            (rc, s) = wall(lambda: train.main(argv + extra))
+        require(rc == 0, f"link_prediction {extra} exited {rc}")
+        results.append((json.loads(buf.getvalue().strip().splitlines()[-1]), s))
+        if len(results) == 1:
+            for name in ("metrics-smoke.jsonl", "model-smoke.npz",
+                         "train_state-smoke.npz", "ent_emb-smoke.npz"):
+                require(os.path.exists(os.path.join(out_dir, name)),
+                        f"link_prediction wrote no {name}")
+    rows = [json.loads(line) for line in
+            open(os.path.join(out_dir, "metrics-smoke.jsonl"))]
+    epochs = [r["step"] for r in rows if "train_loss" in r]
+    require(epochs == [1, 2], f"trained epochs {epochs}, expected [1, 2]")
+    tput = [r["triples_per_sec"] for r in rows if "triples_per_sec" in r]
+    for (res, s), ep in zip(results, (1, 2)):
+        require(math.isfinite(res["test_mrr_filt"]),
+                f"link_prediction epoch {ep}: test_mrr_filt {res['test_mrr_filt']}")
+    log(f"link_prediction (BERT-base bf16, synthetic graph): epoch 1 in "
+        f"{results[0][1]:.1f} s incl. evals ({tput[0]:,.0f} triples/s in the "
+        f"epoch), test MRR filtered {results[0][0]['test_mrr_filt']:.4f}; "
+        f"resume=auto ran epoch 2 only ({results[1][1]:.1f} s, "
+        f"{tput[1]:,.0f} triples/s), test MRR filtered "
+        f"{results[1][0]['test_mrr_filt']:.4f}")
+    return {"cli_epoch_s": [s for _, s in results], "cli_triples_per_s": tput,
+            "cli_test_mrr_filt": [r["test_mrr_filt"] for r, _ in results]}
+
+
+def train_phase(data_dir: str, card: str) -> dict:
+    stats = flagship_train(data_dir)
+    torch.cuda.empty_cache()
+    stats.update(w5m_train(data_dir, card))
+    torch.cuda.empty_cache()
+    stats.update(cli_train(data_dir))
+    return stats
+
+
+# -- phase 7: timings at the main path's shapes ----------------------------------
 
 def time_k1(launches: int) -> dict:
     n = W5M_ENTITIES
@@ -424,6 +664,41 @@ def time_k2(launches: int) -> dict:
             "shape": f"B={b} nh={nh} Sp={sp} hd={hd} seg={SEG} bf16"}
 
 
+def _time_k3_at(b: int) -> dict:
+    ent, rel, neg = k3_inputs(b, seed=20)
+    got = sddmm.sddmm_scores(ent, rel, neg, "transe")
+    want = sddmm.sddmm_scores_plain(ent, rel, neg, "transe")
+    err = max((x - y).abs().max().item() for x, y in zip(got, want))
+    require(err <= 1e-5 * (1 + max(y.abs().max().item() for y in want)),
+            f"K3 error {err} at B={b}")
+    kernel = lambda: sddmm.sddmm_scores(ent, rel, neg, "transe")  # noqa: E731
+    plain = lambda: sddmm.sddmm_scores_plain(ent, rel, neg, "transe")  # noqa: E731
+    ms, plain_ms = device_ms(kernel, reps=100), device_ms(plain, reps=100)
+    call_ms = cuda_ms(kernel, reps=200, warmup=5)
+    # Each input read once, each output written once; the gathered rows are
+    # re-reads of ent, which stays in L2.
+    nbytes = 4.0 * (2 * b * K3_D + b * K3_D + b * K3_K * 2 + b + b * K3_K)
+    ops = float(K3_TRANSE_OPS) * b * (K3_K + 1) * K3_D
+    t_ops, t_bytes = ops / FP32_ADDS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "call_ms": call_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "shape": f"B={b} K={K3_K} d={K3_D} fp32 transe"}
+
+
+def time_k3(launches: int) -> dict:
+    """K3 at the flagship batch (the record's numbers) and at the Wikidata5M
+    batch (under `at_b1024`). `ms` and `plain_ms` are device time per call
+    (device_ms); `call_ms` is the wrapper's time per call from CUDA events
+    around 200 back-to-back calls, host launch path included."""
+    flagship, w5m = (_time_k3_at(b) for b in K3_BATCHES)
+    return {"name": "sddmm (K3)", "route": "cuda",
+            "source": "blp_tpu_torch/csrc/sddmm.cu",
+            "replaces": "blp_tpu/ops/pallas_sddmm.py:45",
+            "launches": launches, **flagship, "library_ms": None,
+            "at_b1024": w5m}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -448,6 +723,7 @@ def main() -> int:
 
     check_k1()
     check_k2()
+    check_k3()
 
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     data_dir = write_synth_dataset(os.path.join(WORK_DIR, "synth4096"),
@@ -455,23 +731,49 @@ def main() -> int:
                                    num_triples=8000, seed=0)
     cfg, params = make_model(num_relations=12)
 
-    transe_rank.launches = 0
-    packed_attention.launches = 0
+    kernel_mods = {"K1": transe_rank, "K2": packed_attention, "K3": sddmm}
+
+    def reset_counts():
+        for mod in kernel_mods.values():
+            mod.launches = 0
+
+    def read_counts() -> dict:
+        return {name: mod.launches for name, mod in kernel_mods.items()}
+
+    reset_counts()
     serve_stats = serve_phase(data_dir, cfg, params)
     eval_stats = eval_phase(data_dir, cfg, params)
-    launches = {"K1": transe_rank.launches, "K2": packed_attention.launches}
-    log(f"main-path launches: {launches}")
-    require(launches["K1"] > 0 and launches["K2"] > 0,
-            "a kernel of the main path was never launched")
+    infer_launches = read_counts()
+    log(f"main-path launches, inference (phases 4-5): {infer_launches}")
     del params
     torch.cuda.empty_cache()
 
-    kernels = [time_k1(launches["K1"]), time_k2(launches["K2"])]
+    reset_counts()
+    train_stats = train_phase(data_dir, card)
+    train_launches = read_counts()
+    log(f"main-path launches, train (phase 6): {train_launches}")
+    launches = {k: infer_launches[k] + train_launches[k] for k in kernel_mods}
+    log(f"main-path launches: {launches}")
+    require(all(n > 0 for n in launches.values()),
+            "a kernel of the main path was never launched")
+    torch.cuda.empty_cache()
+
+    kernels = [time_k1(launches["K1"]), time_k2(launches["K2"]),
+               time_k3(launches["K3"])]
     for kr in kernels:
-        log(f"{kr['name']}: {kr['ms']:.3f} ms (plain {kr['plain_ms']:.3f} ms, "
-            f"library {kr['library_ms']}, bound {kr['bound_ms']:.3f} ms by "
+        log(f"{kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f} ms, "
+            f"library {kr['library_ms']}, bound {kr['bound_ms']:.5f} ms by "
             f"{kr['bound_by']}) at {kr['shape']}")
-    log("summary: " + json.dumps({**serve_stats, **eval_stats}))
+        if "at_b1024" in kr:
+            w = kr["at_b1024"]
+            log(f"{kr['name']}: {w['ms']:.4f} ms (plain {w['plain_ms']:.4f} ms, "
+                f"bound {w['bound_ms']:.5f} ms by {w['bound_by']}) at "
+                f"{w['shape']}")
+        if "call_ms" in kr:
+            log(f"{kr['name']}: device time per call above; per call with "
+                f"the host's launch path {kr['call_ms']:.4f} ms (B=64), "
+                f"{kr['at_b1024']['call_ms']:.4f} ms (B=1024)")
+    log("summary: " + json.dumps({**serve_stats, **eval_stats, **train_stats}))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(card)   # name, power limit: nvidia-smi's own line
     print(json.dumps({"kernels": kernels}))

@@ -116,9 +116,11 @@ def test_poly_gelu_matches_jax():
 
 
 def test_training_mode_raises():
+    """The training pass needs its dropout seed, as the JAX package's needs
+    its dropout_rng."""
     _, tcfg = _configs(TINY)
     jp = _jax_params(j_bert.BertConfig(**TINY))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout_seed required"):
         t_bert.bert_encode(params_from_jax(jp), torch.ones((4, 8), dtype=torch.long),
                            None, tcfg, deterministic=False)
 

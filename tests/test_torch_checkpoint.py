@@ -60,3 +60,27 @@ def test_port_file_loads_in_jax(tmp_path):
     # And back through the port unchanged.
     again, _ = t_ckpt.load_pytree(path)
     assert torch.equal(again["b"][1], tree["b"][1])
+
+
+def test_zero_d_leaves_and_template_load_cross_packages(tmp_path):
+    """0-d leaves (an optimizer's counts) stay 0-d both ways, and a template
+    load unflattens in JAX's order, as blp_tpu.checkpoint does."""
+    import jax
+
+    tree = {"p": {"w": torch.ones((2, 3)), "b": torch.zeros(3)},
+            "s": ((torch.tensor(4, dtype=torch.int32), {"w": torch.ones((2, 3))}),
+                  (torch.tensor(9, dtype=torch.int32),), ())}
+    path = str(tmp_path / "s.npz")
+    t_ckpt.save_pytree(path, tree, {"layout": "stacked"})
+    assert t_ckpt.peek_num_leaves(path) == 5
+    got, _ = t_ckpt.load_pytree(path)
+    assert got["s"][0][0].shape == () and int(got["s"][1][0]) == 9
+    with np.testing.assert_raises(ValueError):
+        t_ckpt.load_pytree(path, template={"only": "one"})
+    jgot, _ = j_ckpt.load_pytree(path, template=jax.tree.map(
+        np.asarray, t_ckpt.tree_unflatten(tree, [x.numpy() for x in
+                                                 t_ckpt.tree_leaves(tree)])))
+    assert np.asarray(jgot["s"][0][0]).shape == ()
+    back, _ = t_ckpt.load_pytree(path, template=tree)
+    for a, b in zip(t_ckpt.tree_leaves(back), t_ckpt.tree_leaves(tree)):
+        assert a.shape == b.shape and torch.equal(a, b)

@@ -13,6 +13,11 @@ tests; this file imports neither JAX nor blp_tpu.)
 Tolerances: K1 counts are integers, compared exactly (the kernel and its
 plain version add in the same fixed fp32 order). K2 outputs are bf16 with
 products summed in another order: rtol = atol = 2e-2, the bf16 noise class.
+K3 scores are fp32 sums in another order: rtol = atol = 1e-5; its
+gradients are the plain formulation's VJP, so they are identical. The
+training step on the card holds the CPU's loss within rtol 1e-5 and its
+gradients within rtol 1e-4, atol 1e-6 (fp32, dropout 0, the same injected
+negatives; cuBLAS sums in another order).
 """
 
 import dataclasses
@@ -22,10 +27,11 @@ import numpy as np
 import pytest
 import torch
 
-from blp_tpu_torch import evaluation
+from blp_tpu_torch import checkpoint, evaluation, training
+from blp_tpu_torch.data import sampling
 from blp_tpu_torch.data.filtering import FilterIndex
 from blp_tpu_torch.models import bert, blp
-from blp_tpu_torch.ops import packed_attention, transe_rank
+from blp_tpu_torch.ops import packed_attention, sddmm, transe_rank
 
 pytestmark = pytest.mark.cuda
 
@@ -184,3 +190,93 @@ def test_eval_on_card_equals_cpu_on_one_table():
                                           **kw)
     assert transe_rank.launches == before + 3
     assert got.scalars("x") == want.scalars("x")
+
+
+@pytest.mark.parametrize("rel_model", ["transe", "distmult", "complex", "simple"])
+@pytest.mark.parametrize("b,k,d", [(64, 64, 128), (5, 3, 16), (7, 9, 300),
+                                   (4, 2, 34), (3, 4, 1024)])
+def test_k3_kernel_matches_plain_and_gradients_identical(rel_model, b, k, d):
+    g = torch.Generator().manual_seed(b + k + d)
+    ent = torch.randn((2 * b, d), generator=g)
+    rel = torch.randn((b, d), generator=g)
+    neg = sampling.sample_negative_indices(torch.Generator().manual_seed(d),
+                                           b, k, device="cpu")
+    want_pos, want_neg = sddmm.sddmm_scores_plain(ent, rel, neg, rel_model)
+    before = sddmm.launches
+    e = ent.cuda().requires_grad_()
+    r = rel.cuda().requires_grad_()
+    pos, negs = sddmm.sddmm_scores(e, r, neg.cuda(), rel_model)
+    torch.cuda.synchronize()
+    assert sddmm.launches == before + 1
+    torch.testing.assert_close(pos.detach().cpu(), want_pos, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(negs.detach().cpu(), want_neg, rtol=1e-5, atol=1e-5)
+    torch.relu(1 - pos + negs).mean().backward()
+    e2 = ent.cuda().requires_grad_()
+    r2 = rel.cuda().requires_grad_()
+    p2, n2 = sddmm.sddmm_scores_plain(e2, r2, neg.cuda(), rel_model)
+    assert torch.equal(torch.relu(1 - pos + negs) > 0,
+                       torch.relu(1 - p2 + n2) > 0)
+    torch.relu(1 - p2 + n2).mean().backward()
+    assert torch.equal(e.grad, e2.grad) and torch.equal(r.grad, r2.grad)
+
+
+def _train_setup(sddmm_pallas, b=8, k=4, seq=8):
+    enc = bert.BertConfig.tiny(hidden_dropout=0.0, attention_dropout=0.0)
+    cfg = blp.ModelConfig(model="blp", rel_model="transe", dim=16,
+                          num_relations=3, encoder=enc, sddmm_pallas=sddmm_pallas)
+    params = training.unstack_params(blp.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    rng = np.random.default_rng(0)
+    batch = {"text_tok": torch.from_numpy(rng.integers(1, 128, (b, 2, seq))),
+             "text_mask": torch.ones((b, 2, seq)),
+             "rels": torch.from_numpy(rng.integers(0, 3, b)),
+             "neg_idx": sampling.sample_negative_indices(
+                 torch.Generator().manual_seed(1), b, k, device="cpu")}
+    return cfg, params, batch
+
+
+@pytest.mark.parametrize("sddmm_pallas", [True, False])
+def test_train_step_on_card_matches_cpu(sddmm_pallas):
+    cfg, params, batch = _train_setup(sddmm_pallas)
+    loss_c, g_c = training.value_and_grad(params, cfg, batch, dropout_seed=3)
+    before = sddmm.launches
+    loss_g, g_g = training.value_and_grad(
+        blp.to_device(params, "cuda"), cfg,
+        {k: v.cuda() for k, v in batch.items()}, dropout_seed=3)
+    assert sddmm.launches == before + int(sddmm_pallas)
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
+    for x, y in zip(checkpoint.tree_leaves(g_g), checkpoint.tree_leaves(g_c)):
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=1e-6)
+
+
+def test_make_train_step_defaults_to_cuda():
+    cfg, params, batch = _train_setup(True)
+    del batch["neg_idx"]
+    opt = training.make_optimizer(1e-3, 10)
+    params = blp.to_device(params, "cuda")
+    state = opt.init(params)
+    step = training.make_train_step(cfg, opt, batch_size=8, num_negatives=4)
+    before = sddmm.launches
+    params, state, loss = step(params, state, (0, 0),
+                               {k: v.cuda() for k, v in batch.items()})
+    assert loss.is_cuda and loss.dim() == 0 and torch.isfinite(loss)
+    assert sddmm.launches == before + 1
+    assert int(state[0][0]) == 1
+
+
+def test_remat_gradients_equal_on_card_with_dropout():
+    enc = bert.BertConfig.tiny(num_layers=3, compute_dtype=torch.bfloat16)
+    cfg = blp.ModelConfig(model="blp", rel_model="transe", dim=16,
+                          num_relations=3, encoder=enc, sddmm_pallas=True)
+    _, params, batch = _train_setup(True)
+    params = blp.to_device(training.unstack_params(blp.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu")), "cuda")
+    batch = {k: v.cuda() for k, v in batch.items()}
+    results = []
+    for remat in (False, 2):
+        c = dataclasses.replace(cfg, encoder=dataclasses.replace(enc, remat=remat))
+        results.append(training.value_and_grad(params, c, batch, dropout_seed=5))
+    assert torch.equal(results[0][0], results[1][0])
+    for x, y in zip(checkpoint.tree_leaves(results[0][1]),
+                    checkpoint.tree_leaves(results[1][1])):
+        assert torch.equal(x, y)

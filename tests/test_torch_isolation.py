@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from blp_tpu_torch import evaluation, serve
+from blp_tpu_torch import evaluation, serve, train, training
+from blp_tpu_torch.config import ExperimentConfig
+from blp_tpu_torch.data import sampling
 from blp_tpu_torch.models import bert, blp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,7 +39,7 @@ def test_port_imports_without_jax_or_blp_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, leaked = out.stdout.split(" ", 1)
-    assert int(count) >= 15
+    assert int(count) >= 28
     assert leaked.strip() == "[]"
 
 
@@ -49,8 +51,10 @@ def _tiny():
 
 
 @pytest.mark.parametrize("entry", ["LinkPredictor", "encode",
-                                   "eval_link_prediction", "init_params"])
-def test_entry_points_default_to_cuda(entry):
+                                   "eval_link_prediction", "init_params",
+                                   "make_train_step", "link_prediction",
+                                   "sample_negative_indices"])
+def test_entry_points_default_to_cuda(entry, tmp_path):
     cfg, params = _tiny()
     calls = {
         "LinkPredictor": lambda: serve.LinkPredictor(params=params, cfg=cfg),
@@ -58,6 +62,13 @@ def test_entry_points_default_to_cuda(entry):
         "eval_link_prediction": lambda: evaluation.eval_link_prediction(
             params, cfg, np.zeros((1, 3), np.int64), None, np.arange(4)),
         "init_params": lambda: blp.init_params(cfg, torch.Generator()),
+        "make_train_step": lambda: training.make_train_step(
+            cfg, training.make_optimizer(1e-3, 10), batch_size=4,
+            num_negatives=2),
+        "link_prediction": lambda: train.link_prediction(
+            ExperimentConfig(out_dir=str(tmp_path))),
+        "sample_negative_indices": lambda: sampling.sample_negative_indices(
+            torch.Generator(), 4, 2),
     }
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is usable")
