@@ -6,7 +6,10 @@ of its own segment. The CUDA kernel (csrc/packed_attention.cu) computes, per
 (row, head), q k^T with f32 accumulation, `* scale + bias` in f32 with the
 bias rebuilt from the (Sp,) key mask, one round to bf16, a softmax with f32
 statistics, p to bf16, and p v with f32 accumulation, written as bf16 into
-the (B, Sp, nh*hd) layout the attention-output GEMM reads.
+the (B, Sp, nh*hd) layout the attention-output GEMM reads. It computes only
+each segment's diagonal block (exact: keys outside a query's segment get
+probability exactly 0 when its segment has a real key) and runs a segment
+with no real key against the whole row, as the TPU kernel does.
 
 Routing: `block_diag_attention` runs the plain version for tensors on the
 CPU and the kernel for CUDA tensors, with no fallback between them (the TPU
@@ -67,6 +70,8 @@ def _kernel(q, k, v, key_mask, *, seg: int, scale: float) -> torch.Tensor:
     mask = key_mask.to(torch.float32).contiguous()
     if hd % 8 == 0 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("packed_attention: q, k, v must be 16-byte aligned")
+    if hd > 128:
+        raise ValueError(f"packed_attention: head dim {hd} above 128")
     lib = _cuda.load("packed_attention")
     smem = lib.packed_attention_smem_bytes
     smem.restype = ctypes.c_longlong
@@ -97,9 +102,10 @@ def block_diag_attention(q, k, v, key_mask, *, seg: int,
     q, k, v: (B, nh, Sp, hd) bf16 head-major projections; key_mask: (B, Sp),
     1 for real tokens; seg: segment length (Sp must divide by it). Returns
     (B, Sp, nh*hd) bf16. The kernel on CUDA tensors, the plain version on
-    CPU tensors. The kernel keeps a (row, head) pair's whole Sp x Sp logits
-    tile in shared memory, so it raises for rows too long for that (Sp >
-    160 at hd 64); packed BERT rows are at most 128 tokens.
+    CPU tensors. The kernel stages a (row, head) pair's q, k and v in shared
+    memory, so it raises for rows too long for that (Sp > 592 at hd 64) and
+    for hd above 128; packed BERT rows are at most 128 tokens, BERT's
+    positions 512.
     """
     sp = q.shape[2]
     if sp % seg:

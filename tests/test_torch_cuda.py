@@ -115,6 +115,15 @@ def _k2_inputs(b, nh, nseg, seg, hd, seed):
     (2, 2, 4, 10, 12),      # hd not a multiple of 8: scalar staging
     (1, 2, 1, 5, 24),
     (1, 1, 2, 7, 9),        # odd hd: scalar stores
+    (1, 12, 4, 32, 64),     # B 1 and 2: fewer pairs than SMs
+    (2, 12, 4, 32, 64),
+    (23, 12, 4, 32, 64),    # 276 pairs: not a multiple of the grid
+    (1, 2, 6, 32, 64),      # Sp 192
+    (2, 4, 6, 32, 64),
+    (2, 2, 8, 3, 64),       # seg 3: a 16-row tile spans six segments
+    (2, 2, 4, 32, 128),     # hd 128 at Sp 128: two blocks per SM
+    (1, 2, 16, 32, 64),     # Sp 512, BERT's positions
+    (1, 2, 37, 16, 64),     # Sp 592, the longest row a block holds at hd 64
 ])
 def test_k2_kernel_matches_plain(b, nh, nseg, seg, hd):
     q, k, v, mask = _k2_inputs(b, nh, nseg, seg, hd, seed=b * nh + hd)
@@ -132,12 +141,41 @@ def test_k2_kernel_matches_plain(b, nh, nseg, seg, hd):
                                atol=2e-2)
 
 
-def test_k2_refuses_rows_beyond_shared_memory():
-    q = torch.zeros((1, 2, 192, 64), dtype=torch.bfloat16, device="cuda")
+def test_k2_empty_segments_at_the_main_path_shape():
+    """Segments with no real key take the whole-row path: a fully masked
+    packed row, and empty tail segments as in a padded final batch."""
+    q, k, v, mask = _k2_inputs(16, 12, 4, 32, 64, seed=3)
+    mask[0] = 0.0
+    mask[5, 64:] = 0.0
+    mask[9, 96:] = 0.0
+    mask[12, :32] = 0.0
+    mask[12, 64:96] = 0.0
+    want = packed_attention.block_diag_attention(q, k, v, mask, seg=32,
+                                                 scale=0.125)
+    got = packed_attention.block_diag_attention(
+        q.cuda(), k.cuda(), v.cuda(), mask.cuda(), seg=32, scale=0.125)
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_k2_refuses_misaligned_inputs():
+    buf = torch.zeros(2 * 4 * 32 * 64 + 1, dtype=torch.bfloat16, device="cuda")
+    q = buf[1:].view(1, 2, 4 * 32, 64)
     before = packed_attention.launches
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="16-byte aligned"):
         packed_attention.block_diag_attention(
-            q, q, q, torch.ones((1, 192), device="cuda"), seg=64, scale=1.0)
+            q, q, q, torch.ones((1, 128), device="cuda"), seg=32, scale=1.0)
+    assert packed_attention.launches == before
+
+
+@pytest.mark.parametrize("sp,hd,match", [(608, 64, "shared memory"),
+                                         (32, 136, "head dim")])
+def test_k2_refuses_shapes_beyond_its_limits(sp, hd, match):
+    q = torch.zeros((1, 2, sp, hd), dtype=torch.bfloat16, device="cuda")
+    before = packed_attention.launches
+    with pytest.raises(ValueError, match=match):
+        packed_attention.block_diag_attention(
+            q, q, q, torch.ones((1, sp), device="cuda"), seg=32, scale=1.0)
     assert packed_attention.launches == before
 
 

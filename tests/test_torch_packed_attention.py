@@ -68,6 +68,47 @@ def test_fully_masked_segment_matches():
                                rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("segment_has_key", [True, False])
+@pytest.mark.parametrize("nh,hd,nseg,seg", [(4, 8, 4, 8), (3, 16, 2, 16),
+                                            (12, 64, 4, 32)])
+def test_other_segments_cannot_reach_a_segment_with_a_real_key(
+        nh, hd, nseg, seg, segment_has_key):
+    """The fact the kernel's diagonal-only design rests on: fresh q, k, v
+    everywhere outside segment 1 of row 1 leave that segment's output
+    bit-identical when it has a real key (the other keys' probabilities are
+    exactly 0), in the TPU package and in the port; with no real key its
+    softmax spans the whole row, so the output changes."""
+    q, k, v, key_mask = _inputs(nh, hd, nseg, seg)
+    lo, hi = seg, 2 * seg                   # segment 1
+    if not segment_has_key:
+        key_mask[1, lo:hi] = 0.0
+    assert (key_mask[1, lo:hi].max() > 0) == segment_has_key
+    rng = np.random.default_rng(7)
+    fresh = []
+    for a in (q, k, v):
+        b = a.copy()
+        noise = np.asarray(jnp.asarray(rng.standard_normal(b[1].shape),
+                                       jnp.bfloat16))
+        outside = np.ones(b.shape[2], bool)
+        outside[lo:hi] = False
+        b[1][:, outside] = noise[:, outside]
+        fresh.append(b)
+    scale = 1.0 / math.sqrt(hd)
+
+    def both(q, k, v):
+        jx = pallas_attention.block_diag_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(key_mask), seg=seg, scale=scale, interpret=True)
+        pt = packed_attention.block_diag_attention(
+            _bf16_torch(q), _bf16_torch(k), _bf16_torch(v),
+            torch.from_numpy(key_mask), seg=seg, scale=scale)
+        return (np.asarray(jx)[1, lo:hi].view(np.uint16),
+                pt[1, lo:hi].view(torch.int16).numpy().view(np.uint16))
+
+    for before, after in zip(both(q, k, v), both(*fresh)):
+        assert np.array_equal(before, after) == segment_has_key
+
+
 def test_indivisible_segment_raises():
     q = torch.zeros((2, 4, 24, 8), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="not divisible"):
