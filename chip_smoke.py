@@ -13,10 +13,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (TransE rank counts) must give identical counts; K2 (packed attention,
    with about 1 row in 8 ending in empty segments) must agree within rtol =
    atol = 2e-2, and the share of outputs more than one bf16 ulp away is
-   printed; K3 (the SDDMM scorer of training)
-   for all four scorers at B = 64 and 1,024 (K 64, d 128, fp32, negatives
-   from the port's sampler): scores within rtol = atol = 1e-5, margin-loss
-   gradients identical to plain autograd.
+   printed; K3 (the SDDMM scorer of training, forward and backward kernels)
+   for all four scorers at B = 64 and 1,024 (K 64, d 128, fp32), on
+   negatives from the port's sampler and on an adversarial set (a hot row
+   on both sides, own slots, and K = 0): scores within rtol = atol = 1e-5,
+   margin-loss gradients within rtol 1e-5, atol 1e-6 of plain autograd and
+   identical across two backward calls (and whether they equal the plain
+   backward run on the CPU, bit for bit, is printed).
 4. Serve (the main path, part 1): a BERT-base BLP-TransE model (12 layers,
    hidden 768, 12 heads, FFN 3072, vocab 28,996, dim 128; random weights
    from seed 0) with bf16 compute and the fused attention kernel encodes a
@@ -40,10 +43,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    epoch on the synthetic graph with the BERT-base encoder in bf16, then
    `resume=auto` to a second epoch. ((a), the K3 check, is in phase 3.)
 7. Time each kernel, its plain version and, where one exists, the one
-   PyTorch call that computes the same function, at the main path's shapes;
-   print one JSON line of kernel records. A record's launches are the sum of
-   the counts read after phases 4-5 (inference) and after phase 6 (train),
-   each path driven with every count set to 0 just before it.
+   PyTorch call that computes the same function, at the main path's shapes
+   (K3's backward: the kernel with its index bookkeeping against the plain
+   formulation's VJP, the parent design's backward); print one JSON line of
+   kernel records. A record's launches are the sum of the counts read after
+   phases 4-5 (inference) and after phase 6 (train), each path driven with
+   every count (K3's forward and backward each have one) set to 0 just
+   before it.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -95,6 +101,9 @@ K3_K, K3_D = 64, 128             # negatives per edge, entity width
 # K3's TransE terms per element: the add, the subtract (|.| folds into an
 # operand) and the accumulate, each one non-FMA fp32 instruction.
 K3_TRANSE_OPS = 3
+# Its backward per task element: (h + r) - t (2), sign times -g (1), and the
+# three accumulates into the head, tail and relation gradients (3).
+K3_TRANSE_BWD_OPS = 6
 
 
 def log(msg: str) -> None:
@@ -124,11 +133,12 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, warmup: int = 3) -> float:
+def device_ms(fn, reps: int, warmup: int = 3) -> tuple[float, float, dict]:
     """Mean device milliseconds per call: the self time of every kernel the
     calls launched, summed by torch.profiler. For calls whose kernels take
     microseconds, where CUDA events around back-to-back calls time the
-    host's launch path instead."""
+    host's launch path instead. Also returns the device launches per call
+    and the milliseconds per call by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -138,9 +148,12 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total_us / 1e3 / reps
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in events)
+    by_name = {e.key: e.self_device_time_total / 1e3 / reps for e in events}
+    return (total_us / 1e3 / reps, sum(e.count for e in events) / reps,
+            by_name)
 
 
 def wall(fn):
@@ -162,8 +175,10 @@ def _kernel_group(name: str) -> str:
         return "K2 packed_attention"
     if "transe_rank" in low:
         return "K1 transe_rank"
+    if "sddmm_bwd" in low:
+        return "K3 sddmm backward"
     if "sddmm" in low:
-        return "K3 sddmm"
+        return "K3 sddmm forward"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
         return "GEMM (cuBLAS)"
     return "other (elementwise, reductions, copies)"
@@ -268,46 +283,85 @@ def check_k2() -> None:
         f"ulp from the plain version")
 
 
-def k3_inputs(b: int, seed: int):
-    """fp32 entity and relation rows, and negatives from the port's sampler."""
+def k3_inputs(b: int, seed: int, k: int = K3_K, adversarial: bool = False):
+    """fp32 entity and relation rows, and negatives from the port's sampler,
+    or adversarial ones: row 0 on both sides of every third task, the own
+    slots swapped, doubled, or kept (one own slot, as the sampler does)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     ent = torch.randn((2 * b, K3_D), generator=g, device="cuda")
     rel = torch.randn((b, K3_D), generator=g, device="cuda")
-    neg = sampling.sample_negative_indices(g, b, K3_K, device="cuda")
+    if not adversarial:
+        return ent, rel, sampling.sample_negative_indices(g, b, k, device="cuda")
+    neg = torch.randint(0, 2 * b, (b, k, 2), generator=g, device="cuda",
+                        dtype=torch.int32)
+    own = 2 * torch.arange(b, dtype=torch.int32, device="cuda")
+    neg[:, 0::3] = 0
+    neg[:, 1::3, 0], neg[:, 1::3, 1] = (own + 1)[:, None], own[:, None]
+    neg[:, 2::6, 0], neg[:, 2::6, 1] = own[:, None], own[:, None]
+    neg[:, 5::6, 0] = own[:, None]
     return ent, rel, neg
 
 
-def _margin_grads(fn, ent, rel, neg, rel_model):
+def _margin_grads(fn, ent, rel, neg, rel_model, calls: int = 1):
+    """Scores and margin-loss gradients; `calls` backward passes over one
+    forward (each returns its own gradients)."""
     e = ent.clone().requires_grad_()
     r = rel.clone().requires_grad_()
     pos, negs = fn(e, r, neg, rel_model)
-    torch.relu(1.0 - pos + negs).mean().backward()
-    return pos.detach(), negs.detach(), e.grad, r.grad
+    loss = torch.relu(1.0 - pos + negs).mean() if negs.numel() else -pos.mean()
+    grads = [torch.autograd.grad(loss, (e, r), retain_graph=True)
+             for _ in range(calls)]
+    return pos.detach(), negs.detach(), grads
 
 
 def check_k3() -> dict:
-    """(a) of the train phase: every scorer at both batch sizes. Returns
-    the largest forward error per batch size."""
+    """(a) of the train phase: every scorer at both batch sizes, on sampler
+    indices and on adversarial ones (K 64 and K 0). Returns the largest
+    forward and gradient errors per batch size."""
     errs = {}
     for b in K3_BATCHES:
-        errs[b] = 0.0
+        errs[b] = {"scores": 0.0, "grads": 0.0}
+        cpu_equal = []
         for i, rel_model in enumerate(sddmm.MODELS):
-            ent, rel, neg = k3_inputs(b, seed=10 + i)
-            got = _margin_grads(sddmm.sddmm_scores, ent, rel, neg, rel_model)
-            want = _margin_grads(sddmm.sddmm_scores_plain, ent, rel, neg,
-                                 rel_model)
-            torch.cuda.synchronize()
-            for x, y in zip(got[:2], want[:2]):
-                errs[b] = max(errs[b], (x - y).abs().max().item())
-                require(torch.allclose(x, y, rtol=1e-5, atol=1e-5),
-                        f"K3 {rel_model} B={b}: scores differ from the plain "
-                        f"version by {(x - y).abs().max().item()}")
-            require(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]),
-                    f"K3 {rel_model} B={b}: margin-loss gradients are not "
-                    f"identical to plain autograd")
-        log(f"K3 check: B={b} K={K3_K} d={K3_D} fp32, transe/distmult/complex/"
-            f"simple: max abs err {errs[b]:.3g} (tolerance 1e-5), margin-loss "
-            f"gradients identical")
+            for k, adversarial in ((K3_K, False), (K3_K, True), (0, True)):
+                what = (f"K3 {rel_model} B={b} K={k}"
+                        f"{' adversarial' if adversarial else ''}")
+                ent, rel, neg = k3_inputs(b, 10 + i, k, adversarial)
+                pos, negs, grads = _margin_grads(sddmm.sddmm_scores, ent, rel,
+                                                 neg, rel_model, calls=2)
+                want = _margin_grads(sddmm.sddmm_scores_plain, ent, rel, neg,
+                                     rel_model)
+                torch.cuda.synchronize()
+                for x, y in zip((pos, negs), want[:2]):
+                    err = (x - y).abs().max().item() if x.numel() else 0.0
+                    errs[b]["scores"] = max(errs[b]["scores"], err)
+                    require(torch.allclose(x, y, rtol=1e-5, atol=1e-5),
+                            f"{what}: scores differ from the plain version "
+                            f"by {err}")
+                for x, twice, y in zip(grads[0], grads[1], want[2][0]):
+                    err = (x - y).abs().max().item()
+                    errs[b]["grads"] = max(errs[b]["grads"], err)
+                    require(torch.allclose(x, y, rtol=1e-5, atol=1e-6),
+                            f"{what}: margin-loss gradients differ from plain "
+                            f"autograd by {err} (rtol 1e-5, atol 1e-6)")
+                    require(torch.equal(x, twice),
+                            f"{what}: two backward calls differ")
+                g_pos = torch.full((b, 1), 0.5, device="cuda")
+                g_neg = torch.linspace(-1, 1, b * k, device="cuda").reshape(b, k)
+                got = sddmm._sddmm_backward_kernel(ent, rel, neg, g_pos, g_neg,
+                                                   rel_model)
+                ref = sddmm.sddmm_scores_backward_plain(
+                    ent.cpu(), rel.cpu(), neg.cpu(), g_pos.cpu(), g_neg.cpu(),
+                    rel_model)
+                cpu_equal.append(all(torch.equal(x.cpu(), y)
+                                     for x, y in zip(got, ref)))
+        log(f"K3 check: B={b} d={K3_D} fp32, transe/distmult/complex/simple, "
+            f"sampler K={K3_K}, adversarial K={K3_K} and K=0: scores max abs "
+            f"err {errs[b]['scores']:.3g} (tolerance 1e-5); margin-loss "
+            f"gradients max abs err {errs[b]['grads']:.3g} against plain "
+            f"autograd (rtol 1e-5, atol 1e-6), identical across two calls; "
+            f"backward bit-identical to the CPU plain backward in "
+            f"{sum(cpu_equal)} of {len(cpu_equal)} cases")
     return errs
 
 
@@ -685,7 +739,19 @@ def time_k2(launches: int) -> dict:
                      f"1 row in 8 with empty tail segments"}
 
 
-def _time_k3_at(b: int) -> dict:
+def _k3_plain_vjp(ent, rel, neg, g_pos, g_neg, rel_model):
+    """The parent design's backward: the plain formulation re-run under
+    autograd on the saved inputs, then its VJP (scorer and index
+    backward)."""
+    with torch.enable_grad():
+        e = ent.detach().requires_grad_()
+        r = rel.detach().requires_grad_()
+        out = sddmm.sddmm_scores_plain(e, r, neg, rel_model)
+        return torch.autograd.grad(out, (e, r), (g_pos, g_neg))
+
+
+def _time_k3_at(b: int) -> tuple[dict, dict]:
+    """Forward and backward records at batch size b (TransE, K 64, d 128)."""
     ent, rel, neg = k3_inputs(b, seed=20)
     got = sddmm.sddmm_scores(ent, rel, neg, "transe")
     want = sddmm.sddmm_scores_plain(ent, rel, neg, "transe")
@@ -694,30 +760,71 @@ def _time_k3_at(b: int) -> dict:
             f"K3 error {err} at B={b}")
     kernel = lambda: sddmm.sddmm_scores(ent, rel, neg, "transe")  # noqa: E731
     plain = lambda: sddmm.sddmm_scores_plain(ent, rel, neg, "transe")  # noqa: E731
-    ms, plain_ms = device_ms(kernel, reps=100), device_ms(plain, reps=100)
+    (ms, _, _), (plain_ms, _, _) = device_ms(kernel, reps=100), device_ms(
+        plain, reps=100)
     call_ms = cuda_ms(kernel, reps=200, warmup=5)
     # Each input read once, each output written once; the gathered rows are
     # re-reads of ent, which stays in L2.
     nbytes = 4.0 * (2 * b * K3_D + b * K3_D + b * K3_K * 2 + b + b * K3_K)
     ops = float(K3_TRANSE_OPS) * b * (K3_K + 1) * K3_D
     t_ops, t_bytes = ops / FP32_ADDS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "call_ms": call_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "shape": f"B={b} K={K3_K} d={K3_D} fp32 transe"}
+    fwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "call_ms": call_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "shape": f"B={b} K={K3_K} d={K3_D} fp32 transe"}
+
+    # Backward: margin-loss-sized cotangents.
+    g = torch.Generator(device="cuda").manual_seed(21)
+    g_pos = torch.randn((b, 1), generator=g, device="cuda") / (b * K3_K)
+    g_neg = torch.randn((b, K3_K), generator=g, device="cuda") / (b * K3_K)
+    args = (ent, rel, neg, g_pos, g_neg, "transe")
+    got = sddmm._sddmm_backward_kernel(*args)
+    want = _k3_plain_vjp(*args)
+    err = max((x - y).abs().max().item() for x, y in zip(got, want))
+    require(all(torch.allclose(x, y, rtol=1e-5, atol=1e-6)
+                for x, y in zip(got, want)),
+            f"K3 backward error {err} at B={b}")
+    ms, per_call, by_name = device_ms(lambda: sddmm._sddmm_backward_kernel(*args),
+                                      reps=100)
+    plain_ms, plain_per_call, _ = device_ms(lambda: _k3_plain_vjp(*args),
+                                            reps=100)
+    kernel_ms = sum(v for k, v in by_name.items() if "sddmm_bwd" in k)
+    log(f"K3 backward at B={b}, device ms per call by kernel: " + "; ".join(
+        f"{v:.4f} {k[:60]}" for k, v in sorted(by_name.items(),
+                                                key=lambda x: -x[1])))
+    # Inputs read once (ent, rel, neg_idx, the cotangents), outputs written
+    # once (d_ent, d_rel).
+    nbytes = 4.0 * (2 * b * K3_D + b * K3_D + b * K3_K * 2 + b + b * K3_K
+                    + 2 * b * K3_D + b * K3_D)
+    ops = float(K3_TRANSE_BWD_OPS) * b * (K3_K + 1) * K3_D
+    t_ops, t_bytes = ops / FP32_ADDS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bwd = {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "launches_per_call": per_call,
+           "plain_launches_per_call": plain_per_call,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "shape": f"B={b} K={K3_K} d={K3_D} fp32 transe"}
+    return fwd, bwd
 
 
-def time_k3(launches: int) -> dict:
-    """K3 at the flagship batch (the record's numbers) and at the Wikidata5M
-    batch (under `at_b1024`). `ms` and `plain_ms` are device time per call
-    (device_ms); `call_ms` is the wrapper's time per call from CUDA events
-    around 200 back-to-back calls, host launch path included."""
-    flagship, w5m = (_time_k3_at(b) for b in K3_BATCHES)
-    return {"name": "sddmm (K3)", "route": "cuda",
-            "source": "blp_tpu_torch/csrc/sddmm.cu",
-            "replaces": "blp_tpu/ops/pallas_sddmm.py:45",
-            "launches": launches, **flagship, "library_ms": None,
-            "at_b1024": w5m}
+def time_k3(launches: int, backward_launches: int) -> list[dict]:
+    """K3's forward and backward at the flagship batch (the records'
+    numbers) and at the Wikidata5M batch (under `at_b1024`). `ms` and
+    `plain_ms` are device time per call (device_ms); the forward's `call_ms`
+    is the wrapper's time per call from CUDA events around 200 back-to-back
+    calls, host launch path included. The backward's `ms` is its kernel
+    with the index bookkeeping (`kernel_ms` the kernel alone), its
+    `plain_ms` the plain formulation's VJP; `launches_per_call` counts the
+    device launches of one call of each."""
+    (f64, b64), (f1024, b1024) = (_time_k3_at(b) for b in K3_BATCHES)
+    common = {"route": "cuda", "source": "blp_tpu_torch/csrc/sddmm.cu",
+              "library_ms": None}
+    return [{"name": "sddmm (K3)", **common,
+             "replaces": "blp_tpu/ops/pallas_sddmm.py:45",
+             "launches": launches, **f64, "at_b1024": f1024},
+            {"name": "sddmm backward (K3)", **common,
+             "replaces": "blp_tpu/ops/pallas_sddmm.py:148",
+             "launches": backward_launches, **b64, "at_b1024": b1024}]
 
 
 def main() -> int:
@@ -752,14 +859,18 @@ def main() -> int:
                                    num_triples=8000, seed=0)
     cfg, params = make_model(num_relations=12)
 
-    kernel_mods = {"K1": transe_rank, "K2": packed_attention, "K3": sddmm}
+    counters = {"K1": (transe_rank, "launches"),
+                "K2": (packed_attention, "launches"),
+                "K3": (sddmm, "launches"),
+                "K3 backward": (sddmm, "backward_launches")}
 
     def reset_counts():
-        for mod in kernel_mods.values():
-            mod.launches = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
 
     def read_counts() -> dict:
-        return {name: mod.launches for name, mod in kernel_mods.items()}
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
 
     reset_counts()
     serve_stats = serve_phase(data_dir, cfg, params)
@@ -773,23 +884,26 @@ def main() -> int:
     train_stats = train_phase(data_dir, card)
     train_launches = read_counts()
     log(f"main-path launches, train (phase 6): {train_launches}")
-    launches = {k: infer_launches[k] + train_launches[k] for k in kernel_mods}
+    launches = {k: infer_launches[k] + train_launches[k] for k in counters}
     log(f"main-path launches: {launches}")
     require(all(n > 0 for n in launches.values()),
             "a kernel of the main path was never launched")
     torch.cuda.empty_cache()
 
     kernels = [time_k1(launches["K1"]), time_k2(launches["K2"]),
-               time_k3(launches["K3"])]
+               *time_k3(launches["K3"], launches["K3 backward"])]
     for kr in kernels:
-        log(f"{kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f} ms, "
-            f"library {kr['library_ms']}, bound {kr['bound_ms']:.5f} ms by "
-            f"{kr['bound_by']}) at {kr['shape']}")
-        if "at_b1024" in kr:
-            w = kr["at_b1024"]
-            log(f"{kr['name']}: {w['ms']:.4f} ms (plain {w['plain_ms']:.4f} ms, "
-                f"bound {w['bound_ms']:.5f} ms by {w['bound_by']}) at "
-                f"{w['shape']}")
+        for rec in (kr, kr.get("at_b1024")):
+            if rec is None:
+                continue
+            log(f"{kr['name']}: {rec['ms']:.4f} ms (plain "
+                f"{rec['plain_ms']:.4f} ms, library {kr['library_ms']}, "
+                f"bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}) at "
+                f"{rec['shape']}")
+            if "kernel_ms" in rec:
+                log(f"  of which the kernel {rec['kernel_ms']:.4f} ms; "
+                    f"{rec['launches_per_call']:g} device launches per call "
+                    f"(plain VJP: {rec['plain_launches_per_call']:g})")
         if "call_ms" in kr:
             log(f"{kr['name']}: device time per call above; per call with "
                 f"the host's launch path {kr['call_ms']:.4f} ms (B=64), "

@@ -14,7 +14,10 @@ Tolerances: K1 counts are integers, compared exactly (the kernel and its
 plain version add in the same fixed fp32 order). K2 outputs are bf16 with
 products summed in another order: rtol = atol = 2e-2, the bf16 noise class.
 K3 scores are fp32 sums in another order: rtol = atol = 1e-5; its
-gradients are the plain formulation's VJP, so they are identical. The
+backward kernel forms the plain backward's products and adds them in its
+fixed order, so it is bit-identical across calls and to
+sddmm_scores_backward_plain on the CPU, and within rtol 1e-5, atol 1e-6 of
+autograd through the plain formulation (another order). The
 training step on the card holds the CPU's loss within rtol 1e-5 and its
 gradients within rtol 1e-4, atol 1e-6 (fp32, dropout 0, the same injected
 negatives; cuBLAS sums in another order).
@@ -230,7 +233,54 @@ def test_eval_on_card_equals_cpu_on_one_table():
     assert got.scalars("x") == want.scalars("x")
 
 
-@pytest.mark.parametrize("rel_model", ["transe", "distmult", "complex", "simple"])
+K3_MODELS = ["transe", "distmult", "complex", "simple"]
+
+
+def _k3_indices(g, b, k, kind):
+    """(B, K, 2) int32 corruption indices: the sampler's (one own slot in
+    every task), or arbitrary ones in [0, 2B) with one row hit by many tasks
+    on both sides and the own slots swapped or doubled."""
+    if kind == "sampler":
+        return sampling.sample_negative_indices(g, b, k, device="cpu")
+    neg = torch.randint(0, 2 * b, (b, k, 2), generator=g, dtype=torch.int32)
+    own = 2 * torch.arange(b, dtype=torch.int32)
+    neg[:, 0::3] = 0                                  # a hot row, both sides
+    if k > 1:
+        neg[:, 1, 0], neg[:, 1, 1] = own + 1, own     # own slots, swapped
+    if k > 2:
+        neg[:, 2, 0], neg[:, 2, 1] = own, own         # the own head twice
+    return neg
+
+
+@pytest.mark.parametrize("rel_model", K3_MODELS)
+@pytest.mark.parametrize("b,k,d,kind,offset", [
+    (1, 4, 128, "arbitrary", 0),     # B 1: a single edge row
+    (2, 64, 128, "sampler", 0),
+    (23, 64, 128, "sampler", 0),     # 207 warps: not a multiple of a block
+    (1024, 64, 128, "sampler", 0),   # the Wikidata5M batch
+    (23, 7, 128, "arbitrary", 0),
+    (16, 0, 128, "arbitrary", 0),    # K 0: the positive pair only
+    (9, 5, 64, "sampler", 1),        # ent 4 bytes off 16: scalar loads
+    (9, 5, 64, "sampler", 2),        # ent 8 bytes off 16: float2 loads
+])
+def test_k3_forward_matches_plain(rel_model, b, k, d, kind, offset):
+    g = torch.Generator().manual_seed(b + k + d + offset)
+    buf = torch.randn(2 * b * d + offset, generator=g)
+    ent = buf[offset:].view(2 * b, d)
+    rel = torch.randn((b, d), generator=g)
+    neg = _k3_indices(g, b, k, kind)
+    want_pos, want_neg = sddmm.sddmm_scores_plain(ent, rel, neg, rel_model)
+    before = sddmm.launches
+    pos, negs = sddmm.sddmm_scores(buf.cuda()[offset:].view(2 * b, d),
+                                   rel.cuda(), neg.cuda(), rel_model)
+    torch.cuda.synchronize()
+    assert sddmm.launches == before + 1
+    assert pos.shape == (b, 1) and negs.shape == (b, k)
+    torch.testing.assert_close(pos.cpu(), want_pos, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(negs.cpu(), want_neg, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rel_model", K3_MODELS)
 @pytest.mark.parametrize("b,k,d", [(64, 64, 128), (5, 3, 16), (7, 9, 300),
                                    (4, 2, 34), (3, 4, 1024)])
 def test_k3_kernel_matches_plain_and_gradients_identical(rel_model, b, k, d):
@@ -248,14 +298,71 @@ def test_k3_kernel_matches_plain_and_gradients_identical(rel_model, b, k, d):
     assert sddmm.launches == before + 1
     torch.testing.assert_close(pos.detach().cpu(), want_pos, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(negs.detach().cpu(), want_neg, rtol=1e-5, atol=1e-5)
-    torch.relu(1 - pos + negs).mean().backward()
+    before = sddmm.backward_launches
+    loss = torch.relu(1 - pos + negs).mean()
+    grads = [torch.autograd.grad(loss, (e, r), retain_graph=True)
+             for _ in range(2)]
+    assert sddmm.backward_launches == before + 2
     e2 = ent.cuda().requires_grad_()
     r2 = rel.cuda().requires_grad_()
     p2, n2 = sddmm.sddmm_scores_plain(e2, r2, neg.cuda(), rel_model)
     assert torch.equal(torch.relu(1 - pos + negs) > 0,
                        torch.relu(1 - p2 + n2) > 0)
     torch.relu(1 - p2 + n2).mean().backward()
-    assert torch.equal(e.grad, e2.grad) and torch.equal(r.grad, r2.grad)
+    for once, twice, autograd in zip(grads[0], grads[1], (e2.grad, r2.grad)):
+        assert torch.equal(once, twice)
+        torch.testing.assert_close(once, autograd, rtol=1e-5, atol=1e-6)
+
+
+def _k3_cotangents(g, b, k):
+    """Cotangents of the size a mean margin loss gives, about 1 / (B·K)."""
+    scale = 1.0 / (b * max(k, 1))
+    return (scale * torch.randn((b, 1), generator=g),
+            scale * torch.randn((b, k), generator=g))
+
+
+@pytest.mark.parametrize("rel_model", K3_MODELS)
+@pytest.mark.parametrize("b,k,d,kind,offset", [
+    (1, 4, 128, "arbitrary", 0),
+    (2, 64, 128, "sampler", 0),
+    (23, 64, 128, "sampler", 0),
+    (1024, 64, 128, "sampler", 0),
+    (23, 7, 128, "arbitrary", 0),    # a hot row: 3 tasks in 7, both sides
+    (16, 0, 128, "arbitrary", 0),
+    (9, 5, 64, "sampler", 1),        # ent 4 bytes off 16: scalar loads
+    (9, 5, 64, "sampler", 2),        # ent 8 bytes off 16: float2 loads
+    (5, 3, 300, "sampler", 0),       # 75 chunks: 3 of 4 register chunks used
+])
+def test_k3_backward_matches_plain(rel_model, b, k, d, kind, offset):
+    """The backward kernel against the plain backward on the CPU (the same
+    products added in the same order: identical bits) and against autograd
+    through the plain formulation (rtol 1e-5, atol 1e-6); two calls give
+    the same bits."""
+    g = torch.Generator().manual_seed(b + k + d + offset)
+    buf = torch.randn(2 * b * d + offset, generator=g)
+    ent = buf[offset:].view(2 * b, d)
+    rel = torch.randn((b, d), generator=g)
+    neg = _k3_indices(g, b, k, kind)
+    g_pos, g_neg = _k3_cotangents(g, b, k)
+    want = sddmm.sddmm_scores_backward_plain(ent, rel, neg, g_pos, g_neg,
+                                             rel_model)
+    e = ent.clone().requires_grad_()
+    r = rel.clone().requires_grad_()
+    auto = torch.autograd.grad(sddmm.sddmm_scores_plain(e, r, neg, rel_model),
+                               (e, r), (g_pos, g_neg))
+    ent_c = buf.cuda()[offset:].view(2 * b, d).requires_grad_()
+    rel_c = rel.cuda().requires_grad_()
+    pos, negs = sddmm.sddmm_scores(ent_c, rel_c, neg.cuda(), rel_model)
+    before = sddmm.backward_launches
+    got = [torch.autograd.grad((pos, negs), (ent_c, rel_c),
+                               (g_pos.cuda(), g_neg.cuda()), retain_graph=True)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sddmm.backward_launches == before + 2
+    for once, twice, w, a in zip(got[0], got[1], want, auto):
+        assert torch.equal(once, twice)
+        assert torch.equal(once.cpu(), w)
+        torch.testing.assert_close(once.cpu(), a, rtol=1e-5, atol=1e-6)
 
 
 def _train_setup(sddmm_pallas, b=8, k=4, seq=8):

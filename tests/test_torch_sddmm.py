@@ -5,8 +5,10 @@ formulation, on the same numpy inputs.
 Forward: rtol = atol = 1e-5, the tolerance of tests/test_pallas_sddmm.py
 (fp32 sums in another order). Gradients of a margin loss through
 _SddmmScores against jax.grad through the custom_vjp: rtol 1e-5, atol 1e-6.
-On the CPU `sddmm_scores` runs the plain version (the kernel needs a CUDA
-tensor; tests/test_torch_cuda.py holds it against this plain version)."""
+On the CPU `sddmm_scores` runs the plain versions of the forward and the
+backward (the kernels need a CUDA tensor; tests/test_torch_cuda.py holds
+them against these plain versions, tests/test_torch_sddmm_backward.py the
+plain backward against JAX)."""
 
 import jax
 import jax.numpy as jnp
@@ -69,20 +71,24 @@ def test_gradients_match_jax_custom_vjp(rel_model):
 
 
 def test_gradients_equal_plain_autograd():
-    """The Function's backward is the VJP of the plain formulation, so its
-    gradients are those of autograd through sddmm_scores_plain, bit for
-    bit."""
+    """The Function's backward (explicit partials added in a fixed order,
+    tests/test_torch_sddmm_backward.py) is within fp32 rounding of autograd
+    through sddmm_scores_plain for every scorer, rtol 1e-5 / atol 1e-6,
+    and gives the same bits on two calls."""
     ent, rel, neg = _inputs(2)
     idx = torch.from_numpy(neg)
-    grads = []
-    for fn in (sddmm.sddmm_scores, sddmm.sddmm_scores_plain):
-        e = torch.from_numpy(ent).requires_grad_()
-        r = torch.from_numpy(rel).requires_grad_()
-        pos, negs = fn(e, r, idx, "transe")
-        torch.relu(1 - pos + negs).mean().backward()
-        grads.append((e.grad, r.grad))
-    assert torch.equal(grads[0][0], grads[1][0])
-    assert torch.equal(grads[0][1], grads[1][1])
+    for rel_model in MODELS:
+        grads = []
+        for fn in (sddmm.sddmm_scores, sddmm.sddmm_scores,
+                   sddmm.sddmm_scores_plain):
+            e = torch.from_numpy(ent).requires_grad_()
+            r = torch.from_numpy(rel).requires_grad_()
+            pos, negs = fn(e, r, idx, rel_model)
+            torch.relu(1 - pos + negs).mean().backward()
+            grads.append((e.grad, r.grad))
+        for once, twice, autograd in zip(*grads):
+            assert torch.equal(once, twice), rel_model
+            torch.testing.assert_close(once, autograd, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("b", [5, 3])
@@ -100,7 +106,9 @@ def test_any_batch_size_runs(b):
 
 def test_cpu_routes_to_plain_without_launch():
     ent, rel, neg = _inputs(4)
-    before = sddmm.launches
-    sddmm.sddmm_scores(torch.from_numpy(ent), torch.from_numpy(rel),
-                       torch.from_numpy(neg), "distmult")
-    assert sddmm.launches == before
+    before = sddmm.launches, sddmm.backward_launches
+    e = torch.from_numpy(ent).requires_grad_()
+    pos, negs = sddmm.sddmm_scores(e, torch.from_numpy(rel),
+                                   torch.from_numpy(neg), "distmult")
+    (pos.sum() + negs.sum()).backward()
+    assert (sddmm.launches, sddmm.backward_launches) == before
