@@ -1,11 +1,18 @@
 """Model assembly: the BLP configuration, init, encode and the training loss.
 
-Port of blp_tpu/models/blp.py for the `blp` (BERT -> [CLS] -> bias-free
-projection) and `transductive` (entity lookup table) models. Entity
-embeddings are L2-normalized iff the relational model is TransE. Parameters
-are plain dicts of tensors in the TPU package's layout; `params_from_jax`
-turns that package's parameter tree (numpy leaves) into this one. The
-bow/dkrl encoders come with a later slice.
+Port of blp_tpu/models/blp.py, the whole model family:
+
+  blp          BERT encoder -> [CLS] -> bias-free projection to dim
+  bert-bow     BOW over BERT's word-embedding table (entity width 768)
+  bert-dkrl    DKRL CNN over BERT's word-embedding table
+  glove-bow    BOW over a GloVe table (entity width 300)
+  glove-dkrl   DKRL CNN over a GloVe table
+  transductive xavier entity lookup table (no text)
+
+Entity embeddings are L2-normalized iff the relational model is TransE.
+Parameters are plain dicts of tensors in the TPU package's layout;
+`params_from_jax` turns that package's parameter tree (numpy leaves) into
+this one.
 
 Deterministic encodes are inference and run under `no_grad`; the training
 pass (`deterministic=False`, `train_loss`) builds an autograd graph.
@@ -20,14 +27,14 @@ import numpy as np
 import torch
 
 from blp_tpu_torch.models import bert as bert_mod
-from blp_tpu_torch.models import scoring
+from blp_tpu_torch.models import encoders, scoring
 from blp_tpu_torch.ops import sddmm
 from blp_tpu_torch.utils import resolve_device
 
 TEXT_MODELS = ("blp", "bert-bow", "bert-dkrl", "glove-bow", "glove-dkrl")
 ALL_MODELS = TEXT_MODELS + ("transductive",)
-#: Models this port can initialize and encode so far.
-PORTED_MODELS = ("blp", "transductive")
+#: Models whose data pipeline drops stopwords (reference: train.py:252-253).
+DROP_STOPWORD_MODELS = frozenset({"bert-bow", "bert-dkrl", "glove-bow", "glove-dkrl"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,12 +76,6 @@ class ModelConfig:
         return self.model != "transductive"
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.model not in PORTED_MODELS:
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (ported: {PORTED_MODELS})")
-
-
 def _xavier_uniform(shape, generator) -> torch.Tensor:
     bound = (6.0 / (shape[0] + shape[1])) ** 0.5
     t = torch.empty(shape, device=generator.device)
@@ -82,10 +83,15 @@ def _xavier_uniform(shape, generator) -> torch.Tensor:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
-                *, hf_state_dict: dict | None = None) -> dict:
-    """Random parameters from `generator` (or BERT weights from an HF state
-    dict), placed on `device` (default cuda)."""
-    _require_ported(cfg)
+                *, word_embeddings=None, hf_state_dict: dict | None = None) -> dict:
+    """Random parameters from `generator`, placed on `device` (default
+    cuda).
+
+    word_embeddings: an initial (V, E) word table for the bow/dkrl models
+      (BERT's word embeddings for the bert- variants, a GloVe tensor for the
+      glove- ones); 0.02 * N(0, 1) of shape (vocab_size, emb_dim) if omitted.
+    hf_state_dict: BERT weights from an HF BertModel state dict (`blp`).
+    """
     dev = resolve_device(device)
     d = cfg.entity_dim
     params: dict = {"rel_emb": _xavier_uniform((cfg.num_relations, d), generator)}
@@ -101,9 +107,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
         params["proj"] = torch.empty((enc.hidden_size, cfg.dim),
                                      device=generator.device).uniform_(
             -bound, bound, generator=generator)
+    elif cfg.model == "transductive":
+        params["ent_emb"] = encoders.init_entity_table(
+            generator, cfg.num_entities, cfg.dim)
     else:
-        params["ent_emb"] = _xavier_uniform((cfg.num_entities, cfg.dim),
-                                            generator)
+        if word_embeddings is not None:
+            we = torch.as_tensor(word_embeddings).to(torch.float32)
+        else:
+            if cfg.vocab_size <= 0:
+                raise ValueError("vocab_size required when word_embeddings not given")
+            we = 0.02 * torch.randn((cfg.vocab_size, cfg.emb_dim),
+                                    device=generator.device, generator=generator)
+        if we.shape[-1] != cfg.emb_dim:
+            raise ValueError(f"word_embeddings width {we.shape[-1]} != emb_dim "
+                             f"{cfg.emb_dim}")
+        params["word_emb"] = we
+        if cfg.model.endswith("dkrl"):
+            params["dkrl"] = encoders.init_dkrl_params(generator, cfg.emb_dim,
+                                                       cfg.dim)
     return to_device(params, dev)
 
 
@@ -156,17 +177,22 @@ def encode_raw(params: dict, cfg: ModelConfig, text_tok, text_mask, *,
                deterministic: bool = True, dropout_seed: int | None = None):
     """Encode (B, L) token batches into entity embeddings, WITHOUT the TransE
     normalization. Runs where `params` live; deterministic=False is the
-    training pass (dropout from `dropout_seed`, with a graph)."""
-    _require_ported(cfg)
-    if cfg.model != "blp":
-        raise ValueError(f"{cfg.model} is not a text model")
+    training pass (dropout from `dropout_seed`, with a graph; the word
+    models have no dropout)."""
     grad_ctx = torch.no_grad() if deterministic else contextlib.nullcontext()
     with grad_ctx:
-        hidden = bert_mod.bert_encode(params["bert"], text_tok, text_mask,
-                                      cfg.encoder, deterministic=deterministic,
-                                      dropout_seed=dropout_seed)
-        cls = hidden[:, 0].to(torch.float32)
-        return torch.matmul(cls, params["proj"].to(torch.float32))
+        if cfg.model == "blp":
+            hidden = bert_mod.bert_encode(params["bert"], text_tok, text_mask,
+                                          cfg.encoder, deterministic=deterministic,
+                                          dropout_seed=dropout_seed)
+            cls = hidden[:, 0].to(torch.float32)
+            return torch.matmul(cls, params["proj"].to(torch.float32))
+        if cfg.model.endswith("bow"):
+            return encoders.bow_encode(params["word_emb"], text_tok, text_mask)
+        if cfg.model.endswith("dkrl"):
+            return encoders.dkrl_encode(params["dkrl"], params["word_emb"],
+                                        text_tok, text_mask)
+    raise ValueError(f"{cfg.model} is not a text model")
 
 
 def encode(params: dict, cfg: ModelConfig, text_tok, text_mask, *,
@@ -188,7 +214,6 @@ def encode(params: dict, cfg: ModelConfig, text_tok, text_mask, *,
 def encode_entity_ids(params: dict, cfg: ModelConfig, entity_ids):
     """Transductive lookup + normalization (differentiable in
     `params["ent_emb"]` when it requires grad)."""
-    _require_ported(cfg)
     ids = torch.as_tensor(entity_ids, device=params["ent_emb"].device).long()
     out = params["ent_emb"][ids]
     if cfg.normalize_embs:
@@ -202,7 +227,7 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     batch's device).
 
     batch (tensors on the params' device):
-      blp:          text_tok (B, 2, L), text_mask (B, 2, L)
+      text models:  text_tok (B, 2, L), text_mask (B, 2, L)
       transductive: pos_pairs (B, 2) entity ids
       both:         rels (B,), neg_idx (B, K, 2)
     With `cfg.sddmm_pallas` the positive and negative scores come from K3

@@ -123,6 +123,29 @@ def sddmm_scores_backward_plain(ent_flat, rel_emb, neg_idx, g_pos, g_neg,
     return d_ent, d_rel
 
 
+#: Chunks per lane of the kernels' register layout (csrc/sddmm.cu kMaxChunks).
+MAX_CHUNKS = 8
+
+
+def vector_width(units: int, d: int, ent_ptr: int, rel_ptr: int) -> int:
+    """The vector width csrc/sddmm.cu's `vector_width` picks for rows of
+    `units` units (elements for transe/distmult, pairs for complex/simple)
+    of width d at the addresses ent_ptr and rel_ptr: 4 where the unit count
+    and d are multiples of 4 and both are 16-byte aligned, else 2 where they
+    are even and 8-byte aligned, else 1."""
+    if units % 4 == 0 and d % 4 == 0 and ent_ptr % 16 == 0 and rel_ptr % 16 == 0:
+        return 4
+    if units % 2 == 0 and d % 2 == 0 and ent_ptr % 8 == 0 and rel_ptr % 8 == 0:
+        return 2
+    return 1
+
+
+def max_units(v: int) -> int:
+    """The largest unit count the register layout takes at vector width v
+    (csrc/sddmm.cu `sddmm_max_units`)."""
+    return 32 * v * MAX_CHUNKS
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ctypes signatures of the C entry points, bound once at first use.
 _SIGNATURES = {
@@ -141,7 +164,6 @@ def _bound(name: str):
             f = getattr(lib, sym)
             f.restype, f.argtypes = ctypes.c_int, argtypes
             _entry[sym] = f
-        _entry["max_units"] = lib.sddmm_max_units(4)
         fn = _entry[name]
     return fn
 
@@ -163,16 +185,18 @@ def _checked(ent_flat, rel_emb, neg_idx, rel_model: str):
         raise TypeError("sddmm: embeddings must be float32")
     if rel_model in ("complex", "simple") and d % 2:
         raise ValueError(f"sddmm: {rel_model} needs an even width, got {d}")
-    units = d // 2 if rel_model in ("complex", "simple") else d
-    _bound("sddmm_launch")
-    if units > _entry["max_units"]:
-        raise ValueError(f"sddmm: width {d} exceeds the kernel's register "
-                         f"layout ({_entry['max_units']} units)")
     dev = ent_flat.device
     if not ent_flat.is_contiguous():
         ent_flat = ent_flat.contiguous()
     if rel_emb.device != dev or not rel_emb.is_contiguous():
         rel_emb = rel_emb.to(dev).contiguous()
+    units = d // 2 if rel_model in ("complex", "simple") else d
+    v = vector_width(units, d, ent_flat.data_ptr(), rel_emb.data_ptr())
+    if units > max_units(v):
+        raise ValueError(
+            f"sddmm: width {d} ({units} units) exceeds the kernel's register "
+            f"layout at vector width {v}: at most {max_units(v)} units "
+            f"(32 lanes x {v} x {MAX_CHUNKS} chunks)")
     if (neg_idx.dtype != torch.int32 or neg_idx.device != dev
             or not neg_idx.is_contiguous()):
         neg_idx = neg_idx.to(dev, torch.int32).contiguous()

@@ -1,6 +1,8 @@
-"""Training entry point: the `link_prediction` command on one device.
+"""Training entry points: `link_prediction` on one device, and
+`node_classification` on a run's embedding export.
 
     python -m blp_tpu_torch.train link_prediction with dataset=umls model=blp ...
+    python -m blp_tpu_torch.train node_classification with dataset=... checkpoint=<run_id>
 
 Port of blp_tpu/train.py. Reference behaviour mirrored: inductive and
 transductive data selection, the filter graph with the large-dataset
@@ -13,8 +15,11 @@ late; full-state checkpoints resume with `resume=auto` or a file path.
 
 Runs on `device=` (default cuda). Not ported: the mesh and multi-host keys
 (`num_data_shards`, `num_model_shards`, `num_pipe_shards` > 1,
-`coordinator_address`, `multihost_data`) and `node_classification` (it needs
-scikit-learn); each raises NotImplementedError naming its ROADMAP.md item.
+`coordinator_address`, `multihost_data`); each raises NotImplementedError
+naming its ROADMAP.md item. `node_classification` fits the logistic
+regression of linear_model.py (scikit-learn's default LogisticRegression,
+in torch) and writes `classifier-<run_id>.npz` where the TPU package writes
+a joblib file.
 """
 
 from __future__ import annotations
@@ -30,17 +35,18 @@ import numpy as np
 import torch
 
 from blp_tpu_torch import checkpoint as ckpt
-from blp_tpu_torch import evaluation, observers, training
+from blp_tpu_torch import evaluation, linear_model, observers, training
 from blp_tpu_torch.config import ExperimentConfig, parse_overrides
 from blp_tpu_torch.data import prefetch
-from blp_tpu_torch.data.datasets import GraphData, TextGraphData
+from blp_tpu_torch.data.datasets import GraphData, TextGraphData, load_maps
 from blp_tpu_torch.data.filtering import FilterIndex
 from blp_tpu_torch.data.loader import (epoch_batches, num_batches,
                                        text_train_batch,
                                        transductive_train_batch)
 from blp_tpu_torch.data.tokenizers import GloVeTokenizer, WordPieceTokenizer
 from blp_tpu_torch.models import bert, blp
-from blp_tpu_torch.utils import fold_seed, get_logger, resolve_device
+from blp_tpu_torch.utils import (fold_seed, get_logger, load_embedding_export,
+                                 make_ent2idx, resolve_device)
 
 log = get_logger()
 
@@ -81,7 +87,10 @@ def make_model_config(cfg: ExperimentConfig, tokenizer, num_relations: int,
         vocab_size = len(tokenizer.vocab)
         emb_dim = 768 if cfg.encoder_name != "tiny" else 32
     elif cfg.model.startswith("glove"):
-        vocab_size = len(tokenizer.word2idx)
+        # Rows for every id the tokenizer gives (0 is padding). The TPU
+        # package sizes a random table len(word2idx), one row short, and its
+        # gathers clamp the last id; a torch gather would raise.
+        vocab_size = max(tokenizer.word2idx.values()) + 1
         emb_dim = 300
     return blp.ModelConfig(
         model=cfg.model, rel_model=cfg.rel_model, loss_fn=cfg.loss_fn,
@@ -90,15 +99,37 @@ def make_model_config(cfg: ExperimentConfig, tokenizer, num_relations: int,
         encoder=encoder)
 
 
+def load_word_embeddings(cfg: ExperimentConfig):
+    """Initial word table (a float32 CPU tensor) for the bow/dkrl models:
+    BERT's word embeddings from `hf_weights` for the bert- variants, the
+    GloVe tensor at `glove_file` for the glove- ones; None (random init)
+    when there is no such file."""
+    if cfg.model.startswith("glove"):
+        path = cfg.glove_file or osp.join(cfg.data_dir, "glove", "glove.6B.300d.pt")
+        if osp.exists(path):
+            return torch.load(path, weights_only=False).to(torch.float32)
+        log.warning(f"GloVe tensor {path} not found; using random init")
+        return None
+    if cfg.model.startswith("bert") and cfg.hf_weights and osp.exists(cfg.hf_weights):
+        sd = torch.load(cfg.hf_weights, map_location="cpu", weights_only=False)
+        for key in ("embeddings.word_embeddings.weight",
+                    "bert.embeddings.word_embeddings.weight"):
+            if key in sd:
+                return sd[key].to(torch.float32)
+    return None
+
+
 def init_model_params(cfg: ExperimentConfig, mcfg: blp.ModelConfig, seed: int,
                       device) -> dict:
     """Random parameters from `seed` (a CPU generator, so every device gets
-    the same weights), or BERT weights from `hf_weights`."""
+    the same weights), BERT weights from `hf_weights`, and the word table of
+    `load_word_embeddings`."""
     hf_sd = None
     if cfg.model == "blp" and cfg.hf_weights and osp.exists(cfg.hf_weights):
         hf_sd = torch.load(cfg.hf_weights, map_location="cpu", weights_only=False)
         log.info(f"Loaded HF BERT weights from {cfg.hf_weights}")
     return blp.init_params(mcfg, torch.Generator().manual_seed(seed), device,
+                           word_embeddings=load_word_embeddings(cfg),
                            hf_state_dict=hf_sd)
 
 
@@ -138,6 +169,7 @@ def _link_prediction(cfg: ExperimentConfig, run_id: str,
         tokenizer = make_tokenizer(cfg)
         train_data = TextGraphData.load(
             cfg.triples_file("train"), tokenizer=tokenizer, max_len=cfg.max_len,
+            drop_stopwords=cfg.model in blp.DROP_STOPWORD_MODELS,
             write_maps=True, use_cached_text=cfg.use_cached_text)
     else:
         tokenizer = None
@@ -335,10 +367,68 @@ def _link_prediction(cfg: ExperimentConfig, run_id: str,
 
 
 def node_classification(cfg: ExperimentConfig) -> dict:
-    raise NotImplementedError(
-        "node_classification is not ported yet: it needs scikit-learn, which "
-        "the card's machine lacks (ROADMAP.md, Queue 1: the rest of "
-        "train.py)")
+    """Frozen-embedding entity classification: a logistic-regression C sweep
+    on dev, a refit on train+dev, accuracy and balanced accuracy on
+    train+dev and on test. Reads the embedding export of run `checkpoint`
+    in `out_dir` and the labels in `{split}-ents-class.txt`; fits on
+    `device` (default cuda)."""
+    device = resolve_device(cfg.device)
+    ent_emb, emb_ids = load_embedding_export(cfg.out_dir, cfg.checkpoint)
+    log.info(f"Loaded {len(ent_emb)} embeddings dim={ent_emb.shape[1]}")
+
+    ent_ids, _ = load_maps(cfg.dataset_dir)
+    ent2idx = make_ent2idx(emb_ids, int(emb_ids.max()))
+
+    class2label: dict[str, int] = {}
+    splits = {}
+    for split in ("train", "dev", "test"):
+        idx, labels = [], []
+        with open(osp.join(cfg.dataset_dir, f"{split}-ents-class.txt")) as f:
+            for line in f:
+                entity, ent_class = line.strip().split()
+                pos = int(ent2idx[ent_ids[entity]])
+                if pos < 0:
+                    raise ValueError(f"No embedding for entity {entity}")
+                idx.append(pos)
+                labels.append(class2label.setdefault(ent_class, len(class2label)))
+        splits[split] = (ent_emb[idx], np.asarray(labels))
+
+    x_train, y_train = splits["train"]
+    x_dev, y_dev = splits["dev"]
+    x_test, y_test = splits["test"]
+
+    def fit(c, x, y):
+        return linear_model.LogisticRegression(
+            C=c, max_iter=1000, device=device).fit(x, y)
+
+    best_acc, best_c = 0.0, 1.0
+    for k in range(-4, 2):
+        c = 10.0 ** -k
+        acc = linear_model.accuracy_score(
+            y_dev, fit(c, x_train, y_train).predict(x_dev))
+        log.info(f"C={c:g} dev acc={acc:.3f}")
+        if acc > best_acc:
+            best_acc, best_c = acc, c
+
+    log.info(f"Best C: {best_c:g}")
+    x_all = np.concatenate([x_train, x_dev])
+    y_all = np.concatenate([y_train, y_dev])
+    clf = fit(best_c, x_all, y_all)
+
+    out = {"best_c": best_c}
+    for name, fn in (("accuracy", linear_model.accuracy_score),
+                     ("balanced_accuracy", linear_model.balanced_accuracy_score)):
+        out[f"train_{name}"] = float(fn(y_all, clf.predict(x_all)))
+        out[f"test_{name}"] = float(fn(y_test, clf.predict(x_test)))
+        log.info(f"Train {name}: {out[f'train_{name}']:.3f}  "
+                 f"Test {name}: {out[f'test_{name}']:.3f}")
+
+    path = osp.join(cfg.out_dir, f"classifier-{cfg.checkpoint}.npz")
+    np.savez(path, coef=clf.coef_, intercept=clf.intercept_,
+             classes=clf.classes_,
+             id_to_class=json.dumps({v: k for k, v in class2label.items()}))
+    log.info(f"Saved classifier to {path}")
+    return out
 
 
 COMMANDS = {"link_prediction": link_prediction,

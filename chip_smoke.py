@@ -10,11 +10,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. Build every kernel under blp_tpu_torch/csrc/ (one nvcc per source, in
    parallel, into build/kernels/) and print the build seconds.
 3. Check each kernel against its plain PyTorch version on the card: K1
-   (TransE rank counts) must give identical counts; K2 (packed attention,
-   with about 1 row in 8 ending in empty segments) must agree within rtol =
-   atol = 2e-2, and the share of outputs more than one bf16 ulp away is
-   printed; K3 (the SDDMM scorer of training, forward and backward kernels)
-   for all four scorers at B = 64 and 1,024 (K 64, d 128, fp32), on
+   (TransE rank counts, at d 128, 300 and 768) must give identical counts;
+   K2 (packed attention, with about 1 row in 8 ending in empty segments)
+   must agree within rtol = atol = 2e-2, and the share of outputs more than
+   one bf16 ulp away is printed; K3 (the SDDMM scorer of training, forward and backward kernels)
+   for all four scorers at B = 64 and 1,024 (K 64, d 128, fp32) and at
+   B = 64 with d 300 and 768, on
    negatives from the port's sampler and on an adversarial set (a hot row
    on both sides, own slots, and K = 0): scores within rtol = atol = 1e-5,
    margin-loss gradients within rtol 1e-5, atol 1e-6 of plain autograd and
@@ -42,14 +43,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (d) `python -m blp_tpu_torch.train link_prediction` in-process, one
    epoch on the synthetic graph with the BERT-base encoder in bf16, then
    `resume=auto` to a second epoch. ((a), the K3 check, is in phase 3.)
+8. The word-embedding models (the main path, part 4; it runs after phase 6,
+   before the timings of phase 7), with every count set to 0 again just
+   before it; fp32, TransE, dim 128, regularizer 1e-2,
+   sddmm_pallas=True, random weights from seed 0, the widths of
+   scripts/*-{bow,dkrl}-*.sh: (a) bert-dkrl at the FB15k-237 keys (emb 768,
+   a 28,996-row word table, B 64, L 32, K 64, lr 1e-4): 3 warm-up and 20
+   timed steps, a profile, and the same step without K3 (loss within rtol
+   1e-4); (b) glove-dkrl at the Wikidata5M keys (B 1,024, L 64, emb 300, a
+   400,000-row word table): 3 steps, ms per step, peak memory, a profile;
+   (c) glove-bow (entity width 300) and bert-bow (768): one train step
+   each, then the two-phase filtered evaluation of the synthetic graph,
+   its first 8 batches held equal to the CPU plain paths on the same table;
+   (d) in-process, `link_prediction` with model=bert-dkrl for one epoch,
+   `node_classification` on its export, and the retrieval reranker with
+   that checkpoint on synthetic files the size of DBpedia-Entity v2 (467
+   queries, 100 BM25F candidates each, 5 folds), each timed.
 7. Time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function, at the main path's shapes
    (K3's backward: the kernel with its index bookkeeping against the plain
-   formulation's VJP, the parent design's backward); print one JSON line of
-   kernel records. A record's launches are the sum of the counts read after
-   phases 4-5 (inference) and after phase 6 (train), each path driven with
-   every count (K3's forward and backward each have one) set to 0 just
-   before it.
+   formulation's VJP, the parent design's backward), and K1 and K3 again at
+   the word models' widths (d 300 and 768; K1 at the Wikidata5M candidate
+   count); print one JSON line of kernel records. A record's launches are
+   the sum of the counts read after phases 4-5 (inference), after phase 6
+   (train) and after phase 8 (word models), each path driven with every
+   count (K3's forward and backward each have one) set to 0 just before it.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -71,13 +89,13 @@ import time
 import numpy as np
 import torch
 
-from blp_tpu_torch import evaluation, serve, train, training
+from blp_tpu_torch import evaluation, retrieval, serve, train, training
 from blp_tpu_torch.data import prefetch, sampling
 from blp_tpu_torch.data.datasets import GraphData, TextGraphData
 from blp_tpu_torch.data.filtering import FilterIndex
 from blp_tpu_torch.data.loader import epoch_batches, text_train_batch
-from blp_tpu_torch.data.synth import write_synth_dataset
-from blp_tpu_torch.data.tokenizers import WordPieceTokenizer
+from blp_tpu_torch.data.synth import write_synth_dataset, write_tiny_glove
+from blp_tpu_torch.data.tokenizers import GloVeTokenizer, WordPieceTokenizer
 from blp_tpu_torch.models import bert, blp
 from blp_tpu_torch.ops import _cuda, packed_attention, sddmm, transe_rank
 
@@ -98,6 +116,14 @@ K2_SHAPE = (1024, 12, 128, 64)   # packed rows, heads, Sp, head dim
 SEG = 32                         # max_len: segment length of a packed row
 K3_BATCHES = (64, 1024)          # flagship and Wikidata5M train batch sizes
 K3_K, K3_D = 64, 128             # negatives per edge, entity width
+# Entity widths of the word models' TransE path: the BOW models embed at the
+# word width (GloVe 300, BERT 768); the DKRL models at dim 128.
+WORD_DIMS = (300, 768)
+BERT_VOCAB = 28_996              # bert-base-cased's word table
+GLOVE_ROWS = 400_000             # GloVe 6B's vocabulary
+# DBpedia-Entity v2: its queries, the BM25F candidates kept per query, folds.
+IR_QUERIES, IR_CANDIDATES, IR_FOLDS = 467, 100, 5
+BOW_EVAL_BATCHES = 8             # batches of (c) held against the CPU
 # K3's TransE terms per element: the add, the subtract (|.| folds into an
 # operand) and the accumulate, each one non-FMA fp32 instruction.
 K3_TRANSE_OPS = 3
@@ -215,15 +241,15 @@ def device_profile(label: str, fn) -> dict:
 
 # -- phase 3: kernels against their plain versions --------------------------
 
-def k1_inputs(n_rows: int, num_valid: int, seed: int):
+def k1_inputs(n_rows: int, num_valid: int, seed: int, d: int = K1_D):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    table = torch.randn((n_rows, K1_D), generator=g, device="cuda")
+    table = torch.randn((n_rows, d), generator=g, device="cuda")
     table /= table.norm(dim=1, keepdim=True)
     table[num_valid:] = 0.0
     pos = torch.randint(0, num_valid, (K1_Q,), generator=g, device="cuda")
     # Exact ties: copies of some true rows elsewhere in the table.
     table[torch.arange(1000, 1016, device="cuda")] = table[pos[:16]]
-    rel = 0.1 * torch.randn((K1_Q // 2, K1_D), generator=g, device="cuda")
+    rel = 0.1 * torch.randn((K1_Q // 2, d), generator=g, device="cuda")
     fixed = table[torch.randint(0, num_valid, (K1_Q // 2,), generator=g,
                                 device="cuda")]
     u = torch.cat([transe_rank._offset(fixed, rel, "head"),
@@ -233,14 +259,18 @@ def k1_inputs(n_rows: int, num_valid: int, seed: int):
 
 
 def check_k1() -> None:
+    """At the flagship width and the word models' widths (d 300 is not a
+    multiple of the 32-wide add chunk: its last chunk is padded)."""
     n = 262_144
-    table, u, r, pos = k1_inputs(n, n - 1000, seed=1)
-    got = transe_rank.raw_counts(table, u, r, pos, n - 1000)
-    want = transe_rank.raw_counts_plain(table, u, r, pos, n - 1000)
-    torch.cuda.synchronize()
-    require(torch.equal(got, want), "K1 counts differ from the plain version")
-    log(f"K1 check: Q={K1_Q} d={K1_D} Np={n} num_valid={n - 1000}: counts "
-        f"identical (sum gt={int(got[0].sum())}, geq={int(got[1].sum())})")
+    for d in (K1_D, *WORD_DIMS):
+        table, u, r, pos = k1_inputs(n, n - 1000, seed=1, d=d)
+        got = transe_rank.raw_counts(table, u, r, pos, n - 1000)
+        want = transe_rank.raw_counts_plain(table, u, r, pos, n - 1000)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"K1 counts differ from the plain version at d={d}")
+        log(f"K1 check: Q={K1_Q} d={d} Np={n} num_valid={n - 1000}: counts "
+            f"identical (sum gt={int(got[0].sum())}, geq={int(got[1].sum())})")
 
 
 def k2_inputs(b: int, seed: int):
@@ -283,13 +313,14 @@ def check_k2() -> None:
         f"ulp from the plain version")
 
 
-def k3_inputs(b: int, seed: int, k: int = K3_K, adversarial: bool = False):
+def k3_inputs(b: int, seed: int, k: int = K3_K, adversarial: bool = False,
+              d: int = K3_D):
     """fp32 entity and relation rows, and negatives from the port's sampler,
     or adversarial ones: row 0 on both sides of every third task, the own
     slots swapped, doubled, or kept (one own slot, as the sampler does)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    ent = torch.randn((2 * b, K3_D), generator=g, device="cuda")
-    rel = torch.randn((b, K3_D), generator=g, device="cuda")
+    ent = torch.randn((2 * b, d), generator=g, device="cuda")
+    rel = torch.randn((b, d), generator=g, device="cuda")
     if not adversarial:
         return ent, rel, sampling.sample_negative_indices(g, b, k, device="cuda")
     neg = torch.randint(0, 2 * b, (b, k, 2), generator=g, device="cuda",
@@ -315,18 +346,19 @@ def _margin_grads(fn, ent, rel, neg, rel_model, calls: int = 1):
 
 
 def check_k3() -> dict:
-    """(a) of the train phase: every scorer at both batch sizes, on sampler
-    indices and on adversarial ones (K 64 and K 0). Returns the largest
-    forward and gradient errors per batch size."""
+    """(a) of the train phase: every scorer at both batch sizes (d 128) and
+    at the word models' widths (B 64), on sampler indices and on adversarial
+    ones (K 64 and K 0). Returns the largest forward and gradient errors per
+    (batch size, width)."""
     errs = {}
-    for b in K3_BATCHES:
-        errs[b] = {"scores": 0.0, "grads": 0.0}
+    for b, d in [(b, K3_D) for b in K3_BATCHES] + [(64, d) for d in WORD_DIMS]:
+        errs[b, d] = {"scores": 0.0, "grads": 0.0}
         cpu_equal = []
         for i, rel_model in enumerate(sddmm.MODELS):
             for k, adversarial in ((K3_K, False), (K3_K, True), (0, True)):
-                what = (f"K3 {rel_model} B={b} K={k}"
+                what = (f"K3 {rel_model} B={b} d={d} K={k}"
                         f"{' adversarial' if adversarial else ''}")
-                ent, rel, neg = k3_inputs(b, 10 + i, k, adversarial)
+                ent, rel, neg = k3_inputs(b, 10 + i, k, adversarial, d)
                 pos, negs, grads = _margin_grads(sddmm.sddmm_scores, ent, rel,
                                                  neg, rel_model, calls=2)
                 want = _margin_grads(sddmm.sddmm_scores_plain, ent, rel, neg,
@@ -334,13 +366,13 @@ def check_k3() -> dict:
                 torch.cuda.synchronize()
                 for x, y in zip((pos, negs), want[:2]):
                     err = (x - y).abs().max().item() if x.numel() else 0.0
-                    errs[b]["scores"] = max(errs[b]["scores"], err)
+                    errs[b, d]["scores"] = max(errs[b, d]["scores"], err)
                     require(torch.allclose(x, y, rtol=1e-5, atol=1e-5),
                             f"{what}: scores differ from the plain version "
                             f"by {err}")
                 for x, twice, y in zip(grads[0], grads[1], want[2][0]):
                     err = (x - y).abs().max().item()
-                    errs[b]["grads"] = max(errs[b]["grads"], err)
+                    errs[b, d]["grads"] = max(errs[b, d]["grads"], err)
                     require(torch.allclose(x, y, rtol=1e-5, atol=1e-6),
                             f"{what}: margin-loss gradients differ from plain "
                             f"autograd by {err} (rtol 1e-5, atol 1e-6)")
@@ -355,10 +387,10 @@ def check_k3() -> dict:
                     rel_model)
                 cpu_equal.append(all(torch.equal(x.cpu(), y)
                                      for x, y in zip(got, ref)))
-        log(f"K3 check: B={b} d={K3_D} fp32, transe/distmult/complex/simple, "
+        log(f"K3 check: B={b} d={d} fp32, transe/distmult/complex/simple, "
             f"sampler K={K3_K}, adversarial K={K3_K} and K=0: scores max abs "
-            f"err {errs[b]['scores']:.3g} (tolerance 1e-5); margin-loss "
-            f"gradients max abs err {errs[b]['grads']:.3g} against plain "
+            f"err {errs[b, d]['scores']:.3g} (rtol = atol = 1e-5); margin-loss "
+            f"gradients max abs err {errs[b, d]['grads']:.3g} against plain "
             f"autograd (rtol 1e-5, atol 1e-6), identical across two calls; "
             f"backward bit-identical to the CPU plain backward in "
             f"{sum(cpu_equal)} of {len(cpu_equal)} cases")
@@ -540,13 +572,16 @@ def train_model(num_relations: int, **enc_kw):
     return cfg, params
 
 
-def train_batches(data_dir: str, max_len: int, batch_size: int, n: int) -> list:
-    tok = WordPieceTokenizer(os.path.join(data_dir, "vocab.txt"))
+def train_batches(data_dir: str, max_len: int, batch_size: int, n: int, *,
+                  tokenizer=None, drop_stopwords: bool = False,
+                  device: str = "cuda") -> list:
+    tok = tokenizer or WordPieceTokenizer(os.path.join(data_dir, "vocab.txt"))
     data = TextGraphData.load(os.path.join(data_dir, "ind-train.tsv"),
-                              tokenizer=tok, max_len=max_len, write_maps=True)
+                              tokenizer=tok, max_len=max_len,
+                              drop_stopwords=drop_stopwords, write_maps=True)
     out = []
     for triples in epoch_batches(data, batch_size, rng=np.random.default_rng(0)):
-        out.append(prefetch.to_device(text_train_batch(data, triples), "cuda"))
+        out.append(prefetch.to_device(text_train_batch(data, triples), device))
         if len(out) == n:
             return out
     raise SystemExit(f"FAILED: only {len(out)} batches of {batch_size}")
@@ -678,31 +713,331 @@ def train_phase(data_dir: str, card: str) -> dict:
     return stats
 
 
+# -- phase 8: the word-embedding models ------------------------------------------
+
+def word_model(model: str, emb_dim: int, num_relations: int, *,
+               vocab_size: int = 0, word_embeddings=None, device: str = "cuda"):
+    """A word-embedding model with K3 (TransE, dim 128, regularizer 1e-2,
+    fp32, as scripts/*-{bow,dkrl}-*.sh run): random weights from seed 0 on
+    the device, or the given word table."""
+    cfg = blp.ModelConfig(model=model, rel_model="transe", dim=128,
+                          num_relations=num_relations, regularizer=1e-2,
+                          emb_dim=emb_dim, vocab_size=vocab_size,
+                          sddmm_pallas=True)
+    params = blp.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                             device=device, word_embeddings=word_embeddings)
+    return cfg, params
+
+
+def timed_steps(label: str, cfg, params, batches, *, lr: float, batch_size: int,
+                warmup: int, device: str = "cuda") -> dict:
+    """`warmup` steps, then the rest of `batches` timed (host clock around
+    work that ends in a synchronize), finite losses, one step profiled.
+    Returns the stats and the trained params."""
+    opt = training.make_optimizer(lr, 1000, use_scheduler=False)
+    state = opt.init(params)
+    step = training.make_train_step(cfg, opt, batch_size=batch_size,
+                                    num_negatives=K3_K, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(warmup):
+        (params, state, loss), s = wall(lambda: step(params, state, (0, i),
+                                                     batches[i]))
+        losses.append(loss)
+        times.append(s * 1e3)
+    t0 = time.perf_counter()
+    for i in range(warmup, len(batches)):
+        params, state, loss = step(params, state, (0, i), batches[i])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    timed = len(batches) - warmup
+    ms = (time.perf_counter() - t0) * 1e3 / timed
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu()
+    require(bool(torch.isfinite(losses).all()), f"{label}: non-finite loss {losses}")
+    log(f"{label}: warm-up steps {[round(t, 1) for t in times]} ms, then "
+        f"{ms:.2f} ms per step over {timed} steps = "
+        f"{batch_size * 1e3 / ms:,.0f} triples/s; peak memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated); losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite")
+    prof = device_profile(label, lambda: step(params, state, (0, len(batches)),
+                                              batches[0]))
+    return {"ms_per_step": ms, "triples_per_s": batch_size * 1e3 / ms,
+            "warmup_ms": times, "peak_bytes": peak,
+            "losses": [round(float(x), 6) for x in losses],
+            "profile": prof}, params
+
+
+def dkrl_fb15k237(data_dir: str, device: str = "cuda") -> dict:
+    """(a): bert-dkrl at the keys of scripts/bert-dkrl-fb15k237.sh (emb 768,
+    dim 128, bert-base-cased's 28,996-row word table, B 64, L 32, K 64, lr
+    1e-4, no scheduler): 3 warm-up and 20 timed steps, a profile, and the
+    same step without K3 from the same parameters and seeds."""
+    b = 64
+    cfg, params = word_model("bert-dkrl", 768, 12, vocab_size=BERT_VOCAB,
+                             device=device)
+    tok = WordPieceTokenizer(os.path.join(data_dir, "vocab.txt"))
+    batches = train_batches(data_dir, SEG, b, 23, tokenizer=tok,
+                            drop_stopwords=True, device=device)
+    run, params = timed_steps(f"bert-dkrl train step (B={b}, L={SEG}, K={K3_K}, emb "
+                      f"768, fp32, sddmm_pallas=True)", cfg, params, batches,
+                      lr=1e-4, batch_size=b, warmup=3, device=device)
+    neg_seed, drop_seed = training.step_seeds((0, 24))
+    batch = dict(batches[1], neg_idx=sampling.sample_negative_indices(
+        torch.Generator(device=device).manual_seed(neg_seed), b, K3_K, device))
+    loss_k, g_k = training.value_and_grad(params, cfg, batch,
+                                          dropout_seed=drop_seed)
+    loss_p, g_p = training.value_and_grad(
+        params, dataclasses.replace(cfg, sddmm_pallas=False), batch,
+        dropout_seed=drop_seed)
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    require(rel_loss <= 1e-4, f"bert-dkrl sddmm_pallas on/off losses differ "
+            f"by {rel_loss}")
+    grad_diff = {k: (g_k[k] - g_p[k]).abs().max().item()
+                 for k in ("rel_emb", "word_emb")}
+    log(f"bert-dkrl step with vs without K3: loss {loss_k.item():.6f} vs "
+        f"{loss_p.item():.6f} (rel {rel_loss:.2g}, limit 1e-4); max abs "
+        f"gradient diff {grad_diff}")
+    return {**{"dkrl_fb15k237_" + k: v for k, v in run.items()},
+            "dkrl_k3_on_off_rel_loss": rel_loss}
+
+
+def dkrl_w5m(data_dir: str, glove_maps: str, device: str = "cuda") -> dict:
+    """(b): glove-dkrl at the keys of scripts/glove-dkrl-wikidata5m.sh (B
+    1,024, L 64, emb 300, a 400,000-row word table as GloVe 6B's, random
+    from seed 0): 3 steps, ms per step, peak memory, a profile."""
+    b, seq = 1024, 64
+    cfg, params = word_model("glove-dkrl", 300, 12, vocab_size=GLOVE_ROWS,
+                             device=device)
+    batches = train_batches(data_dir, seq, b, 3, tokenizer=GloVeTokenizer(glove_maps),
+                            drop_stopwords=True, device=device)
+    run, _ = timed_steps(f"glove-dkrl W5M train step (B={b}, L={seq}, K={K3_K}, "
+                      f"emb 300, {GLOVE_ROWS:,}-row word table, fp32, "
+                      f"sddmm_pallas=True)", cfg, params, batches, lr=1e-4,
+                      batch_size=b, warmup=2, device=device)
+    return {"dkrl_w5m_" + k: v for k, v in run.items()}
+
+
+def bow_eval(data_dir: str, glove_maps: str, glove_table: str,
+             device: str = "cuda") -> dict:
+    """(c): glove-bow (entity width 300, the GloVe table of `glove_table`)
+    and bert-bow (768, a 28,996-row random table): one train step each
+    (B 64, L 32, K 64), then the two-phase filtered evaluation of the
+    4,096-entity synthetic graph on the card, and its first
+    BOW_EVAL_BATCHES batches held equal to the CPU plain paths on the same
+    table."""
+    out = {}
+    for model, emb_dim, lr in (("glove-bow", 300, 1e-3), ("bert-bow", 768, 1e-4)):
+        if model == "glove-bow":
+            tok = GloVeTokenizer(glove_maps)
+            cfg, params = word_model(model, emb_dim, 12, device=device,
+                                     word_embeddings=torch.load(glove_table))
+        else:
+            tok = WordPieceTokenizer(os.path.join(data_dir, "vocab.txt"))
+            cfg, params = word_model(model, emb_dim, 12, vocab_size=BERT_VOCAB,
+                                     device=device)
+        batch = train_batches(data_dir, SEG, 64, 1, tokenizer=tok,
+                              drop_stopwords=True, device=device)[0]
+        opt = training.make_optimizer(lr, 1000, use_scheduler=False)
+        step = training.make_train_step(cfg, opt, batch_size=64,
+                                        num_negatives=K3_K, device=device)
+        params, _, loss = step(params, opt.init(params), (0, 0), batch)
+        require(math.isfinite(loss.item()), f"{model}: train loss {loss.item()}")
+
+        train = TextGraphData.load(os.path.join(data_dir, "ind-train.tsv"),
+                                   tokenizer=tok, max_len=SEG, drop_stopwords=True,
+                                   write_maps=True)
+        test = GraphData.load(os.path.join(data_dir, "ind-test.tsv"))
+        dev = GraphData.load(os.path.join(data_dir, "ind-dev.tsv"))
+        entities = np.arange(len(train.ent_ids))
+        kw = dict(filter_index=FilterIndex(np.concatenate(
+                      [train.triples, dev.triples, test.triples])),
+                  new_entities=np.setdiff1d(entities, train.entities),
+                  rel_categories=train.rel_categories, batch_size=64)
+        res, eval_s = wall(lambda: evaluation.eval_link_prediction(
+            params, cfg, test.triples, train, entities, emb_batch_size=4096,
+            return_embeddings=True, device=device, **kw))
+        part = evaluation.eval_link_prediction(
+            params, cfg, test.triples, train, entities, ent_emb=res.ent_emb,
+            max_num_batches=BOW_EVAL_BATCHES, device=device, **kw)
+        ref = evaluation.eval_link_prediction(
+            {"rel_emb": params["rel_emb"].cpu()}, cfg, test.triples, train,
+            entities, ent_emb=res.ent_emb, max_num_batches=BOW_EVAL_BATCHES,
+            device="cpu", **kw)
+        require(ref.scalars("x") == part.scalars("x"),
+                f"{model}: card and CPU evaluations of the same table differ")
+        log(f"{model} (d {cfg.entity_dim}): one train step, loss "
+            f"{loss.item():.4f}; eval ({len(test.triples)} test triples, "
+            f"{len(entities)} candidates) {eval_s:.2f} s, MRR {res.mrr:.4f} "
+            f"filtered {res.mrr_filt:.4f}; its first {BOW_EVAL_BATCHES} batches "
+            f"equal the CPU plain paths on the same table")
+        out[f"{model}_eval_s"] = eval_s
+        out[f"{model}_mrr_filt"] = res.mrr_filt
+    return out
+
+
+def write_ir_files(directory: str, vocab_file: str) -> dict:
+    """Synthetic files the size of DBpedia-Entity v2, from seed 0: its
+    queries, the top BM25F candidates of each (each with a description of
+    5-30 words), graded qrels (0-2) on 30 candidates and 5 other entities
+    of each query, and its folds. Returns the paths."""
+    queries, per_query, folds = IR_QUERIES, IR_CANDIDATES, IR_FOLDS
+    rng = np.random.default_rng(0)
+    os.makedirs(directory, exist_ok=True)
+    words = np.array([w for w in open(vocab_file).read().split()
+                      if w.isalpha()])
+    paths = {k: os.path.join(directory, name) for k, name in (
+        ("run_file", "bm25f.run"), ("queries_file", "queries.txt"),
+        ("descriptions_file", "descriptions.txt"), ("qrels_file", "qrels.txt"),
+        ("folds_file", "folds.json"))}
+    qids = [f"Q{i:03d}" for i in range(queries)]
+    n_ent = queries * per_query
+    lens = rng.integers(5, 31, n_ent)
+    picks = rng.integers(0, len(words), int(lens.sum()))
+    with open(paths["descriptions_file"], "w") as f:
+        at = 0
+        for e, n in enumerate(lens):
+            f.write(f"<dbpedia:E{e}>\t{' '.join(words[picks[at:at + n]])}\n")
+            at += n
+    with open(paths["queries_file"], "w") as f:
+        for q in qids:
+            f.write(f"{q}\t{' '.join(rng.choice(words, int(rng.integers(2, 7))))}\n")
+    with open(paths["run_file"], "w") as f, open(paths["qrels_file"], "w") as g:
+        for qi, q in enumerate(qids):
+            scores = np.sort(rng.uniform(5, 40, per_query))[::-1]
+            for rank in range(per_query):
+                f.write(f"{q} Q0 <dbpedia:E{qi * per_query + rank}> {rank + 1} "
+                        f"{scores[rank]:.4f} bm25f\n")
+            judged = np.concatenate([
+                qi * per_query + rng.choice(per_query, 30, replace=False),
+                rng.integers(0, n_ent, 5)])
+            for e in judged:
+                g.write(f"{q} 0 <dbpedia:E{e}> {rng.choice(3, p=[0.6, 0.25, 0.15])}\n")
+    with open(paths["folds_file"], "w") as f:
+        json.dump({str(i): {"training": [q for j, q in enumerate(qids) if j % folds != i],
+                            "testing": [q for j, q in enumerate(qids) if j % folds == i]}
+                   for i in range(folds)}, f)
+    return paths
+
+
+def cli_chain(data_dir: str, device: str = "cuda") -> dict:
+    """(d): `link_prediction` with model=bert-dkrl for one epoch (the keys of
+    scripts/bert-dkrl-fb15k237.sh), `node_classification` on its export,
+    and the retrieval reranker with that checkpoint on DBpedia-Entity v2
+    sized synthetic files; each in-process, timed."""
+    out_dir = os.path.join(WORK_DIR, "word_cli")
+    common = [f"data_dir={os.path.dirname(data_dir)}",
+              f"dataset={os.path.basename(data_dir)}", f"out_dir={out_dir}",
+              f"device={device}"]
+    lp = ["link_prediction", "with", *common, "model=bert-dkrl", "dim=128",
+          "regularizer=1e-2", "max_len=32", "num_negatives=64", "lr=1e-4",
+          "use_scheduler=false", "batch_size=64", "emb_batch_size=4096",
+          "eval_batch_size=64", "max_epochs=1", "run_id=dkrl"]
+    nc = ["node_classification", "with", *common, "checkpoint=dkrl"]
+    results = {}
+    for name, argv in (("link_prediction", lp), ("node_classification", nc)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, s = wall(lambda: train.main(argv))
+        require(rc == 0, f"{name} exited {rc}")
+        results[name] = (json.loads(buf.getvalue().strip().splitlines()[-1]), s)
+    lp_res, lp_s = results["link_prediction"]
+    nc_res, nc_s = results["node_classification"]
+    require(math.isfinite(lp_res["test_mrr_filt"]),
+            f"bert-dkrl link_prediction test_mrr_filt {lp_res['test_mrr_filt']}")
+    require(all(0.0 <= nc_res[k] <= 1.0 for k in nc_res if k != "best_c"),
+            f"node_classification {nc_res}")
+    log(f"link_prediction (bert-dkrl, fp32, 1 epoch, synthetic graph): "
+        f"{lp_s:.1f} s incl. evals, test MRR filtered "
+        f"{lp_res['test_mrr_filt']:.4f}; node_classification on its export: "
+        f"{nc_s:.1f} s, {nc_res}")
+
+    files, files_s = wall(lambda: write_ir_files(
+        os.path.join(WORK_DIR, "dbpedia_synth"),
+        os.path.join(data_dir, "vocab.txt")))
+    rcfg = retrieval.RetrievalConfig(
+        model="bert-dkrl", dim=128, checkpoint=lp_res["checkpoint"],
+        vocab_file=os.path.join(data_dir, "vocab.txt"), out_dir=out_dir,
+        run_id="rerank", device=device, **files)
+    rr, rr_s = wall(lambda: retrieval.rerank(rcfg))
+    for k in (10, 100):
+        # The t-test has no p-value when every fold picked alpha 0 (the
+        # reranked run is the baseline).
+        same = rr[f"ndcg@{k}"] == rr[f"ndcg@{k}_baseline"]
+        require(0.0 <= rr[f"ndcg@{k}"] <= 1.0
+                and (math.isfinite(rr[f"ndcg@{k}_pvalue"]) or same),
+                f"rerank NDCG@{k} {rr[f'ndcg@{k}']}, p {rr[f'ndcg@{k}_pvalue']}")
+    lines = sum(1 for _ in open(rr["run_file"]))
+    require(lines == IR_QUERIES * IR_CANDIDATES,
+            f"rerank run file has {lines} lines")
+    log(f"rerank (bert-dkrl, {IR_QUERIES} queries x {IR_CANDIDATES} "
+        f"candidates, {IR_FOLDS} folds; files "
+        f"written in {files_s:.1f} s): {rr_s:.1f} s; NDCG@10 "
+        f"{rr['ndcg@10_baseline']:.4f} -> {rr['ndcg@10']:.4f} (p "
+        f"{rr['ndcg@10_pvalue']:.3g}), NDCG@100 {rr['ndcg@100_baseline']:.4f} "
+        f"-> {rr['ndcg@100']:.4f} (p {rr['ndcg@100_pvalue']:.3g}); seconds "
+        f"{ {k: round(v, 2) for k, v in rr['seconds'].items()} }")
+    return {"cli_dkrl_epoch_s": lp_s, "cli_dkrl_test_mrr_filt": lp_res["test_mrr_filt"],
+            "node_classification_s": nc_s, "node_classification": nc_res,
+            "rerank_s": rr_s, "rerank_seconds": rr["seconds"],
+            **{k: rr[k] for k in rr if k.startswith("ndcg")}}
+
+
+def word_phase(data_dir: str, device: str = "cuda") -> dict:
+    glove = write_tiny_glove(os.path.join(WORK_DIR, "glove"),
+                             os.path.join(data_dir, "vocab.txt"), dim=300)
+    maps = glove.replace(".pt", "-maps.pt")
+    stats = dkrl_fb15k237(data_dir, device)
+    torch.cuda.empty_cache()
+    stats.update(dkrl_w5m(data_dir, maps, device))
+    torch.cuda.empty_cache()
+    stats.update(bow_eval(data_dir, maps, glove, device=device))
+    torch.cuda.empty_cache()
+    stats.update(cli_chain(data_dir, device))
+    return stats
+
+
 # -- phase 7: timings at the main path's shapes ----------------------------------
 
-def time_k1(launches: int) -> dict:
+def _time_k1_at(d: int, plain_reps: int) -> dict:
+    """K1 at the Wikidata5M candidate count and width d: counts against the
+    plain version's, kernel ms (CUDA events, 10 calls), plain ms, bound.
+    The bound counts K1's own operations: 2 fp32 adds per (query,
+    candidate, dim), over 33.5e12/s."""
     n = W5M_ENTITIES
-    table, u, r, pos = k1_inputs(n, n, seed=3)
+    table, u, r, pos = k1_inputs(n, n, seed=3, d=d)
     got = transe_rank.raw_counts(table, u, r, pos, n)
-    want = transe_rank.raw_counts_plain(table, u, r, pos, n)
+    want, plain_s = wall(lambda: transe_rank.raw_counts_plain(table, u, r, pos, n))
     err = (got - want).abs().max().item()
-    require(err == 0, f"K1 counts differ at the Wikidata5M shape by {err}")
+    require(err == 0, f"K1 counts differ at the Wikidata5M shape, d={d}, by {err}")
     ms = cuda_ms(lambda: transe_rank.raw_counts(table, u, r, pos, n), reps=10)
-    plain_ms = cuda_ms(lambda: transe_rank.raw_counts_plain(table, u, r, pos, n),
-                       reps=2)
-    ops = 2.0 * K1_Q * n * K1_D
-    nbytes = 4.0 * (n * K1_D + K1_Q * K1_D + 2 * K1_Q + 2 * K1_Q)
+    plain_ms = (plain_s * 1e3 if plain_reps == 1 else cuda_ms(
+        lambda: transe_rank.raw_counts_plain(table, u, r, pos, n), reps=plain_reps))
+    ops = 2.0 * K1_Q * n * d
+    nbytes = 4.0 * (n * d + K1_Q * d + 2 * K1_Q + 2 * K1_Q)
     t_ops, t_bytes = ops / FP32_ADDS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     del table
     torch.cuda.empty_cache()
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "shape": f"Q={K1_Q} Np={n} d={d} fp32"}
+    if d % 32:
+        # The kernel pads the last 32-wide add chunk with zero terms, so it
+        # does ceil(d / 32) * 32 / d of the bound's work.
+        rec["max_share_of_bound"] = d / (-(-d // 32) * 32)
+    return rec
+
+
+def time_k1(launches: int) -> dict:
+    """K1 at d 128 (the record's numbers) and at the word models' widths
+    (under `at_d300`, `at_d768`; their plain version is timed once)."""
+    rec = _time_k1_at(K1_D, plain_reps=2)
+    subs = {f"at_d{d}": _time_k1_at(d, plain_reps=1) for d in WORD_DIMS}
     return {"name": "transe_rank (K1)", "route": "cuda",
             "source": "blp_tpu_torch/csrc/transe_rank.cu",
             "replaces": "blp_tpu/ops/pallas_ranking.py:57",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
-            "shape": f"Q={K1_Q} Np={n} d={K1_D} fp32"}
+            "launches": launches, **rec, "library_ms": None, **subs}
 
 
 def time_k2(launches: int) -> dict:
@@ -750,14 +1085,15 @@ def _k3_plain_vjp(ent, rel, neg, g_pos, g_neg, rel_model):
         return torch.autograd.grad(out, (e, r), (g_pos, g_neg))
 
 
-def _time_k3_at(b: int) -> tuple[dict, dict]:
-    """Forward and backward records at batch size b (TransE, K 64, d 128)."""
-    ent, rel, neg = k3_inputs(b, seed=20)
+def _time_k3_at(b: int, d: int = K3_D) -> tuple[dict, dict]:
+    """Forward and backward records at batch size b and width d (TransE,
+    K 64)."""
+    ent, rel, neg = k3_inputs(b, seed=20, d=d)
     got = sddmm.sddmm_scores(ent, rel, neg, "transe")
     want = sddmm.sddmm_scores_plain(ent, rel, neg, "transe")
     err = max((x - y).abs().max().item() for x, y in zip(got, want))
     require(err <= 1e-5 * (1 + max(y.abs().max().item() for y in want)),
-            f"K3 error {err} at B={b}")
+            f"K3 error {err} at B={b} d={d}")
     kernel = lambda: sddmm.sddmm_scores(ent, rel, neg, "transe")  # noqa: E731
     plain = lambda: sddmm.sddmm_scores_plain(ent, rel, neg, "transe")  # noqa: E731
     (ms, _, _), (plain_ms, _, _) = device_ms(kernel, reps=100), device_ms(
@@ -765,13 +1101,13 @@ def _time_k3_at(b: int) -> tuple[dict, dict]:
     call_ms = cuda_ms(kernel, reps=200, warmup=5)
     # Each input read once, each output written once; the gathered rows are
     # re-reads of ent, which stays in L2.
-    nbytes = 4.0 * (2 * b * K3_D + b * K3_D + b * K3_K * 2 + b + b * K3_K)
-    ops = float(K3_TRANSE_OPS) * b * (K3_K + 1) * K3_D
+    nbytes = 4.0 * (2 * b * d + b * d + b * K3_K * 2 + b + b * K3_K)
+    ops = float(K3_TRANSE_OPS) * b * (K3_K + 1) * d
     t_ops, t_bytes = ops / FP32_ADDS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     fwd = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "call_ms": call_ms, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "shape": f"B={b} K={K3_K} d={K3_D} fp32 transe"}
+           "shape": f"B={b} K={K3_K} d={d} fp32 transe"}
 
     # Backward: margin-loss-sized cotangents.
     g = torch.Generator(device="cuda").manual_seed(21)
@@ -783,33 +1119,34 @@ def _time_k3_at(b: int) -> tuple[dict, dict]:
     err = max((x - y).abs().max().item() for x, y in zip(got, want))
     require(all(torch.allclose(x, y, rtol=1e-5, atol=1e-6)
                 for x, y in zip(got, want)),
-            f"K3 backward error {err} at B={b}")
+            f"K3 backward error {err} at B={b} d={d}")
     ms, per_call, by_name = device_ms(lambda: sddmm._sddmm_backward_kernel(*args),
                                       reps=100)
     plain_ms, plain_per_call, _ = device_ms(lambda: _k3_plain_vjp(*args),
                                             reps=100)
     kernel_ms = sum(v for k, v in by_name.items() if "sddmm_bwd" in k)
-    log(f"K3 backward at B={b}, device ms per call by kernel: " + "; ".join(
+    log(f"K3 backward at B={b} d={d}, device ms per call by kernel: " + "; ".join(
         f"{v:.4f} {k[:60]}" for k, v in sorted(by_name.items(),
                                                 key=lambda x: -x[1])))
     # Inputs read once (ent, rel, neg_idx, the cotangents), outputs written
     # once (d_ent, d_rel).
-    nbytes = 4.0 * (2 * b * K3_D + b * K3_D + b * K3_K * 2 + b + b * K3_K
-                    + 2 * b * K3_D + b * K3_D)
-    ops = float(K3_TRANSE_BWD_OPS) * b * (K3_K + 1) * K3_D
+    nbytes = 4.0 * (2 * b * d + b * d + b * K3_K * 2 + b + b * K3_K
+                    + 2 * b * d + b * d)
+    ops = float(K3_TRANSE_BWD_OPS) * b * (K3_K + 1) * d
     t_ops, t_bytes = ops / FP32_ADDS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bwd = {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
            "plain_ms": plain_ms, "launches_per_call": per_call,
            "plain_launches_per_call": plain_per_call,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "shape": f"B={b} K={K3_K} d={K3_D} fp32 transe"}
+           "shape": f"B={b} K={K3_K} d={d} fp32 transe"}
     return fwd, bwd
 
 
 def time_k3(launches: int, backward_launches: int) -> list[dict]:
     """K3's forward and backward at the flagship batch (the records'
-    numbers) and at the Wikidata5M batch (under `at_b1024`). `ms` and
+    numbers), at the Wikidata5M batch (under `at_b1024`) and at the word
+    models' widths at B 64 (under `at_d300`, `at_d768`). `ms` and
     `plain_ms` are device time per call (device_ms); the forward's `call_ms`
     is the wrapper's time per call from CUDA events around 200 back-to-back
     calls, host launch path included. The backward's `ms` is its kernel
@@ -817,14 +1154,17 @@ def time_k3(launches: int, backward_launches: int) -> list[dict]:
     `plain_ms` the plain formulation's VJP; `launches_per_call` counts the
     device launches of one call of each."""
     (f64, b64), (f1024, b1024) = (_time_k3_at(b) for b in K3_BATCHES)
+    words = {f"at_d{d}": _time_k3_at(64, d) for d in WORD_DIMS}
     common = {"route": "cuda", "source": "blp_tpu_torch/csrc/sddmm.cu",
               "library_ms": None}
     return [{"name": "sddmm (K3)", **common,
              "replaces": "blp_tpu/ops/pallas_sddmm.py:45",
-             "launches": launches, **f64, "at_b1024": f1024},
+             "launches": launches, **f64, "at_b1024": f1024,
+             **{k: fb[0] for k, fb in words.items()}},
             {"name": "sddmm backward (K3)", **common,
              "replaces": "blp_tpu/ops/pallas_sddmm.py:148",
-             "launches": backward_launches, **b64, "at_b1024": b1024}]
+             "launches": backward_launches, **b64, "at_b1024": b1024,
+             **{k: fb[1] for k, fb in words.items()}}]
 
 
 def main() -> int:
@@ -884,7 +1224,16 @@ def main() -> int:
     train_stats = train_phase(data_dir, card)
     train_launches = read_counts()
     log(f"main-path launches, train (phase 6): {train_launches}")
-    launches = {k: infer_launches[k] + train_launches[k] for k in counters}
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    word_stats = word_phase(data_dir)
+    word_launches = read_counts()
+    log(f"main-path launches, word models (phase 8): {word_launches}")
+    require(all(word_launches[k] > 0 for k in ("K1", "K3", "K3 backward")),
+            "a kernel of the word models' path was never launched")
+    launches = {k: infer_launches[k] + train_launches[k] + word_launches[k]
+                for k in counters}
     log(f"main-path launches: {launches}")
     require(all(n > 0 for n in launches.values()),
             "a kernel of the main path was never launched")
@@ -893,13 +1242,15 @@ def main() -> int:
     kernels = [time_k1(launches["K1"]), time_k2(launches["K2"]),
                *time_k3(launches["K3"], launches["K3 backward"])]
     for kr in kernels:
-        for rec in (kr, kr.get("at_b1024")):
-            if rec is None:
-                continue
+        for rec in (kr, *(v for k, v in kr.items() if k.startswith("at_"))):
             log(f"{kr['name']}: {rec['ms']:.4f} ms (plain "
                 f"{rec['plain_ms']:.4f} ms, library {kr['library_ms']}, "
-                f"bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}) at "
+                f"bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}, "
+                f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it) at "
                 f"{rec['shape']}")
+            if "max_share_of_bound" in rec:
+                log(f"  (its padded last add chunk caps it at "
+                    f"{100 * rec['max_share_of_bound']:.2f}% of this bound)")
             if "kernel_ms" in rec:
                 log(f"  of which the kernel {rec['kernel_ms']:.4f} ms; "
                     f"{rec['launches_per_call']:g} device launches per call "
@@ -908,7 +1259,8 @@ def main() -> int:
             log(f"{kr['name']}: device time per call above; per call with "
                 f"the host's launch path {kr['call_ms']:.4f} ms (B=64), "
                 f"{kr['at_b1024']['call_ms']:.4f} ms (B=1024)")
-    log("summary: " + json.dumps({**serve_stats, **eval_stats, **train_stats}))
+    log("summary: " + json.dumps({**serve_stats, **eval_stats, **train_stats,
+                                  **word_stats}))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(card)   # name, power limit: nvidia-smi's own line
     print(json.dumps({"kernels": kernels}))

@@ -65,6 +65,8 @@ def _k1_inputs(rng, q, n_rows, d, kind):
     (6, 1000, 1000, 40, "normal"),      # ragged tile, d not a multiple of 32
     (130, 777, 700, 16, "integer"),     # two query groups, many ties
     (1, 63, 63, 33, "integer"),
+    (128, 5000, 4990, 300, "normal"),   # the word models' widths: GloVe,
+    (128, 5000, 4990, 768, "normal"),   # with a padded last chunk, and BERT
 ])
 def test_k1_kernel_counts_equal_plain(q, n_rows, num_valid, d, kind):
     rng = np.random.default_rng(q + n_rows + d)
@@ -425,3 +427,63 @@ def test_remat_gradients_equal_on_card_with_dropout():
     for x, y in zip(checkpoint.tree_leaves(results[0][1]),
                     checkpoint.tree_leaves(results[1][1])):
         assert torch.equal(x, y)
+
+
+def test_k3_width_limits_equal_the_kernels():
+    from blp_tpu_torch.ops import _cuda
+
+    lib = _cuda.load("sddmm")
+    for v in (1, 2, 4):
+        assert lib.sddmm_max_units(v) == sddmm.max_units(v)
+
+
+@pytest.mark.parametrize("d,offset,rel_model,limit", [
+    (257, 0, "transe", 256), (514, 0, "distmult", 512),
+    (516, 1, "transe", 256), (1028, 2, "transe", 512),
+])
+def test_k3_too_wide_raises_value_error_on_card(d, offset, rel_model, limit):
+    """Widths the launch would refuse raise the named ValueError before
+    any launch, forward and backward (not a CUDA error)."""
+    b, k = 2, 3
+    buf = torch.randn(2 * b * d + offset, device="cuda")
+    ent = buf[offset:].view(2 * b, d)
+    rel = torch.randn((b, d), device="cuda")
+    neg = sampling.sample_negative_indices(torch.Generator().manual_seed(0),
+                                           b, k, device="cpu").cuda()
+    before = sddmm.launches
+    with pytest.raises(ValueError, match=f"at most {limit} units"):
+        sddmm.sddmm_scores(ent, rel, neg, rel_model)
+    with pytest.raises(ValueError, match=f"at most {limit} units"):
+        sddmm._sddmm_backward_kernel(ent, rel, neg, torch.ones((b, 1), device="cuda"),
+                                     torch.ones((b, k), device="cuda"), rel_model)
+    assert sddmm.launches == before
+
+
+@pytest.mark.parametrize("model", ["bert-bow", "bert-dkrl", "glove-bow", "glove-dkrl"])
+def test_word_model_train_pass_on_card_matches_cpu(model):
+    """The word models' training pass with K3 on the card against the same
+    pass on the CPU (fp32, the same injected negatives): loss within rtol
+    1e-5, gradients within rtol 1e-4, atol 1e-6."""
+    cfg = blp.ModelConfig(model=model, rel_model="transe", dim=16, num_relations=3,
+                          emb_dim=300 if model.startswith("glove") else 768,
+                          vocab_size=200, regularizer=1e-2, sddmm_pallas=True)
+    params = blp.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    b, k, seq = 8, 4, 16
+    lens = rng.integers(1, seq + 1, (b, 2))
+    mask = (np.arange(seq) < lens[..., None]).astype(np.float32)
+    batch = {"text_tok": torch.from_numpy(rng.integers(1, 200, (b, 2, seq)) * mask.astype(np.int64)),
+             "text_mask": torch.from_numpy(mask),
+             "rels": torch.from_numpy(rng.integers(0, 3, b)),
+             "neg_idx": sampling.sample_negative_indices(
+                 torch.Generator().manual_seed(1), b, k, device="cpu")}
+    loss_c, g_c = training.value_and_grad(params, cfg, batch, dropout_seed=0)
+    before = (sddmm.launches, sddmm.backward_launches)
+    loss_g, g_g = training.value_and_grad(
+        blp.to_device(params, "cuda"), cfg,
+        {k_: v.cuda() for k_, v in batch.items()}, dropout_seed=0)
+    torch.cuda.synchronize()
+    assert (sddmm.launches, sddmm.backward_launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
+    for x, y in zip(checkpoint.tree_leaves(g_g), checkpoint.tree_leaves(g_c)):
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=1e-6)

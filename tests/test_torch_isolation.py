@@ -1,5 +1,6 @@
-"""The port stands alone: every blp_tpu_torch module and chip_smoke.py
-import with JAX blocked and load nothing of blp_tpu; and an entry point
+"""The port stands alone: every blp_tpu_torch module (tools included) and
+chip_smoke.py import with JAX and scikit-learn blocked and load nothing of
+blp_tpu; and an entry point
 called without `device` runs on CUDA or raises — never silently on the
 CPU."""
 
@@ -11,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from blp_tpu_torch import evaluation, serve, train, training
+from blp_tpu_torch import (evaluation, linear_model, retrieval, serve, train,
+                           training)
 from blp_tpu_torch.config import ExperimentConfig
 from blp_tpu_torch.data import sampling
 from blp_tpu_torch.models import bert, blp
@@ -21,6 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now fails
+sys.modules["sklearn"] = None      # the port does not depend on scikit-learn
 import blp_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(blp_tpu_torch.__path__,
                                                 "blp_tpu_torch.")]
@@ -39,7 +42,7 @@ def test_port_imports_without_jax_or_blp_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, leaked = out.stdout.split(" ", 1)
-    assert int(count) >= 28
+    assert int(count) >= 33
     assert leaked.strip() == "[]"
 
 
@@ -53,7 +56,9 @@ def _tiny():
 @pytest.mark.parametrize("entry", ["LinkPredictor", "encode",
                                    "eval_link_prediction", "init_params",
                                    "make_train_step", "link_prediction",
-                                   "sample_negative_indices"])
+                                   "sample_negative_indices",
+                                   "node_classification", "LogisticRegression",
+                                   "rerank"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     cfg, params = _tiny()
     calls = {
@@ -69,6 +74,12 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
             ExperimentConfig(out_dir=str(tmp_path))),
         "sample_negative_indices": lambda: sampling.sample_negative_indices(
             torch.Generator(), 4, 2),
+        "node_classification": lambda: train.node_classification(
+            ExperimentConfig(out_dir=str(tmp_path))),
+        "LogisticRegression": lambda: linear_model.LogisticRegression().fit(
+            np.eye(2), np.arange(2)),
+        "rerank": lambda: retrieval.rerank(retrieval.RetrievalConfig(
+            out_dir=str(tmp_path))),
     }
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is usable")

@@ -112,3 +112,45 @@ def test_cpu_routes_to_plain_without_launch():
                                    torch.from_numpy(neg), "distmult")
     (pos.sum() + negs.sum()).backward()
     assert (sddmm.launches, sddmm.backward_launches) == before
+
+
+@pytest.mark.parametrize("units,d,ent_off,want", [
+    (128, 128, 0, 4), (300, 300, 0, 4), (768, 768, 0, 4),
+    (257, 257, 0, 1),      # odd unit count
+    (514, 514, 0, 2),      # even, not a multiple of 4
+    (128, 128, 8, 2),      # ent 8 bytes off 16
+    (128, 128, 4, 1),      # ent 4 bytes off 16
+    (150, 300, 0, 2),      # complex/simple: 150 pairs of d 300
+])
+def test_vector_width_follows_the_launch_rule(units, d, ent_off, want):
+    assert sddmm.vector_width(units, d, 4096 + ent_off, 8192) == want
+    assert sddmm.vector_width(units, d, 4096, 8192 + ent_off) == want
+
+
+@pytest.mark.parametrize("d,offset,rel_model,limit", [
+    (257, 0, "transe", 256),      # odd: vector width 1
+    (514, 0, "distmult", 512),    # 2 mod 4: vector width 2
+    (516, 1, "transe", 256),      # ent view 4 bytes off 16: width 1
+    (1028, 2, "transe", 512),     # ent view 8 bytes off 16: width 2
+    (1030, 0, "complex", 256),    # 515 pairs: odd, width 1
+    (2052, 0, "simple", 512),     # 1,026 pairs: 2 mod 4, width 2
+])
+def test_too_wide_for_k3_raises_with_the_real_limit(d, offset, rel_model, limit):
+    """The width check runs before any launch: a CPU tensor shows it."""
+    b, k = 2, 3
+    buf = torch.zeros(2 * b * d + offset)
+    ent = buf[offset:].view(2 * b, d)
+    rel = torch.zeros((b, d))
+    neg = torch.zeros((b, k, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"at most {limit} units"):
+        sddmm._checked(ent, rel, neg, rel_model)
+
+
+@pytest.mark.parametrize("d,rel_model", [(256, "transe"), (300, "transe"),
+                                         (768, "distmult"), (1024, "transe"),
+                                         (2048, "complex")])
+def test_widths_the_kernel_takes_pass_the_check(d, rel_model):
+    ent, rel = torch.zeros((4, d)), torch.zeros((2, d))
+    neg = torch.zeros((2, 3, 2), dtype=torch.int32)
+    out = sddmm._checked(ent, rel, neg, rel_model)
+    assert out[0].data_ptr() == ent.data_ptr()     # nothing copied

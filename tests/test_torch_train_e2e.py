@@ -118,6 +118,9 @@ def test_mesh_and_multihost_keys_raise(workdir, key, value):
 
 
 def test_node_classification_raises_and_unknown_command_is_usage(workdir):
-    with pytest.raises(NotImplementedError, match="scikit-learn"):
-        t_train.main(["node_classification", "with", "device=cpu"])
+    # Without an embedding export for the named run there is nothing to
+    # classify (tests/test_torch_linear_model.py runs it on a real export).
+    with pytest.raises(FileNotFoundError, match="no embedding export"):
+        t_train.main(["node_classification", "with", "device=cpu",
+                      f"out_dir={workdir / 'output'}", "checkpoint=missing"])
     assert t_train.main(["nope"]) == 2

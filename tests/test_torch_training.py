@@ -5,8 +5,8 @@ training.py, models/blp.py::train_loss) against the JAX package's
 - the schedule: equal at every step;
 - Adam: equal to optax.adam(..., eps=1e-8) on identical gradients within
   atol 1e-7 (f32; the same formula, one ulp of the bias corrections apart);
-- trajectories of the tiny BLP-TransE (fp32, dropout 0, injected negatives,
-  constant lr): the first loss within rtol 1e-6, later ones within 1e-4
+- trajectories of the tiny BLP-TransE, of bert-dkrl and glove-bow, and of
+  the transductive model (fp32, dropout 0, injected negatives, constant lr): the first loss within rtol 1e-6, later ones within 1e-4
   (Adam turns the last-bit differences of near-zero gradients into
   lr-sized steps, so raw parameters are not compared after several steps);
 - bf16: one loss within 2e-2 relative (bf16 GEMMs round before the bias
@@ -95,7 +95,8 @@ def _configs(model, sddmm, dtype="f32"):
     jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[dtype]
     tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
     kw = dict(model=model, rel_model="transe", loss_fn="margin", dim=16,
-              num_relations=NUM_RELS, num_entities=NUM_ENTS, sddmm_pallas=sddmm)
+              num_relations=NUM_RELS, num_entities=NUM_ENTS, sddmm_pallas=sddmm,
+              emb_dim=24, vocab_size=128)
     enc = dict(hidden_dropout=0.0, attention_dropout=0.0)
     if model == "blp":
         return (j_blp.ModelConfig(**kw, encoder=j_bert.BertConfig.tiny(
@@ -114,7 +115,7 @@ def _batches(model, n, seed):
         b = {"rels": rng.integers(0, NUM_RELS, B).astype(np.int32),
              "neg_idx": sampling.corrupt_pairs(torch.from_numpy(r),
                                                torch.from_numpy(coin)).numpy()}
-        if model == "blp":
+        if model != "transductive":
             b["text_tok"] = rng.integers(1, 128, (B, 2, L)).astype(np.int32)
             lens = rng.integers(2, L + 1, (B, 2))
             b["text_mask"] = (np.arange(L) < lens[..., None]).astype(np.float32)
@@ -156,7 +157,9 @@ def _trajectories(model, sddmm, steps, dtype="f32"):
 
 @pytest.mark.parametrize("model,sddmm", [("blp", False), ("blp", True),
                                          ("transductive", False),
-                                         ("transductive", True)])
+                                         ("transductive", True),
+                                         ("bert-dkrl", False), ("bert-dkrl", True),
+                                         ("glove-bow", False), ("glove-bow", True)])
 def test_five_step_trajectory_matches_jax(model, sddmm, interpret_sddmm):
     want, got = _trajectories(model, sddmm, 5)
     np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
