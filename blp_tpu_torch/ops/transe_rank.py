@@ -21,11 +21,16 @@ kernel for a CUDA tensor, with no fallback between them. The TPU package's
 Mosaic-only conditions are gone: there is no interpret mode, no transposed
 (d_pad, Np) table copy and no "tile % 128" gate sending small tables to the
 XLA stream. The kernel masks its own ragged edge, so on the card TransE
-always goes through it.
+always goes through it. The kernel has two variants, "tma" (a TMA-fed ring
+and 8 x 8 register tiles) and "scalar" (scalar staging, for a width that is
+not a multiple of 4 or a view that is not 16-byte aligned); `variant` is the
+rule that picks one, a function of shape and alignment alone (the .cu's
+`pick_variant`).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -37,9 +42,16 @@ _DC = 32
 #: Largest (Q, C, d) term tensor the plain stream makes at once.
 _PLAIN_ELEMS = 1 << 26
 
+#: The kernel's variants, in the order of the .cu's variant numbers.
+VARIANTS = ("tma", "scalar")
+#: Rows the "tma" variant takes (int32 row coordinates, with a tile to spare).
+_TMA_MAX_ROWS = 1 << 30
+
 #: Kernel launches since the last reset (a plain counter; chip_smoke.py reads
-#: it to show the main path went through the kernel).
+#: it to show the main path went through the kernel), and the same launches
+#: by (variant, d).
 launches = 0
+launches_by_variant: collections.Counter = collections.Counter()
 
 
 def _seq_abs_scores(rows: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -115,6 +127,17 @@ def raw_counts_plain(table, u, r, true_pos, num_valid: int) -> torch.Tensor:
     return counts
 
 
+def variant(n_rows: int, d: int, table_ptr: int, u_ptr: int) -> str:
+    """The variant csrc/transe_rank.cu's `pick_variant` runs for a (n_rows, d)
+    table at address table_ptr and offsets at u_ptr: "tma" where d is a
+    multiple of 4, both are 16-byte aligned and n_rows < 2**30; else
+    "scalar"."""
+    if (d % 4 == 0 and table_ptr % 16 == 0 and u_ptr % 16 == 0
+            and n_rows < _TMA_MAX_ROWS):
+        return "tma"
+    return "scalar"
+
+
 def _raw_counts_kernel(table, u, r, true_pos, num_valid: int) -> torch.Tensor:
     global launches
     q, d = u.shape
@@ -131,6 +154,8 @@ def _raw_counts_kernel(table, u, r, true_pos, num_valid: int) -> torch.Tensor:
     r = r.reshape(q).to(dev, torch.float32).contiguous()
     tp = true_pos.reshape(q).to(dev, torch.int32).contiguous()
     counts = torch.zeros((2, q), dtype=torch.int32, device=dev)
+    if min(int(num_valid), table.shape[0]) <= 0:   # no column can count
+        return counts
     fn = _cuda.load("transe_rank").transe_rank_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
@@ -140,6 +165,8 @@ def _raw_counts_kernel(table, u, r, true_pos, num_valid: int) -> torch.Tensor:
              torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(err, "transe_rank launch")
     launches += 1
+    launches_by_variant[variant(table.shape[0], d, table.data_ptr(),
+                                u.data_ptr()), d] += 1
     return counts
 
 

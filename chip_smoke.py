@@ -10,7 +10,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. Build every kernel under blp_tpu_torch/csrc/ (one nvcc per source, in
    parallel, into build/kernels/) and print the build seconds.
 3. Check each kernel against its plain PyTorch version on the card: K1
-   (TransE rank counts, at d 128, 300 and 768) must give identical counts;
+   (TransE rank counts, at d 128, 300 and 768 on its "tma" variant, and at
+   d 128 on its "scalar" variant through a view 4 bytes off) must give
+   identical counts;
    K2 (packed attention, with about 1 row in 8 ending in empty segments)
    must agree within rtol = atol = 2e-2, and the share of outputs more than
    one bf16 ulp away is printed; K3 (the SDDMM scorer of training, forward and backward kernels)
@@ -68,12 +70,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the sum of the counts read after phases 4-5 (inference), after phase 6
    (train) and after phase 8 (word models), each path driven with every
    count (K3's forward and backward each have one) set to 0 just before it.
+   K1's record also counts its launches by variant and width (every
+   main-path launch must take the "tma" variant, at d 128, 300 and 768),
+   reads the SM clock right after its timing with the kernel running, and
+   times the retained "scalar" variant beside it at each width.
 
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -212,7 +219,9 @@ def _kernel_group(name: str) -> str:
 
 def device_profile(label: str, fn) -> dict:
     """Run `fn` once under torch.profiler; print device time by kernel group,
-    the top kernels, and the device's busy share of the wall time."""
+    the top kernels, the device's busy share of the wall time, and the host
+    calls that wait for the device (stream and device synchronisations, and
+    the synchronous copies behind them)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -226,6 +235,9 @@ def device_profile(label: str, fn) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in kernels)
+    waits = {e.key: e.count for e in prof.key_averages()
+             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                          "cudaMemcpyAsync")}
     groups: dict[str, float] = {}
     for name, ms, _ in kernels:
         groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + ms
@@ -235,7 +247,8 @@ def device_profile(label: str, fn) -> dict:
         log(f"  {g}: {ms:.2f} ms ({100 * ms / max(busy, 1e-9):.1f}% of device time)")
     for name, ms, count in sorted(kernels, key=lambda x: -x[1])[:6]:
         log(f"    {ms:8.2f} ms x{count:<5d} {name[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy,
+    log(f"  host calls that wait for the device: {waits}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "host_waits": waits,
             "groups_ms": {g: round(ms, 3) for g, ms in groups.items()}}
 
 
@@ -258,19 +271,38 @@ def k1_inputs(n_rows: int, num_valid: int, seed: int, d: int = K1_D):
     return table, u, r, pos
 
 
+def offset_copy(table: torch.Tensor) -> torch.Tensor:
+    """The same values in a view 4 bytes past a 16-byte boundary, which K1's
+    variant rule sends to the "scalar" variant."""
+    buf = torch.empty(table.numel() + 4, device=table.device)
+    view = buf[1:1 + table.numel()].view(table.shape)
+    view.copy_(table)
+    return view
+
+
+def k1_variant(table: torch.Tensor, u: torch.Tensor) -> str:
+    return transe_rank.variant(table.shape[0], table.shape[1],
+                               table.data_ptr(), u.data_ptr())
+
+
 def check_k1() -> None:
-    """At the flagship width and the word models' widths (d 300 is not a
-    multiple of the 32-wide add chunk: its last chunk is padded)."""
+    """At the flagship width and the word models' widths on the "tma"
+    variant (d 300 is not a multiple of the 32-wide add chunk: its last
+    chunk sums 12 dims), and at d 128 on the "scalar" variant."""
     n = 262_144
     for d in (K1_D, *WORD_DIMS):
         table, u, r, pos = k1_inputs(n, n - 1000, seed=1, d=d)
-        got = transe_rank.raw_counts(table, u, r, pos, n - 1000)
         want = transe_rank.raw_counts_plain(table, u, r, pos, n - 1000)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want),
-                f"K1 counts differ from the plain version at d={d}")
-        log(f"K1 check: Q={K1_Q} d={d} Np={n} num_valid={n - 1000}: counts "
-            f"identical (sum gt={int(got[0].sum())}, geq={int(got[1].sum())})")
+        tables = [table] + ([offset_copy(table)] if d == K1_D else [])
+        for t, name in zip(tables, transe_rank.VARIANTS):
+            require(k1_variant(t, u) == name, f"K1 variant rule at d={d}")
+            got = transe_rank.raw_counts(t, u, r, pos, n - 1000)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"K1 ({name}) counts differ from the plain version at d={d}")
+            log(f"K1 check ({name}): Q={K1_Q} d={d} Np={n} num_valid="
+                f"{n - 1000}: counts identical (sum gt={int(got[0].sum())}, "
+                f"geq={int(got[1].sum())})")
 
 
 def k2_inputs(b: int, seed: int):
@@ -550,12 +582,22 @@ def eval_phase(data_dir: str, cfg, params) -> dict:
     w5m_prof = device_profile(
         f"Wikidata5M-scale rank pass ({n_long} batches)",
         lambda: w5m_eval(n_long))
+    # Per further batch: device busy (nearly all of it the batches'), and the
+    # rest of the wall, during which the device waits for the host.
+    busy_per_batch = w5m_prof["busy_ms"] / n_long
+    gap_ms = marginal_ms - busy_per_batch
+    log(f"rank pass per further batch: wall {marginal_ms:.2f} ms, device busy "
+        f"{busy_per_batch:.2f} ms ({100 * busy_per_batch / marginal_ms:.1f}%), host "
+        f"gap {gap_ms:.2f} ms; per batch "
+        f"{ {k: v / n_long for k, v in w5m_prof['host_waits'].items()} }")
     del table
     torch.cuda.empty_cache()
     return {"synth_mrr": res.mrr, "synth_mrr_filt": res.mrr_filt,
             "synth_hits_filt": res.hits_filt, "synth_eval_s": eval_s,
             "w5m_ms_per_batch": w_s * 1e3 / n_batches,
-            "w5m_marginal_ms_per_batch": marginal_ms, "w5m_profile": w5m_prof}
+            "w5m_marginal_ms_per_batch": marginal_ms,
+            "w5m_busy_ms_per_batch": busy_per_batch,
+            "w5m_host_gap_ms_per_batch": gap_ms, "w5m_profile": w5m_prof}
 
 
 # -- phase 6: train --------------------------------------------------------------
@@ -999,45 +1041,67 @@ def word_phase(data_dir: str, device: str = "cuda") -> dict:
 
 # -- phase 7: timings at the main path's shapes ----------------------------------
 
+def sm_clock_running(fn, ms: float) -> str:
+    """nvidia-smi's SM clock and its maximum, read while about 0.6 s of calls
+    of `fn` (`ms` each) are queued on the card."""
+    for _ in range(int(600 / ms) + 1):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    torch.cuda.synchronize()
+    return out.stdout.strip().splitlines()[0]
+
+
 def _time_k1_at(d: int, plain_reps: int) -> dict:
     """K1 at the Wikidata5M candidate count and width d: counts against the
-    plain version's, kernel ms (CUDA events, 10 calls), plain ms, bound.
-    The bound counts K1's own operations: 2 fp32 adds per (query,
-    candidate, dim), over 33.5e12/s."""
+    plain version's, kernel ms (CUDA events, 10 calls), the SM clock read
+    right after with the kernel running, plain ms, bound, and the retained
+    "scalar" variant's ms on the same values in a view 4 bytes off (3
+    calls). The bound counts K1's own operations: 2 fp32 adds per (query,
+    candidate, dim) of the d real dims, over 33.5e12/s."""
     n = W5M_ENTITIES
     table, u, r, pos = k1_inputs(n, n, seed=3, d=d)
-    got = transe_rank.raw_counts(table, u, r, pos, n)
+    require(k1_variant(table, u) == "tma", f"K1 at d={d} would not take its tma variant")
+    kernel = lambda: transe_rank.raw_counts(table, u, r, pos, n)  # noqa: E731
+    got = kernel()
     want, plain_s = wall(lambda: transe_rank.raw_counts_plain(table, u, r, pos, n))
     err = (got - want).abs().max().item()
     require(err == 0, f"K1 counts differ at the Wikidata5M shape, d={d}, by {err}")
-    ms = cuda_ms(lambda: transe_rank.raw_counts(table, u, r, pos, n), reps=10)
+    ms = cuda_ms(kernel, reps=10)
+    clock = sm_clock_running(kernel, ms)
     plain_ms = (plain_s * 1e3 if plain_reps == 1 else cuda_ms(
         lambda: transe_rank.raw_counts_plain(table, u, r, pos, n), reps=plain_reps))
+    old = offset_copy(table)
+    del table
+    require(k1_variant(old, u) == "scalar", "K1's offset view would not take its scalar variant")
+    scalar = lambda: transe_rank.raw_counts(old, u, r, pos, n)  # noqa: E731
+    require(torch.equal(scalar(), want), f"K1 (scalar) counts differ at d={d}")
+    scalar_ms = cuda_ms(scalar, reps=3)
+    require(ms < scalar_ms, f"K1's tma variant is not faster than its scalar one at d={d}")
     ops = 2.0 * K1_Q * n * d
     nbytes = 4.0 * (n * d + K1_Q * d + 2 * K1_Q + 2 * K1_Q)
     t_ops, t_bytes = ops / FP32_ADDS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    del table
+    del old
     torch.cuda.empty_cache()
-    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "shape": f"Q={K1_Q} Np={n} d={d} fp32"}
-    if d % 32:
-        # The kernel pads the last 32-wide add chunk with zero terms, so it
-        # does ceil(d / 32) * 32 / d of the bound's work.
-        rec["max_share_of_bound"] = d / (-(-d // 32) * 32)
-    return rec
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "scalar_ms": scalar_ms, "sm_clock": clock,
+            "shape": f"Q={K1_Q} Np={n} d={d} fp32"}
 
 
-def time_k1(launches: int) -> dict:
+def time_k1(launches: int, by_variant: dict) -> dict:
     """K1 at d 128 (the record's numbers) and at the word models' widths
-    (under `at_d300`, `at_d768`; their plain version is timed once)."""
+    (under `at_d300`, `at_d768`; their plain version is timed once).
+    `by_variant`: the main path's launches as {variant: {d: launches}}."""
     rec = _time_k1_at(K1_D, plain_reps=2)
     subs = {f"at_d{d}": _time_k1_at(d, plain_reps=1) for d in WORD_DIMS}
     return {"name": "transe_rank (K1)", "route": "cuda",
             "source": "blp_tpu_torch/csrc/transe_rank.cu",
             "replaces": "blp_tpu/ops/pallas_ranking.py:57",
-            "launches": launches, **rec, "library_ms": None, **subs}
+            "launches": launches, "launches_by_variant": by_variant, **rec,
+            "library_ms": None, **subs}
 
 
 def time_k2(launches: int) -> dict:
@@ -1207,10 +1271,13 @@ def main() -> int:
     def reset_counts():
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
+        transe_rank.launches_by_variant.clear()
 
     def read_counts() -> dict:
-        return {name: getattr(mod, attr)
-                for name, (mod, attr) in counters.items()}
+        counts = {name: getattr(mod, attr)
+                  for name, (mod, attr) in counters.items()}
+        counts["K1 by variant"] = collections.Counter(transe_rank.launches_by_variant)
+        return counts
 
     reset_counts()
     serve_stats = serve_phase(data_dir, cfg, params)
@@ -1234,12 +1301,19 @@ def main() -> int:
             "a kernel of the word models' path was never launched")
     launches = {k: infer_launches[k] + train_launches[k] + word_launches[k]
                 for k in counters}
-    log(f"main-path launches: {launches}")
+    k1_counts = sum((p["K1 by variant"] for p in (infer_launches, train_launches,
+                                                  word_launches)), collections.Counter())
+    k1_by = {v: {d: c for (w, d), c in sorted(k1_counts.items()) if w == v}
+             for v in transe_rank.VARIANTS}   # {variant: {d: launches}}
+    log(f"main-path launches: {launches}; K1 by variant and width: {k1_by}")
     require(all(n > 0 for n in launches.values()),
             "a kernel of the main path was never launched")
+    require(all(k1_by["tma"].get(d, 0) > 0 for d in (K1_D, *WORD_DIMS))
+            and not k1_by["scalar"],
+            "a main-path K1 launch at d 128, 300 or 768 did not take the tma variant")
     torch.cuda.empty_cache()
 
-    kernels = [time_k1(launches["K1"]), time_k2(launches["K2"]),
+    kernels = [time_k1(launches["K1"], k1_by), time_k2(launches["K2"]),
                *time_k3(launches["K3"], launches["K3 backward"])]
     for kr in kernels:
         for rec in (kr, *(v for k, v in kr.items() if k.startswith("at_"))):
@@ -1248,9 +1322,10 @@ def main() -> int:
                 f"bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}, "
                 f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it) at "
                 f"{rec['shape']}")
-            if "max_share_of_bound" in rec:
-                log(f"  (its padded last add chunk caps it at "
-                    f"{100 * rec['max_share_of_bound']:.2f}% of this bound)")
+            if "scalar_ms" in rec:
+                log(f"  its scalar variant {rec['scalar_ms']:.4f} ms "
+                    f"({100 * rec['bound_ms'] / rec['scalar_ms']:.1f}% of the bound); "
+                    f"SM clock, max right after: {rec['sm_clock']}")
             if "kernel_ms" in rec:
                 log(f"  of which the kernel {rec['kernel_ms']:.4f} ms; "
                     f"{rec['launches_per_call']:g} device launches per call "

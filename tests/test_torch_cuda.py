@@ -10,8 +10,8 @@ fixture, not at import). On a machine with the card, without JAX:
 (`--noconftest` because tests/conftest.py sets up JAX for the TPU package's
 tests; this file imports neither JAX nor blp_tpu.)
 
-Tolerances: K1 counts are integers, compared exactly (the kernel and its
-plain version add in the same fixed fp32 order). K2 outputs are bf16 with
+Tolerances: K1 counts are integers, compared exactly (both of the kernel's
+variants and its plain version add in the same fixed fp32 order). K2 outputs are bf16 with
 products summed in another order: rtol = atol = 2e-2, the bf16 noise class.
 K3 scores are fp32 sums in another order: rtol = atol = 1e-5; its
 backward kernel forms the plain backward's products and adds them in its
@@ -60,25 +60,76 @@ def _k1_inputs(rng, q, n_rows, d, kind):
     return torch.from_numpy(table), torch.from_numpy(u), torch.from_numpy(pos)
 
 
-@pytest.mark.parametrize("q,n_rows,num_valid,d,kind", [
-    (128, 4096, 4000, 128, "normal"),
-    (6, 1000, 1000, 40, "normal"),      # ragged tile, d not a multiple of 32
-    (130, 777, 700, 16, "integer"),     # two query groups, many ties
-    (1, 63, 63, 33, "integer"),
-    (128, 5000, 4990, 300, "normal"),   # the word models' widths: GloVe,
-    (128, 5000, 4990, 768, "normal"),   # with a padded last chunk, and BERT
+@pytest.mark.parametrize("q,n_rows,num_valid,d,kind,offset,tp_past", [
+    (128, 4096, 4000, 128, "normal", 0, False),
+    (6, 1000, 1000, 40, "normal", 0, False),     # ragged tile, d % 32 != 0
+    (130, 777, 700, 16, "integer", 0, False),    # two query groups, many ties
+    (1, 63, 63, 33, "integer", 0, False),        # d % 4 != 0: scalar
+    (128, 5000, 4990, 300, "normal", 0, False),  # the word models' widths:
+    (128, 5000, 4990, 768, "normal", 0, False),  # GloVe (a 12-dim last chunk), BERT
+    (64, 2000, 1900, 64, "integer", 0, False),
+    (256, 3000, 2999, 32, "integer", 0, False),  # two full query groups
+    (1, 500, 500, 128, "normal", 0, True),
+    (130, 1500, 1200, 300, "normal", 0, True),   # true rows at or past num_valid
+    (256, 2500, 2400, 768, "integer", 0, True),
+    (6, 700, 650, 33, "normal", 0, True),        # scalar, true rows past num_valid
+    (128, 4096, 4000, 128, "normal", 1, False),  # a table view 4 bytes off: scalar
+    (64, 300, 300, 16, "integer", 1, True),
 ])
-def test_k1_kernel_counts_equal_plain(q, n_rows, num_valid, d, kind):
-    rng = np.random.default_rng(q + n_rows + d)
+def test_k1_kernel_counts_equal_plain(q, n_rows, num_valid, d, kind, offset,
+                                      tp_past):
+    rng = np.random.default_rng(q + n_rows + d + offset)
     table, u, pos = _k1_inputs(rng, q, n_rows, d, kind)
-    r = transe_rank._seq_abs_scores(table[pos][:, None, :], u)
+    if tp_past:   # half the true rows at or past num_valid (some past n_rows)
+        half = max(1, q // 2)
+        pos[:half] = num_valid + torch.arange(half) % (n_rows - num_valid + 3)
+    r = transe_rank._seq_abs_scores(table[pos.clamp(max=n_rows - 1)][:, None, :], u)
     want = transe_rank.raw_counts_plain(table, u, r, pos, num_valid)
-    before = transe_rank.launches
-    got = transe_rank.raw_counts(table.cuda(), u.cuda(), r.cuda(), pos.cuda(),
-                                 num_valid)
+    buf = torch.zeros(n_rows * d + 4, device="cuda")
+    table_c = buf[offset:offset + n_rows * d].view(n_rows, d)
+    table_c.copy_(table)
+    u_c = u.cuda()
+    variant = "scalar" if d % 4 or offset else "tma"
+    assert transe_rank.variant(n_rows, d, table_c.data_ptr(), u_c.data_ptr()) == variant
+    before = (transe_rank.launches, transe_rank.launches_by_variant[variant, d])
+    got = transe_rank.raw_counts(table_c, u_c, r.cuda(), pos.cuda(), num_valid)
     torch.cuda.synchronize()
-    assert transe_rank.launches == before + 1
+    assert (transe_rank.launches, transe_rank.launches_by_variant[variant, d]) == (
+        before[0] + 1, before[1] + 1)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_k1_no_live_column_launches_nothing():
+    """num_valid 0 (or an empty table): zero counts, and no launch (a tensor
+    map of 0 rows cannot be made)."""
+    table = torch.randn((50, 16), device="cuda")
+    u = torch.randn((3, 16), device="cuda")
+    r = torch.ones((3, 1), device="cuda")
+    pos = torch.zeros(3, dtype=torch.int64, device="cuda")
+    before = transe_rank.launches
+    for t, nv in ((table, 0), (table[:0], 10)):
+        assert transe_rank.raw_counts(t, u, r, pos, nv).tolist() == [[0] * 3, [0] * 3]
+    assert transe_rank.launches == before
+
+
+def test_k1_variant_rule_equals_the_kernels():
+    """ops/transe_rank.py `variant` and csrc/transe_rank.cu `pick_variant`
+    agree on widths, row counts and alignments (addresses are not read)."""
+    import ctypes
+
+    from blp_tpu_torch.ops import _cuda
+
+    fn = _cuda.load("transe_rank").transe_rank_variant
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    base = 1 << 20
+    for n_rows in (1, 4_800_000, 2 ** 30 - 1, 2 ** 30):
+        for d in (2, 4, 16, 33, 40, 128, 300, 768):
+            for t_off in (0, 4, 8, 16):
+                for u_off in (0, 4, 32):
+                    want = transe_rank.variant(n_rows, d, base + t_off, base + u_off)
+                    got = transe_rank.VARIANTS[fn(n_rows, d, base + t_off, base + u_off)]
+                    assert got == want, (n_rows, d, t_off, u_off)
 
 
 def test_k1_bidir_entry_point_card_equals_cpu():

@@ -1,6 +1,6 @@
-"""The port stands alone: every blp_tpu_torch module (tools included) and
-chip_smoke.py import with JAX and scikit-learn blocked and load nothing of
-blp_tpu; and an entry point
+"""The port stands alone: every blp_tpu_torch module (tools included),
+chip_smoke.py and the kernel probes import with JAX and scikit-learn blocked
+and load nothing of blp_tpu; and an entry point
 called without `device` runs on CUDA or raises — never silently on the
 CPU."""
 
@@ -29,7 +29,7 @@ names = [m.name for m in pkgutil.walk_packages(blp_tpu_torch.__path__,
                                                 "blp_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import chip_smoke, k1_probe, k2_probe
 leaked = sorted(m for m in sys.modules
                 if m == "blp_tpu" or m.startswith(("blp_tpu.", "jax.", "jaxlib")))
 print(len(names), leaked)

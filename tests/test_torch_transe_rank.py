@@ -162,3 +162,56 @@ def test_bilinear_tiled_rank_counts_match_jax():
         rel_model="distmult", corrupt="tail", tile=tile)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+@pytest.mark.parametrize("d,table_off,u_off,n_rows,want", [
+    (128, 0, 0, 4_800_000, "tma"),       # the main path: d 128, 300, 768
+    (300, 0, 0, 4_800_000, "tma"),
+    (768, 16, 32, 4_800_000, "tma"),
+    (4, 0, 0, 1, "tma"),
+    (40, 0, 0, 1000, "tma"),             # d % 32 != 0 is fine: d % 4 == 0
+    (33, 0, 0, 1000, "scalar"),          # a width not a multiple of 4
+    (2, 0, 0, 1000, "scalar"),
+    (130, 0, 0, 1000, "scalar"),
+    (128, 4, 0, 1000, "scalar"),         # a table view 4 bytes off
+    (128, 8, 0, 1000, "scalar"),
+    (128, 12, 0, 1000, "scalar"),
+    (128, 0, 4, 1000, "scalar"),         # offsets 4 bytes off
+    (128, 0, 0, 2 ** 30 - 1, "tma"),     # int32 row coordinates
+    (128, 0, 0, 2 ** 30, "scalar"),
+])
+def test_variant_rule(d, table_off, u_off, n_rows, want):
+    """Rows are d floats apart (the wrapper makes the table contiguous), so
+    d % 4 == 0 is the 16-byte alignment of every row's stride; the table's
+    and the offsets' first addresses must be 16-byte aligned too."""
+    base = 1 << 20
+    assert transe_rank.variant(n_rows, d, base + table_off, base + u_off) == want
+    assert want in transe_rank.VARIANTS
+
+
+@pytest.mark.parametrize("offset,want", [(0, "tma"), (1, "scalar"), (2, "scalar"),
+                                         (4, "tma")])
+def test_variant_of_views(offset, want):
+    """The rule reads a view's own address: a view whose first element lies
+    4, 8 or 12 bytes past a 16-byte boundary takes the scalar variant
+    (torch's allocations are 16-byte aligned or more)."""
+    d, n = 64, 10
+    buf = torch.zeros(n * d + 8)
+    table = buf[offset:offset + n * d].view(n, d)
+    u = torch.zeros((3, d))
+    assert table.is_contiguous()
+    assert transe_rank.variant(n, d, table.data_ptr(), u.data_ptr()) == want
+
+
+def test_cpu_counts_leave_the_launch_counters_alone():
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.standard_normal((50, 8)).astype(np.float32))
+    u = torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32))
+    pos = torch.tensor([0, 3, 49, 60])          # one past num_valid and the table
+    r = transe_rank._seq_abs_scores(table[pos.clamp(max=49)][:, None, :], u)
+    before = (transe_rank.launches, dict(transe_rank.launches_by_variant))
+    counts = transe_rank.raw_counts(table, u, r, pos, 40)
+    assert counts.shape == (2, 4) and counts.dtype == torch.int32
+    assert (transe_rank.launches, dict(transe_rank.launches_by_variant)) == before
+    empty = transe_rank.raw_counts(table, u, r, pos, 0)
+    assert empty.tolist() == [[0] * 4, [0] * 4]
