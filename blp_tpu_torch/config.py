@@ -17,8 +17,7 @@ from typing import Any
 @dataclasses.dataclass
 class ExperimentConfig:
     """The TPU package's experiment keys, so its command lines parse here
-    unchanged, plus `device`. Keys of paths this port does not run yet
-    (training, the mesh, multi-host) are accepted and unused."""
+    unchanged, plus `device`."""
 
     # Reference defaults (train.py:35-55).
     dataset: str = "umls"
@@ -50,22 +49,22 @@ class ExperimentConfig:
     glove_file: str | None = None       # GloVe tensor .pt for glove-* models
     hf_weights: str | None = None       # local HF BertModel state dict (.pt/.bin) for model=blp
     bf16: bool = False                  # bfloat16 encoder compute
-    remat: bool | int = False           # BertConfig.remat (training)
+    remat: bool | int | str = False     # BertConfig.remat: k, True, "dots", "names"
     fast_train: bool = False            # BertConfig.fast_train (training)
     dropout_bits: int = 32              # BertConfig.dropout_bits (training)
     adam_bf16_mu: bool = False          # bfloat16 Adam first moment (training)
     tile: int = 65536                   # ranking tile width (candidates per streamed block)
     eval_every: int = 1                 # epochs between validation evals
     large_dataset: bool = False         # Wikidata5M mode: no global filter graph
-    num_data_shards: int = 1            # multi-device keys (not ported yet)
+    num_data_shards: int = 1            # mesh: data x model, or data x pipe
     num_model_shards: int = 1
     num_pipe_shards: int = 1
-    num_microbatches: int = 4
+    num_microbatches: int = 4           # GPipe microbatches (num_pipe_shards > 1)
     log_every_frac: float = 0.05        # batch-loss logging interval
-    coordinator_address: str | None = None  # multi-host keys (not ported yet)
+    coordinator_address: str | None = None  # multi-host: host:port of rank 0
     num_processes: int | None = None
     process_id: int | None = None
-    multihost_data: bool = False
+    multihost_data: bool = False        # each rank reads only its batch rows
     device: str = "cuda"                # "cpu" runs the plain PyTorch paths
 
     @property

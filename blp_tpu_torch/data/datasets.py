@@ -23,7 +23,9 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import os.path as osp
+import tempfile
 
 import numpy as np
 
@@ -64,8 +66,13 @@ def load_maps(directory: str, write: bool = False):
                                 f"for the training split.")
     ent_ids = file_to_ids(osp.join(directory, "entities.txt"))
     rel_ids = file_to_ids(osp.join(directory, "relations.txt"))
-    with open(json_path, "w") as f:
+    # Written to a file of its own and renamed over maps.json, so a process
+    # reading the maps (another rank of the same run) never sees it half
+    # written.
+    fd, tmp = tempfile.mkstemp(dir=directory, prefix=".maps-", suffix=".json")
+    with os.fdopen(fd, "w") as f:
         json.dump({"ent_ids": ent_ids, "rel_ids": rel_ids}, f)
+    os.replace(tmp, json_path)
     return ent_ids, rel_ids
 
 

@@ -1,4 +1,5 @@
-"""Two-phase full-ranking link-prediction evaluation (single device).
+"""Two-phase full-ranking link-prediction evaluation, on one device or with
+the candidate table split over a mesh (parallel/eval_parallel.py).
 
 Port of blp_tpu/evaluation.py. Phase 1 encodes every candidate entity into
 an (Np, d) table in fixed-size chunks; phase 2 streams each eval batch
@@ -8,7 +9,9 @@ MRR/hits@{1,3,10}, head-corruption-first ordering of the reciprocals, the
 self-tie, and the new-entity and relation-category breakdowns — without
 materializing (B, N) scores. TransE ranks through K1 (ops/transe_rank.py:
 the CUDA kernel on the card, its plain version on the CPU); the bilinear
-scorers through the plain tiled stream (ops/ranking.py).
+scorers through the plain tiled stream (ops/ranking.py). Under a mesh each
+rank encodes and counts its own block of the table and the int32 counts are
+summed: the results equal the one-device evaluator's bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from blp_tpu_torch.data.datasets import CATEGORY_IDS
 from blp_tpu_torch.data.filtering import FilterIndex, build_filters
 from blp_tpu_torch.models import blp
 from blp_tpu_torch.ops import ranking, transe_rank
+from blp_tpu_torch.parallel import eval_parallel
 from blp_tpu_torch.utils import make_ent2idx, resolve_device
 
 HIT_POSITIONS = (1, 3, 10)
@@ -102,11 +106,17 @@ def build_entity_table(
 
 def _rank_batch(table, head_pos, tail_pos, rel_table, rel_ids, num_valid: int,
                 heads_filter, tails_filter, *, rel_model: str,
-                tile: int) -> dict:
+                tile: int, shard: eval_parallel.Shard | None = None) -> dict:
     """Raw + filtered rank counts for one eval batch, both directions, with
     the self-tie added. 'h_' prefixes head corruption, 't_' tail
-    corruption; each value is (B,) int32."""
+    corruption; each value is (B,) int32. With `shard`, `table` is this
+    rank's block and the counts are summed over the world."""
     rel_emb = rel_table[rel_ids]
+    if shard is not None:
+        c = eval_parallel.rank_counts_bidir(
+            shard, table, head_pos, tail_pos, rel_emb, heads_filter,
+            tails_filter, num_valid, rel_model=rel_model, tile=tile)
+        return {k: v + 1 if k.endswith("_geq") else v for k, v in c.items()}
     head_emb = table[head_pos]
     tail_emb = table[tail_pos]
     h_true = ranking.score_pairs(head_emb, tail_emb, rel_emb,
@@ -152,18 +162,30 @@ def eval_link_prediction(
     filter_index: known-true triples (None = raw only); new_entities: ids
     unseen in training (position breakdown); rel_categories: (num_rels,)
     category ids; ent_emb: optionally a precomputed (padded) table. Runs on
-    `device` (default cuda), where `params` must live. `mesh` (the TPU
-    package's candidate-sharded evaluation) is not ported yet.
+    `device` (default cuda), where `params` (whole, not sliced) must live.
+    mesh: a DeviceMesh over the world (parallel/mesh.py) — every rank of it
+    calls this with the same arguments, encodes and counts its block of the
+    candidate table (parallel/eval_parallel.py) and gets the same result,
+    equal to the one-device evaluator's bit for bit.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh evaluation is not ported yet")
     dev = resolve_device(device)
+    if mesh is not None and not hasattr(mesh, "get_coordinate"):
+        raise TypeError(f"mesh must be a DeviceMesh, got {type(mesh).__name__}")
     compute_filtered = filter_index is not None
     max_ent_id = int(max(entities.max(), eval_triples[:, :2].max()))
     ent2idx = make_ent2idx(entities, max_ent_id)
     n = len(entities)
-    tile = min(tile, _round_up(max(n, 1), 256))
-    n_pad = _round_up(n, tile)
+    # The tile is clamped to the candidates (under a mesh, to one rank's
+    # share of them), so no pass streams a mostly padded table and every
+    # rank's block holds real rows.
+    share = n if mesh is None else -(-n // mesh.size())
+    tile = min(tile, _round_up(max(share, 1), 256))
+    pad_unit = tile if mesh is None else tile * mesh.size()
+    n_pad = _round_up(n, pad_unit)
+    shard = None if mesh is None else eval_parallel.Shard.of(mesh, n_pad)
+    # The rows this process encodes and counts: the whole table, or its block.
+    ids = entities if shard is None else shard.ids(entities)
+    rows = n_pad if shard is None else shard.rows
 
     if ent_emb is None:
         if cfg.is_inductive:
@@ -174,18 +196,19 @@ def eval_link_prediction(
 
             # 4 keeps BERT sequence packing engaged (packing needs B % 4 == 0).
             ent_emb = build_entity_table(
-                encode_batch, text_data, entities,
-                emb_batch_size=emb_batch_size, dim=cfg.entity_dim, device=dev,
-                pad_to=tile, chunk_multiple=4, log=log)
+                encode_batch, text_data, ids, emb_batch_size=emb_batch_size,
+                dim=cfg.entity_dim, device=dev, pad_to=rows,
+                chunk_multiple=4, log=log)
         else:
-            table = blp.encode_entity_ids(params, cfg, entities)
-            ent_emb = torch.zeros((n_pad, cfg.entity_dim), device=dev)
-            ent_emb[:n] = table
+            ent_emb = torch.zeros((rows, cfg.entity_dim), device=dev)
+            ent_emb[:len(ids)] = blp.encode_entity_ids(params, cfg, ids)
     else:
         if not isinstance(ent_emb, torch.Tensor):
             ent_emb = torch.from_numpy(np.array(ent_emb, np.float32))
         ent_emb = ent_emb.to(dev, torch.float32)
-        if ent_emb.shape[0] != n_pad:
+        if shard is not None:
+            ent_emb = shard.pad(ent_emb[shard.offset:shard.offset + shard.rows])
+        elif ent_emb.shape[0] != n_pad:
             # Pad up to a multiple of the tile, never truncate real rows.
             target = max(n_pad, _round_up(int(ent_emb.shape[0]), tile))
             if target > ent_emb.shape[0]:
@@ -228,7 +251,8 @@ def eval_link_prediction(
         counts = _rank_batch(
             ent_emb, on_dev(head_pos), on_dev(tail_pos), rel_emb_table,
             on_dev(batch[:, 2]), n, on_dev(hf, torch.int32),
-            on_dev(tf, torch.int32), rel_model=cfg.rel_model, tile=tile)
+            on_dev(tf, torch.int32), rel_model=cfg.rel_model, tile=tile,
+            shard=shard)
         # Counts stay on the device until the loop ends: one host sync.
         pending.append((counts, real))
         triples_seen.append(batch[:real])
@@ -281,6 +305,8 @@ def eval_link_prediction(
             result.mrr_by_category = sums.numpy() / np.maximum(cnts.numpy(), 1.0)
 
     if return_embeddings:
+        if shard is not None:
+            ent_emb = shard.whole(ent_emb)
         result.ent_emb = ent_emb[:n].cpu().numpy()
         result.entities = entities
     return result

@@ -27,6 +27,23 @@ counterpart). The masks therefore do not depend on the global RNG, so the
 recomputed forward of `torch.utils.checkpoint` (`remat`) draws the same masks
 as the first one. The weights are cast to the compute dtype inside the graph,
 so gradients land on the f32 master weights.
+
+`remat` takes the TPU package's values: True (every layer recomputed), an int
+k (the first k layers), "dots" (save the matmul outputs, recompute the rest)
+and "names" (save only the tensors tagged q, k, v, ctx and ffn_pre). The two
+strings are selective checkpoint policies
+(`torch.utils.checkpoint.create_selective_checkpoint_contexts`); a policy
+sees aten ops, so "names" tags its five tensors with the custom op
+`blp_tpu_torch::checkpoint_name`, a copy the policy recognises. Eager
+recomputation re-runs every op of the layer and takes the saved outputs in
+place of recomputing the saved ops themselves, so the policies cut the
+stash, and "dots" also the GEMMs of the backward's recompute.
+
+Parallel training passes a `Part` (see `Part`): the layer runs its share of
+the heads and FFN columns under tensor parallelism (Megatron's column- and
+row-parallel pair) and draws each dropout mask as the slice of the mask one
+device draws for the whole batch, so a step split over data, model or
+pipeline ranks drops the same elements as the one-device step.
 """
 
 from __future__ import annotations
@@ -40,8 +57,10 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from blp_tpu_torch.parallel import comm
 from blp_tpu_torch.utils import fold_seed
 
 
@@ -63,8 +82,8 @@ class BertConfig:
     initializer_range: float = 0.02
     compute_dtype: Any = torch.float32
     # False | True (every layer under torch.utils.checkpoint) | <int k> (the
-    # first k layers). The TPU package's policy strings ("dots", "names")
-    # are not ported and raise.
+    # first k layers) | "dots" | "names" (every layer, under a selective
+    # policy; see the module doc).
     remat: Any = False
     # Sequence packing: fold `pack` sequences into one row with a
     # block-diagonal attention mask. Exact (-10000 cross-block bias
@@ -193,27 +212,104 @@ def _site_generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _site_keep(seed: int, rate: float, nbits: int, shape, device, block):
+    """The keep mask of a dropout site. `block` is None when the tensor is
+    the whole site, else (whole shape, index): the mask is drawn at the
+    whole shape and the tensor's block taken from it."""
+    gen = _site_generator(seed, device)
+    if block is None:
+        return _dropout_keep(gen, rate, nbits, shape)
+    whole, index = block
+    keep, keep_p = _dropout_keep(gen, rate, nbits, whole)
+    return keep[index], keep_p
+
+
 class _RngDropout(torch.autograd.Function):
     """Dropout that saves only its seed: the backward regenerates the mask
     from it (the TPU package's `_rng_dropout` custom_vjp), so no mask is
     stashed and a recomputed forward draws the same mask."""
 
     @staticmethod
-    def forward(ctx, x, seed: int, rate: float, nbits: int):
-        ctx.seed, ctx.rate, ctx.nbits = seed, rate, nbits
-        keep, keep_p = _dropout_keep(_site_generator(seed, x.device), rate,
-                                     nbits, x.shape)
+    def forward(ctx, x, seed: int, rate: float, nbits: int, block=None):
+        ctx.seed, ctx.rate, ctx.nbits, ctx.block = seed, rate, nbits, block
+        keep, keep_p = _site_keep(seed, rate, nbits, x.shape, x.device, block)
         return torch.where(keep, x / keep_p, 0.0)
 
     @staticmethod
     def backward(ctx, g):
-        keep, keep_p = _dropout_keep(_site_generator(ctx.seed, g.device),
-                                     ctx.rate, ctx.nbits, g.shape)
-        return torch.where(keep, g / keep_p, 0.0), None, None, None
+        keep, keep_p = _site_keep(ctx.seed, ctx.rate, ctx.nbits, g.shape,
+                                  g.device, ctx.block)
+        return torch.where(keep, g / keep_p, 0.0), None, None, None, None
 
 
-def _rng_dropout(x, seed: int, rate: float, nbits: int = 32):
-    return _RngDropout.apply(x, seed, rate, nbits)
+def _rng_dropout(x, seed: int, rate: float, nbits: int = 32, block=None):
+    return _RngDropout.apply(x, seed, rate, nbits, block)
+
+
+@dataclasses.dataclass(frozen=True)
+class Part:
+    """Where one process's share of an encoder call sits in the call one
+    device would make for the whole batch.
+
+    rows: (first row, rows of the whole batch), or None when the process
+      holds every row. `bert_encode` takes it in sequences; the layers in
+      packed rows (it divides by the pack).
+    model: the "model" axis (parallel/comm.py `Axis`) under tensor
+      parallelism, or None. The process then holds its share of q/k/v and
+      ffn_in columns and of attn_out and ffn_out rows (parallel/mesh.py).
+    """
+    rows: tuple[int, int] | None = None
+    model: Any = None
+
+    def block(self, x, heads: int | None = None):
+        """(whole shape, index) of x's block of its dropout site, or None
+        when x is the whole site. `heads`: the whole site's head count, for
+        the attention probabilities (B, heads, S, S) under tensor
+        parallelism."""
+        index, whole = [slice(None)] * x.dim(), list(x.shape)
+        if self.rows is not None:
+            start, total = self.rows
+            index[0], whole[0] = slice(start, start + x.shape[0]), total
+        if heads is not None and self.model is not None:
+            h = x.shape[1]
+            index[1], whole[1] = slice(self.model.rank * h,
+                                       (self.model.rank + 1) * h), heads
+        if tuple(whole) == tuple(x.shape):
+            return None
+        return tuple(whole), tuple(index)
+
+
+@torch.library.custom_op("blp_tpu_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """A copy of x that the "names" remat policy saves (the counterpart of
+    jax.ad_checkpoint.checkpoint_name; a custom op may not return its
+    input, hence the copy)."""
+    return x.clone()
+
+
+@_checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_checkpoint_name.register_autograd(lambda ctx, g: (g, None))
+
+#: The aten ops "dots" saves: every matmul torch.matmul lowers to.
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default})
+_NAME_OPS = frozenset({torch.ops.blp_tpu_torch.checkpoint_name.default})
+
+
+def _policy(saved):
+    def policy(ctx, func, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if func in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+#: remat string -> checkpoint context_fn.
+_REMAT_POLICIES = {"dots": _policy(_DOT_OPS), "names": _policy(_NAME_OPS)}
 
 
 def _layer_norm(x, scale, bias, eps: float, out_dtype=None):
@@ -232,10 +328,15 @@ def _matmul(x, w, dtype):
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 
-def _dense(x, w, b, dtype, out_dtype=None):
+def _dense(x, w, b, dtype, out_dtype=None, model=None):
     """Matmul in `dtype` plus the bias in f32; `out_dtype` (default f32) is
-    the dtype carried forward."""
-    out = _matmul(x, w, dtype).to(torch.float32) + b
+    the dtype carried forward. `model`: the tensor-parallel axis of a
+    row-parallel product, whose f32 partial products are summed over it
+    before the bias is added once."""
+    out = _matmul(x, w, dtype).to(torch.float32)
+    if model is not None:
+        out = comm.reduce_from(out, model)
+    out = out + b
     return out.to(out_dtype) if out_dtype is not None else out
 
 
@@ -314,26 +415,38 @@ def _use_fast_inference(cfg: BertConfig) -> bool:
 
 
 def _encoder_layer(cfg: BertConfig, x, mask_bias, lp: dict, seeds=None,
-                   rate: float = 0.0):
+                   rate: float = 0.0, part: Part | None = None,
+                   names: bool = False):
     """One post-LN transformer layer (the exact layer). x: (B, S, H);
     mask_bias: additive attention bias broadcastable to (B, nh, S, S);
     seeds: the layer's three dropout-site seeds (attention probabilities,
     attention output, FFN output), None for no dropout; rate: the hidden
-    dropout rate."""
+    dropout rate; part: this process's share of the call (`Part`, training
+    only); names: tag q, k, v, ctx and ffn_pre for the "names" policy."""
     B, S, H = x.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
+    nh = lp["q_w"].shape[-1] // hd        # this process's heads
     dt = cfg.compute_dtype
     res_dt = None if dt == torch.float32 else dt
     mp = cfg.mixed_precision_train and dt != torch.float32
+    part = part or Part()
+    model = part.model
+    tag = _checkpoint_name if names else (lambda t, name: t)
+    if model is not None:
+        # Megatron's f: identity forward, gradient summed over "model".
+        xin = comm.copy_to(x, model)
+    else:
+        xin = x
 
     if mp:
-        q = _head_major(x, lp["q_w"], lp["q_b"], nh, hd, dt)
-        k = _head_major(x, lp["k_w"], lp["k_b"], nh, hd, dt)
-        v = _head_major(x, lp["v_w"], lp["v_b"], nh, hd, dt)
+        q = _head_major(xin, lp["q_w"], lp["q_b"], nh, hd, dt)
+        k = _head_major(xin, lp["k_w"], lp["k_b"], nh, hd, dt)
+        v = _head_major(xin, lp["v_w"], lp["v_b"], nh, hd, dt)
     else:
-        q, k, v = (_dense(x, lp[f"{n}_w"], lp[f"{n}_b"], dt, dt)
+        q, k, v = (_dense(xin, lp[f"{n}_w"], lp[f"{n}_b"], dt, dt)
                    .reshape(B, S, nh, hd).permute(0, 2, 1, 3)
                    for n in ("q", "k", "v"))
+    q, k, v = tag(q, "q"), tag(k, "k"), tag(v, "v")
     logits = _matmul(q, k.transpose(-1, -2), dt).to(torch.float32)
     logits = logits / math.sqrt(hd) + mask_bias
     probs = torch.softmax(logits, dim=-1)
@@ -343,24 +456,28 @@ def _encoder_layer(cfg: BertConfig, x, mask_bias, lp: dict, seeds=None,
         probs = probs.to(dt)
     if seeds is not None and cfg.attention_dropout > 0.0:
         probs = _rng_dropout(probs, seeds[0], cfg.attention_dropout,
-                             cfg.dropout_bits)
+                             cfg.dropout_bits,
+                             part.block(probs, heads=cfg.num_heads))
     ctx = _matmul(probs, v, dt).to(torch.float32)            # (B, nh, S, hd)
-    ctx = ctx.permute(0, 2, 1, 3).reshape(B, S, H)
+    ctx = tag(ctx.permute(0, 2, 1, 3).reshape(B, S, nh * hd), "ctx")
 
     od = dt if mp else None
-    attn_out = _dense(ctx, lp["attn_out_w"], lp["attn_out_b"], dt, od)
+    attn_out = _dense(ctx, lp["attn_out_w"], lp["attn_out_b"], dt, od, model)
     if seeds is not None and rate > 0.0:
-        attn_out = _rng_dropout(attn_out, seeds[1], rate, cfg.dropout_bits)
+        attn_out = _rng_dropout(attn_out, seeds[1], rate, cfg.dropout_bits,
+                                part.block(attn_out))
     x = _layer_norm(x + attn_out, lp["attn_ln_scale"], lp["attn_ln_bias"],
                     cfg.layer_norm_eps, out_dtype=res_dt)
-    ffn = _dense(x, lp["ffn_in_w"], lp["ffn_in_b"], dt, dt)
+    xin = comm.copy_to(x, model) if model is not None else x
+    ffn = tag(_dense(xin, lp["ffn_in_w"], lp["ffn_in_b"], dt, dt), "ffn_pre")
     if cfg.fast_train and dt != torch.float32:
         ffn = poly_gelu(ffn)
     else:
         ffn = F.gelu(ffn)
-    ffn = _dense(ffn, lp["ffn_out_w"], lp["ffn_out_b"], dt, od)
+    ffn = _dense(ffn, lp["ffn_out_w"], lp["ffn_out_b"], dt, od, model)
     if seeds is not None and rate > 0.0:
-        ffn = _rng_dropout(ffn, seeds[2], rate, cfg.dropout_bits)
+        ffn = _rng_dropout(ffn, seeds[2], rate, cfg.dropout_bits,
+                           part.block(ffn))
     return _layer_norm(x + ffn, lp["ffn_ln_scale"], lp["ffn_ln_bias"],
                        cfg.layer_norm_eps, out_dtype=res_dt)
 
@@ -403,21 +520,22 @@ def embed_inputs(params: dict, input_ids, attention_mask, cfg: BertConfig):
 
 
 def _remat_layers(cfg: BertConfig) -> int:
-    """How many leading layers run under torch.utils.checkpoint."""
-    if isinstance(cfg.remat, str):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r}: the TPU package's checkpoint policies are "
-            f"not ported (ROADMAP.md, Queue 1: string remat policies); use "
-            f"True or a layer count")
+    """How many leading layers run under torch.utils.checkpoint: an int k
+    takes the first k, any other true value (True, a policy string) every
+    layer — the TPU package's `remat_k` rule."""
+    if isinstance(cfg.remat, str) and cfg.remat not in _REMAT_POLICIES:
+        raise ValueError(f"remat={cfg.remat!r}: expected False, True, a layer "
+                         f"count or one of {sorted(_REMAT_POLICIES)}")
     if not cfg.remat:
         return 0
-    if isinstance(cfg.remat, bool):
-        return cfg.num_layers
-    return int(cfg.remat)
+    if isinstance(cfg.remat, int) and not isinstance(cfg.remat, bool):
+        return int(cfg.remat)
+    return cfg.num_layers
 
 
 def bert_encode(params: dict, input_ids, attention_mask, cfg: BertConfig, *,
-                deterministic: bool = True, dropout_seed: int | None = None):
+                deterministic: bool = True, dropout_seed: int | None = None,
+                part: Part | None = None):
     """Run the encoder. Returns the last hidden states (B, S, H) in the
     residual dtype: float32 in fp32 mode, compute_dtype otherwise.
 
@@ -425,17 +543,49 @@ def bert_encode(params: dict, input_ids, attention_mask, cfg: BertConfig, *,
     unstacked `layers` layouts both run. deterministic=True is inference,
     under no_grad. deterministic=False is the training pass: dropout from
     `dropout_seed` (an int; required), an autograd graph, and `cfg.remat`.
+    part: this process's share of a parallel training pass (`Part`, rows in
+    sequences); the pack must then divide this process's rows.
     """
     if not deterministic and dropout_seed is None:
         raise ValueError("dropout_seed required when deterministic=False")
     grad_ctx = torch.no_grad() if deterministic else contextlib.nullcontext()
     with grad_ctx:
         return _bert_encode(params, input_ids, attention_mask, cfg,
-                            None if deterministic else dropout_seed)
+                            None if deterministic else dropout_seed, part)
+
+
+def layer_seeds(dropout_seed: int, layer: int) -> tuple[int, int, int]:
+    """The three dropout-site seeds of encoder layer `layer` (its global
+    index) in the training pass seeded by `dropout_seed`."""
+    layer_seed = fold_seed(dropout_seed, 1)
+    return tuple(fold_seed(layer_seed, 3 * layer + j) for j in range(3))
+
+
+def embed_dropout(x, dropout_seed: int, cfg: BertConfig, part: Part | None):
+    """The embedding output's dropout site of the training pass (x packed,
+    `part` in packed rows)."""
+    if cfg.hidden_dropout <= 0.0:
+        return x
+    return _rng_dropout(x, fold_seed(dropout_seed, 0), cfg.hidden_dropout,
+                        cfg.dropout_bits, (part or Part()).block(x))
+
+
+def run_layer(cfg: BertConfig, x, mask_bias, lp: dict, seeds, *,
+              part: Part | None = None, remat: bool = False):
+    """One exact layer of the training pass, under `cfg.remat`'s checkpoint
+    policy when `remat`."""
+    fn = functools.partial(_encoder_layer, cfg, mask_bias=mask_bias, lp=lp,
+                           seeds=seeds, rate=cfg.hidden_dropout, part=part,
+                           names=remat and cfg.remat == "names")
+    if not remat:
+        return fn(x)
+    policy = _REMAT_POLICIES.get(cfg.remat) if isinstance(cfg.remat, str) else None
+    kw = {} if policy is None else {"context_fn": policy}
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def _bert_encode(params, input_ids, attention_mask, cfg: BertConfig,
-                 dropout_seed):
+                 dropout_seed, part: Part | None = None):
     B, S = input_ids.shape
     x, mask_bias, pack, key_mask = embed_inputs(params, input_ids,
                                                 attention_mask, cfg)
@@ -453,19 +603,16 @@ def _bert_encode(params, input_ids, attention_mask, cfg: BertConfig,
                 x = _encoder_layer(cfg, x, mask_bias, lp)
         return x.reshape(B, S, x.shape[-1]) if pack > 1 else x
 
-    rate = cfg.hidden_dropout
-    if rate > 0.0:
-        x = _rng_dropout(x, fold_seed(dropout_seed, 0), rate, cfg.dropout_bits)
-    layer_seed = fold_seed(dropout_seed, 1)
+    if part is not None and part.rows is not None:
+        start, total = part.rows
+        if start % pack or total % pack:
+            raise ValueError(f"rows {part.rows} do not divide by the pack {pack}")
+        part = dataclasses.replace(part, rows=(start // pack, total // pack))
+    x = embed_dropout(x, dropout_seed, cfg, part)
     remat_k = _remat_layers(cfg) if torch.is_grad_enabled() else 0
     for i, lp in enumerate(layers):
-        seeds = tuple(fold_seed(layer_seed, 3 * i + j) for j in range(3))
-        fn = functools.partial(_encoder_layer, cfg, mask_bias=mask_bias, lp=lp,
-                               seeds=seeds, rate=rate)
-        if i < remat_k:
-            x = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = fn(x)
+        x = run_layer(cfg, x, mask_bias, lp, layer_seeds(dropout_seed, i),
+                      part=part, remat=i < remat_k)
     return x.reshape(B, S, x.shape[-1]) if pack > 1 else x
 
 

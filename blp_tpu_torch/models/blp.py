@@ -174,17 +174,19 @@ def encode_view(params: dict, cfg: ModelConfig) -> dict:
 
 
 def encode_raw(params: dict, cfg: ModelConfig, text_tok, text_mask, *,
-               deterministic: bool = True, dropout_seed: int | None = None):
+               deterministic: bool = True, dropout_seed: int | None = None,
+               part: bert_mod.Part | None = None):
     """Encode (B, L) token batches into entity embeddings, WITHOUT the TransE
     normalization. Runs where `params` live; deterministic=False is the
     training pass (dropout from `dropout_seed`, with a graph; the word
-    models have no dropout)."""
+    models have no dropout). part: this process's share of a parallel
+    training pass of the BERT encoder (models/bert.py `Part`)."""
     grad_ctx = torch.no_grad() if deterministic else contextlib.nullcontext()
     with grad_ctx:
         if cfg.model == "blp":
             hidden = bert_mod.bert_encode(params["bert"], text_tok, text_mask,
                                           cfg.encoder, deterministic=deterministic,
-                                          dropout_seed=dropout_seed)
+                                          dropout_seed=dropout_seed, part=part)
             cls = hidden[:, 0].to(torch.float32)
             return torch.matmul(cls, params["proj"].to(torch.float32))
         if cfg.model.endswith("bow"):
@@ -222,7 +224,8 @@ def encode_entity_ids(params: dict, cfg: ModelConfig, entity_ids):
 
 
 def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
-               deterministic: bool = False, dropout_seed: int | None = None):
+               deterministic: bool = False, dropout_seed: int | None = None,
+               part: bert_mod.Part | None = None, gather=None):
     """Link-prediction loss for one batch (0-d float32 tensor on the
     batch's device).
 
@@ -232,6 +235,12 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
       both:         rels (B,), neg_idx (B, K, 2)
     With `cfg.sddmm_pallas` the positive and negative scores come from K3
     (ops/sddmm.py); otherwise from scoring.compute_loss.
+
+    Data-parallel steps (parallel/train_parallel.py) pass this rank's rows
+    of the batch, their place in the whole batch (`part`, in entity rows)
+    and `gather`, which stacks every rank's rows (with autograd): the
+    entity embeddings and relations are gathered before scoring, so
+    `neg_idx` indexes the whole batch.
     """
     if cfg.is_inductive:
         text_tok = batch["text_tok"]
@@ -239,23 +248,33 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
         mask = batch.get("text_mask")
         flat_mask = None if mask is None else mask.reshape(B * two, L)
         ent = encode_raw(params, cfg, text_tok.reshape(B * two, L), flat_mask,
-                         deterministic=deterministic, dropout_seed=dropout_seed)
+                         deterministic=deterministic, dropout_seed=dropout_seed,
+                         part=part)
         if cfg.normalize_embs:
             ent = scoring.l2_normalize(ent)
         ent = ent.reshape(B, 2, -1)
     else:
         ent = encode_entity_ids(params, cfg, batch["pos_pairs"])
+    rels = batch["rels"].reshape(-1)
+    if gather is not None:
+        ent, rels = gather(ent), gather(rels)
+    return entity_loss(params, cfg, ent, rels, batch["neg_idx"])
 
-    rel_embs = params["rel_emb"][batch["rels"].reshape(-1).long()]
+
+def entity_loss(params: dict, cfg: ModelConfig, ent, rels, neg_idx):
+    """The loss of a batch's entity embeddings ent (B, 2, d), normalized as
+    the model normalizes them, with relations rels (B,) and negatives
+    neg_idx (B, K, 2): through K3 with `cfg.sddmm_pallas`, else
+    scoring.compute_loss."""
+    rel_embs = params["rel_emb"][rels.long()]
     if cfg.sddmm_pallas:
         pos, neg = sddmm.sddmm_scores(
-            ent.reshape(-1, ent.shape[-1]), rel_embs, batch["neg_idx"],
-            cfg.rel_model)
+            ent.reshape(-1, ent.shape[-1]), rel_embs, neg_idx, cfg.rel_model)
         total = scoring.get_loss_fn(cfg.loss_fn)(pos, neg)
         if cfg.regularizer:
             total = total + cfg.regularizer * scoring.l2_regularization(
                 ent[:, 0, :], ent[:, 1, :], rel_embs)
         return total
     return scoring.compute_loss(
-        ent, rel_embs, batch["neg_idx"],
+        ent, rel_embs, neg_idx,
         rel_model=cfg.rel_model, loss_fn=cfg.loss_fn, regularizer=cfg.regularizer)

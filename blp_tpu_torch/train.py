@@ -1,5 +1,5 @@
-"""Training entry points: `link_prediction` on one device, and
-`node_classification` on a run's embedding export.
+"""Training entry points: `link_prediction` on one device or over a mesh,
+and `node_classification` on a run's embedding export.
 
     python -m blp_tpu_torch.train link_prediction with dataset=umls model=blp ...
     python -m blp_tpu_torch.train node_classification with dataset=... checkpoint=<run_id>
@@ -13,13 +13,21 @@ negatives on the device; batches are assembled and copied ahead on a
 background thread; losses stay on the device and are read one log interval
 late; full-state checkpoints resume with `resume=auto` or a file path.
 
-Runs on `device=` (default cuda). Not ported: the mesh and multi-host keys
-(`num_data_shards`, `num_model_shards`, `num_pipe_shards` > 1,
-`coordinator_address`, `multihost_data`); each raises NotImplementedError
-naming its ROADMAP.md item. `node_classification` fits the logistic
-regression of linear_model.py (scikit-learn's default LogisticRegression,
-in torch) and writes `classifier-<run_id>.npz` where the TPU package writes
-a joblib file.
+Runs on `device=` (default cuda). Over several processes — started by
+`python -m torch.distributed.run --nproc-per-node N -m blp_tpu_torch.train
+...`, or joined through the multi-host keys (`coordinator_address`,
+`num_processes`, `process_id`) — it trains over a ("data", "model") mesh
+(`num_data_shards` x `num_model_shards`: data and tensor parallelism,
+parallel/train_parallel.py) or a ("data", "pipe") mesh (`num_pipe_shards`,
+GPipe with `num_microbatches`, parallel/pipeline.py) and evaluates with the
+candidate table split over every rank (parallel/eval_parallel.py). The mesh
+must cover the world; each rank runs on cuda:LOCAL_RANK for device=cuda, or
+on the device named. `multihost_data=True` has each rank read only its rows
+of every batch (parallel/multihost.py). Rank 0 writes the checkpoints, in
+the one-device format, so a run resumes under any layout.
+`node_classification` fits the logistic regression of linear_model.py
+(scikit-learn's default LogisticRegression, in torch) and writes
+`classifier-<run_id>.npz` where the TPU package writes a joblib file.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ from blp_tpu_torch.data.loader import (epoch_batches, num_batches,
                                        transductive_train_batch)
 from blp_tpu_torch.data.tokenizers import GloVeTokenizer, WordPieceTokenizer
 from blp_tpu_torch.models import bert, blp
+from blp_tpu_torch.parallel import comm, multihost, pipeline, train_parallel
+from blp_tpu_torch.parallel import mesh as mesh_lib
 from blp_tpu_torch.utils import (fold_seed, get_logger, load_embedding_export,
                                  make_ent2idx, resolve_device)
 
@@ -133,30 +143,75 @@ def init_model_params(cfg: ExperimentConfig, mcfg: blp.ModelConfig, seed: int,
                            hf_state_dict=hf_sd)
 
 
-def _require_single_device(cfg: ExperimentConfig) -> None:
-    if cfg.num_data_shards * cfg.num_model_shards > 1 or cfg.num_pipe_shards > 1:
-        raise NotImplementedError(
-            "mesh training (num_data_shards/num_model_shards/num_pipe_shards "
-            "> 1) is not ported yet (ROADMAP.md, Queue 1: parallel/* and mesh "
-            "eval)")
-    if cfg.coordinator_address or cfg.multihost_data:
-        raise NotImplementedError(
-            "multi-host training (coordinator_address, multihost_data) is not "
-            "ported yet (ROADMAP.md, Queue 1: parallel/* and mesh eval)")
+def _device_and_world(cfg: ExperimentConfig):
+    """Join the world the keys or the launcher describe, and return this
+    rank's device."""
+    multihost.initialize(cfg.coordinator_address, cfg.num_processes,
+                         cfg.process_id, device=cfg.device)
+    if (cfg.num_data_shards * cfg.num_model_shards * cfg.num_pipe_shards > 1
+            or comm.world_size() > 1):
+        dev = comm.init_world(cfg.device)
+    else:
+        dev = torch.device(cfg.device)
+    return resolve_device(dev)
 
 
 def link_prediction(cfg: ExperimentConfig) -> dict:
-    _require_single_device(cfg)
-    device = resolve_device(cfg.device)
+    started = not torch.distributed.is_initialized()
+    device = _device_and_world(cfg)
     run_id = cfg.run_id or time.strftime("%Y%m%d-%H%M%S")
     os.makedirs(cfg.out_dir, exist_ok=True)
-    metrics_log = observers.ObserverSet.from_env(cfg.out_dir, run_id)
+    # Rank 0 keeps the metrics; the other ranks compute the same values.
+    metrics_log = (observers.ObserverSet.from_env(cfg.out_dir, run_id)
+                   if comm.world_rank() == 0 else observers.ObserverSet([]))
     # close() in a finally: a crash must still flush buffered sinks.
     try:
         metrics_log.log_config(dataclasses.asdict(cfg))
         return _link_prediction(cfg, run_id, metrics_log, device)
     finally:
         metrics_log.close()
+        if started and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+class _Layout:
+    """How the live training state is split over the mesh, and the way back
+    to the full one-device tree (for checkpoints and evaluation)."""
+
+    def __init__(self, mesh, kind: str | None, split=None):
+        self.mesh, self.kind, self.split = mesh, kind, split
+
+    def full(self, tree):
+        """The full tree from this rank's slice (a collective)."""
+        if self.mesh is None:
+            return tree
+        if self.kind == "pipe":
+            return pipeline.gather_pipeline_params(tree, self.mesh)
+        return train_parallel.gather_state(tree, self.mesh, self.split)
+
+    def live(self, params, opt_state):
+        """This rank's slices of a full (stacked) params and optimizer
+        state, in the training layout."""
+        if self.kind == "pipe":
+            return (pipeline.shard_pipeline_params(params, self.mesh),
+                    pipeline.shard_pipeline_params(opt_state, self.mesh))
+        params = training.unstack_params(params)
+        opt_state = training.unstack_opt_state(opt_state)
+        if self.split is not None:
+            model = train_parallel.model_axis(self.mesh)
+            params = mesh_lib.shard_tree(params, model.size, model.rank, self.split)
+            opt_state = mesh_lib.shard_tree(opt_state, model.size, model.rank,
+                                            self.split)
+        return params, opt_state
+
+
+def _save(path: str, tree, metadata: dict) -> None:
+    """Rank 0 writes the (full, host) tree; every rank returns once it is
+    written."""
+    if comm.world_rank() == 0:
+        ckpt.save_pytree(path, tree, metadata)
+    if comm.world_size() > 1:
+        torch.distributed.barrier()
 
 
 def _link_prediction(cfg: ExperimentConfig, run_id: str,
@@ -212,23 +267,58 @@ def _link_prediction(cfg: ExperimentConfig, run_id: str,
                                         bf16_mu=cfg.adam_bf16_mu)
     # Training holds the BERT layers unstacked (one leaf per layer); files
     # and the final eval use the stacked layout. Adam's mu/nu mirror the
-    # training layout.
-    params = training.unstack_params(params)
-    opt_state = optimizer.init(params)
-    train_step = training.make_train_step(
-        mcfg, optimizer, batch_size=cfg.batch_size,
-        num_negatives=cfg.num_negatives, device=device)
+    # training layout. Under a mesh each rank holds its slice of both.
+    full_template = blp.to_device(params, "meta")   # shapes only, no memory
+    mesh, layout = None, _Layout(None, None)
+    n_data, n_model, n_pipe = (cfg.num_data_shards, cfg.num_model_shards,
+                               cfg.num_pipe_shards)
+    if n_pipe > 1:
+        if n_model > 1:
+            raise ValueError("num_pipe_shards and num_model_shards are "
+                             "mutually exclusive meshes (data x pipe vs "
+                             "data x model)")
+        if cfg.model != "blp":
+            raise ValueError("pipeline parallelism slices the BERT layer "
+                             f"stack (model='blp'); got model={cfg.model!r}")
+        mesh = pipeline.make_pipeline_mesh(n_data, n_pipe, device=device)
+        layout = _Layout(mesh, "pipe")
+        params = pipeline.shard_pipeline_params(params, mesh)
+        opt_state = optimizer.init(params)
+        train_step = pipeline.make_pipeline_train_step(
+            mcfg, optimizer, mesh=mesh, batch_size=cfg.batch_size,
+            num_negatives=cfg.num_negatives,
+            num_microbatches=cfg.num_microbatches, device=device)
+    elif n_data * n_model > 1 or comm.world_size() > 1:
+        mesh = mesh_lib.make_mesh(n_data, n_model, device=device)
+        params, opt_state, split = train_parallel.init_parallel_state(
+            training.unstack_params(params), optimizer, mesh,
+            tensor_parallel=n_model > 1 and cfg.model == "blp")
+        layout = _Layout(mesh, "dp" if split is None else "tp", split)
+        train_step = train_parallel.make_parallel_train_step(
+            mcfg, optimizer, mesh=mesh, batch_size=cfg.batch_size,
+            num_negatives=cfg.num_negatives, device=device)
+    else:
+        params = training.unstack_params(params)
+        opt_state = optimizer.init(params)
+        train_step = training.make_train_step(
+            mcfg, optimizer, batch_size=cfg.batch_size,
+            num_negatives=cfg.num_negatives, device=device)
+    if mesh is not None:
+        log.info(f"Mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+                 f"({layout.kind}) on {device}")
 
-    def run_eval(triples, entities, *, prefix, epoch, filtered=False,
-                 new_entities=None, max_num_batches=None, return_embeddings=False):
+    def run_eval(eval_params, triples, entities, *, prefix, epoch,
+                 filtered=False, new_entities=None, max_num_batches=None,
+                 return_embeddings=False):
         res = evaluation.eval_link_prediction(
-            params, mcfg, triples, train_data, entities,
+            eval_params, mcfg, triples, train_data, entities,
             batch_size=cfg.eval_batch_size, emb_batch_size=cfg.emb_batch_size,
             tile=cfg.tile, filter_index=filter_index if filtered else None,
             new_entities=new_entities,
             rel_categories=train_data.rel_categories if train_data.has_rel_categories else None,
             max_num_batches=max_num_batches,
-            return_embeddings=return_embeddings, device=device, log=log)
+            return_embeddings=return_embeddings, mesh=mesh, device=device,
+            log=log)
         scalars = res.scalars(prefix)
         metrics_log.log(epoch, **scalars)
         log.info("  ".join(f"{k}: {v:.4f}" for k, v in scalars.items()))
@@ -252,13 +342,12 @@ def _link_prediction(cfg: ExperimentConfig, run_id: str,
                 f"{resume_path} has no 'layout': 'stacked' marker; legacy "
                 f"state files are not ported (ROADMAP.md, Queue 1: the rest of "
                 f"train.py)")
-        # Load through a stacked template on the meta device (no memory),
-        # then convert to the live unstacked layout.
-        stacked = training.restack_params(blp.to_device(params, "meta"))
-        tmpl = (stacked, optimizer.init(stacked))
+        # Every rank loads the full one-device state through a stacked
+        # template on the meta device, then takes its slices in the live
+        # layout.
+        tmpl = (full_template, optimizer.init(full_template))
         (p_raw, o_raw), meta = ckpt.load_pytree(resume_path, template=tmpl)
-        params = blp.to_device(training.unstack_params(p_raw), device)
-        opt_state = blp.to_device(training.unstack_opt_state(o_raw), device)
+        params, opt_state = blp.to_device(layout.live(p_raw, o_raw), device)
         start_epoch = int(meta["epoch"]) + 1
         best_mrr = float(meta.get("best_mrr", 0.0))
         # The best checkpoint may live under the ORIGINAL run's id.
@@ -272,20 +361,46 @@ def _link_prediction(cfg: ExperimentConfig, run_id: str,
     last_epoch = cfg.max_epochs if cfg.stop_after_epochs is None else \
         min(cfg.max_epochs, cfg.stop_after_epochs)
 
-    def host_batches(epoch: int):
-        """One epoch of host batches; runs on the prefetch thread so the
-        numpy description gathers overlap the device's work."""
-        shuffle_rng = np.random.default_rng(cfg.seed * 1_000_003 + epoch)
-        for triples in epoch_batches(train_data, cfg.batch_size, rng=shuffle_rng):
-            if is_text:
-                yield text_train_batch(train_data, triples)
-            else:
-                yield transductive_train_batch(train_data, triples)
+    def batch_of(triples):
+        if is_text:
+            return text_train_batch(train_data, triples)
+        return transductive_train_batch(train_data, triples)
+
+    data_axis = None if mesh is None else train_parallel.axis(mesh, "data")
+    if cfg.multihost_data:
+        # The per-host data path: every rank derives the same permutation
+        # (Generator.permutation(n) equals shuffle(arange(n)) at equal
+        # state, and LocalBatcher drops the remainder as epoch_batches
+        # does) and assembles only its own rows.
+        batcher = multihost.LocalBatcher(
+            train_data.num_triples, cfg.batch_size,
+            1 if data_axis is None else data_axis.size,
+            0 if data_axis is None else data_axis.rank)
+
+        def host_batches(epoch: int):
+            for _, rows in batcher.epoch(cfg.seed * 1_000_003 + epoch):
+                yield batch_of(train_data.triples[rows])
+
+        def place(b):
+            return multihost.global_batch(b, device)
+    else:
+        def host_batches(epoch: int):
+            """One epoch of host batches; runs on the prefetch thread so the
+            numpy description gathers overlap the device's work."""
+            shuffle_rng = np.random.default_rng(cfg.seed * 1_000_003 + epoch)
+            for triples in epoch_batches(train_data, cfg.batch_size,
+                                         rng=shuffle_rng):
+                yield batch_of(triples)
+
+        def place(b):
+            if mesh is None:
+                return prefetch.to_device(b, device)
+            return train_parallel.shard_batch(b, mesh, device)
 
     for epoch in range(start_epoch, last_epoch + 1):
         step_losses, t0 = [], time.time()
         for step_i, batch in enumerate(prefetch.prefetch_to_device(
-                host_batches(epoch), device=device)):
+                host_batches(epoch), placement=place)):
             params, opt_state, loss = train_step(
                 params, opt_state, (cfg.seed, global_step), batch)
             global_step += 1
@@ -309,39 +424,42 @@ def _link_prediction(cfg: ExperimentConfig, run_id: str,
         log.info(f"Epoch {epoch}: loss {epoch_loss:.6f} "
                  f"({tput:,.0f} triples/s)")
 
+        # The full one-device state: gathered from the ranks' slices (a
+        # collective), on the host.
+        host_p, host_o = blp.to_device(layout.full((params, opt_state)), "cpu")
         if epoch % cfg.eval_every == 0:
+            eval_params = (params if mesh is None
+                           else blp.to_device(host_p, device))
             if not cfg.large_dataset:
                 log.info("Evaluating on sample of training set")
                 n_val_batches = -(-valid_data.num_triples // cfg.eval_batch_size)
-                run_eval(train_data.triples, train_ent, prefix="train",
-                         epoch=epoch, max_num_batches=n_val_batches)
+                run_eval(eval_params, train_data.triples, train_ent,
+                         prefix="train", epoch=epoch,
+                         max_num_batches=n_val_batches)
             log.info("Evaluating on validation set")
-            res = run_eval(valid_data.triples, train_val_ent, prefix="valid",
-                           epoch=epoch)
+            res = run_eval(eval_params, valid_data.triples, train_val_ent,
+                           prefix="valid", epoch=epoch)
+            del eval_params
             if res.mrr > best_mrr:
                 best_mrr = res.mrr
                 best_ckpt = ckpt_file
-                # The model file is the user-facing artifact: stacked,
-                # restacked on the host.
-                ckpt.save_pytree(ckpt_file,
-                                 training.restack_params(blp.to_device(params, "cpu")),
-                                 {"epoch": epoch, "mrr": res.mrr,
-                                  "run_id": run_id})
+                # The model file is the user-facing artifact: stacked.
+                _save(ckpt_file, training.restack_params(host_p),
+                      {"epoch": epoch, "mrr": res.mrr, "run_id": run_id})
                 log.info(f"New best valid MRR {best_mrr:.4f}; saved {ckpt_file}")
 
         # Full training state for resume, always in the stacked layout with
-        # a layout marker, restacked on the host.
-        host_p, host_o = blp.to_device((params, opt_state), "cpu")
-        ckpt.save_pytree(state_file,
-                         (training.restack_params(host_p),
-                          training.restack_opt_state(host_o)),
-                         {"epoch": epoch, "best_mrr": best_mrr,
-                          "best_ckpt": best_ckpt if osp.exists(best_ckpt) else "",
-                          "run_id": run_id, "seed": cfg.seed,
-                          "layout": "stacked"})
+        # a layout marker.
+        _save(state_file,
+              (training.restack_params(host_p), training.restack_opt_state(host_o)),
+              {"epoch": epoch, "best_mrr": best_mrr,
+               "best_ckpt": best_ckpt if osp.exists(best_ckpt) else "",
+               "run_id": run_id, "seed": cfg.seed, "layout": "stacked"})
+        del host_p, host_o
 
     # ---- final filtered evaluation from best checkpoint -------------------
-    params = training.restack_params(params)
+    params = training.restack_params(
+        params if mesh is None else blp.to_device(layout.full(params), device))
     if cfg.max_epochs > 0 and osp.exists(best_ckpt):
         loaded, _ = ckpt.load_pytree(best_ckpt, template=params)
         params = blp.to_device(loaded, device)
@@ -349,19 +467,20 @@ def _link_prediction(cfg: ExperimentConfig, run_id: str,
     if cfg.large_dataset:
         filter_index = FilterIndex(valid_data.triples)
     log.info("Evaluating on validation set (with filtering)")
-    run_eval(valid_data.triples, train_val_ent, prefix="valid",
+    run_eval(params, valid_data.triples, train_val_ent, prefix="valid",
              epoch=cfg.max_epochs + 1, filtered=True, new_entities=val_new)
 
     if cfg.large_dataset:
         filter_index = FilterIndex(test_data.triples)
     log.info("Evaluating on test set")
-    test_res = run_eval(test_data.triples, train_val_test_ent, prefix="test",
-                        epoch=cfg.max_epochs + 1, filtered=True,
+    test_res = run_eval(params, test_data.triples, train_val_test_ent,
+                        prefix="test", epoch=cfg.max_epochs + 1, filtered=True,
                         new_entities=test_new, return_embeddings=True)
 
     emb_path = osp.join(cfg.out_dir, f"ent_emb-{run_id}.npz")
-    np.savez(emb_path, ent_emb=test_res.ent_emb, entities=test_res.entities)
-    log.info(f"Saved entity embeddings to {emb_path}")
+    if comm.world_rank() == 0:
+        np.savez(emb_path, ent_emb=test_res.ent_emb, entities=test_res.entities)
+        log.info(f"Saved entity embeddings to {emb_path}")
     return {"run_id": run_id, "test_mrr": test_res.mrr,
             "test_mrr_filt": test_res.mrr_filt, "checkpoint": ckpt_file}
 
@@ -443,7 +562,8 @@ def main(argv: list[str] | None = None):
         return 2
     cfg = parse_overrides(argv[1:])
     result = COMMANDS[argv[0]](cfg)
-    print(json.dumps(result))
+    # One write, so the result lines of ranks sharing a stdout stay whole.
+    sys.stdout.write(json.dumps(result) + "\n")
     return 0
 
 

@@ -61,6 +61,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    `node_classification` on its export, and the retrieval reranker with
    that checkpoint on synthetic files the size of DBpedia-Entity v2 (467
    queries, 100 BM25F candidates each, 5 folds), each timed.
+9. The multi-device paths (after phase 8, before the timings of phase 7),
+   with every count set to 0 again just before it: (a) the flagship step
+   under remat False, True, "dots" and "names": gradients bit-equal to
+   remat=False (dropout on), ms per step and peak memory; then 2 ranks on the
+   one card (gloo; NCCL refuses two ranks on one device), spawned together:
+   (b) the TransE rank pass at Wikidata5M scale (4.8M x 128 fp32, 30 batches
+   of 64, 64 filter columns) with each rank counting its block through K1:
+   the summed counts equal a one-process pass bit for bit and every K1
+   launch takes "tma"; and the sharded evaluation of the synthetic graph
+   with K2 in each rank's phase-1 encode: its table within 1e-2 of the
+   one-process table, its metrics equal to one process on that table;
+   (c) one fp32 BERT-base train step (B 64, L 32, K3, dropout on) each under
+   DP 2 x 1, TP 1 x 2 and PP 1 x 2 with 4 microbatches: loss within rtol
+   1e-5 and every gradient within rtol 2e-5, atol 2e-6 of the one-process
+   step's (the parameters after Adam's step are reported beside them: a
+   gradient near eps turns rounding into lr-sized moves); (d) `python -m torch.distributed.run --nproc-per-node 2 -m
+   blp_tpu_torch.train link_prediction with num_data_shards=2` (tiny
+   encoder) for one epoch, then `resume=auto` on one process for the
+   second. The launches of (a) and of the ranks count; the one-process
+   passes they are held to do not. Ranks sharing one card time the paths,
+   not their scaling.
 7. Time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function, at the main path's shapes
    (K3's backward: the kernel with its index bookkeeping against the plain
@@ -69,7 +90,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    count); print one JSON line of kernel records. A record's launches are
    the sum of the counts read after phases 4-5 (inference), after phase 6
    (train) and after phase 8 (word models), each path driven with every
-   count (K3's forward and backward each have one) set to 0 just before it.
+   count (K3's forward and backward each have one) set to 0 just before it,
+   plus phase 9's.
    K1's record also counts its launches by variant and width (every
    main-path launch must take the "tma" variant, at d 128, 300 and 768),
    reads the SM clock right after its timing with the kernel running, and
@@ -83,6 +105,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -97,6 +120,7 @@ import numpy as np
 import torch
 
 from blp_tpu_torch import evaluation, retrieval, serve, train, training
+from blp_tpu_torch.checkpoint import tree_leaves as _leaves
 from blp_tpu_torch.data import prefetch, sampling
 from blp_tpu_torch.data.datasets import GraphData, TextGraphData
 from blp_tpu_torch.data.filtering import FilterIndex
@@ -1039,6 +1063,492 @@ def word_phase(data_dir: str, device: str = "cuda") -> dict:
     return stats
 
 
+# -- phase 9: the multi-device paths -----------------------------------------------
+
+#: Ranks of the multi-rank checks. The card's machine has one H100, so the
+#: ranks share it (gloo: NCCL refuses two ranks on one device); their times
+#: are checks of the paths, not scaling figures.
+RANKS = 2
+W5M_BATCHES = 30
+#: The CPU tests' tolerances of a parallel step against the one-device step.
+STEP_RTOL, STEP_ATOL, LOSS_RTOL = 2e-5, 2e-6, 1e-5
+#: The multi-rank train steps' learning rate (the flagship run's; constant).
+MESH_LR = 2e-5
+#: This process's device and the ranks' (all on the one card).
+DEVICE, RANK_DEVICE = "cuda", "cuda:0"
+
+
+def remat_policies(data_dir: str) -> dict:
+    """(a): the flagship step under remat False, True, "dots" and "names":
+    gradients bit-equal to remat=False (dropout on), ms per step and peak
+    memory."""
+    b, k = 64, 64
+    batches = train_batches(data_dir, SEG, b, 12, device=DEVICE)
+    out, ref = {}, None
+    for remat in (False, True, "dots", "names"):
+        cfg, params = train_model(12, remat=remat)
+        neg_seed, drop_seed = training.step_seeds((0, 0))
+        batch = dict(batches[0], neg_idx=sampling.sample_negative_indices(
+            torch.Generator(device=DEVICE).manual_seed(neg_seed), b, k, DEVICE))
+        _, grads = training.value_and_grad(params, cfg, batch,
+                                           dropout_seed=drop_seed)
+        grads = _leaves(grads)
+        if ref is None:
+            ref = grads
+        else:
+            same = [torch.equal(a, g) for a, g in zip(ref, grads)]
+            require(all(same), f"remat={remat!r}: {same.count(False)} of "
+                    f"{len(same)} gradient leaves differ from remat=False")
+        del grads
+        opt = training.make_optimizer(2e-5, 1000)
+        state = opt.init(params)
+        step = training.make_train_step(cfg, opt, batch_size=b,
+                                        num_negatives=k, device=DEVICE)
+        for i in range(2):
+            params, state, loss = step(params, state, (0, i), batches[i])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(2, 12):
+            params, state, loss = step(params, state, (0, i), batches[i])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 10
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(math.isfinite(loss.item()), f"remat={remat!r}: loss {loss.item()}")
+        out[str(remat)] = {"ms_per_step": ms, "peak_gib": peak}
+        log(f"remat={remat!r}: {ms:.2f} ms per step (10 steps), peak "
+            f"{peak:.2f} GiB; gradients "
+            + ("the reference" if remat is False else "bit-equal to remat=False"))
+        del params, state, step
+        torch.cuda.empty_cache()
+    return {"remat": out}
+
+
+def _w5m_inputs(device):
+    """The Wikidata5M-scale rank pass's table, triples and filters (the same
+    from seed 5 in every process)."""
+    g = torch.Generator(device=device).manual_seed(5)
+    n, b, num_rels = W5M_ENTITIES, 64, 16
+    table = torch.randn((n, K1_D), generator=g, device=device)
+    table /= table.norm(dim=1, keepdim=True)
+    rel = 0.1 * torch.randn((num_rels, K1_D), generator=g, device=device)
+    rng = np.random.default_rng(5)
+    trip = np.stack([rng.integers(0, n, b * W5M_BATCHES),
+                     rng.integers(0, n, b * W5M_BATCHES),
+                     rng.integers(0, num_rels, b * W5M_BATCHES)], axis=1)
+    extra = []
+    for h, t, r in trip:  # 40 known answers each way -> 64 filter columns
+        extra.append(np.stack([np.full(40, h), rng.integers(0, n, 40),
+                               np.full(40, r)], axis=1))
+        extra.append(np.stack([rng.integers(0, n, 40), np.full(40, t),
+                               np.full(40, r)], axis=1))
+    return table, rel, trip, FilterIndex(np.concatenate([trip] + extra))
+
+
+def w5m_counts(table, rel, trip, fidx, shard=None) -> np.ndarray:
+    """The (batches, 8, 64) int32 counts of the rank pass over `table` (the
+    whole, or this rank's block with `shard`), batch by batch."""
+    from blp_tpu_torch.data.filtering import build_filters
+
+    n = W5M_ENTITIES
+    dev = table.device
+    ent2idx = np.arange(n)
+    hf_all, tf_all = build_filters(trip, fidx, ent2idx)
+    pad = max(hf_all.shape[1], tf_all.shape[1])
+    out = []
+    for i in range(W5M_BATCHES):
+        bt = trip[i * 64:(i + 1) * 64]
+        hf, tf = build_filters(bt, fidx, ent2idx, pad_width=pad)
+        on = lambda a, dt=torch.int64: torch.as_tensor(a).to(dev, dt)  # noqa: E731
+        c = evaluation._rank_batch(
+            table, on(bt[:, 0]), on(bt[:, 1]), rel, on(bt[:, 2]), n,
+            on(hf, torch.int32), on(tf, torch.int32), rel_model="transe",
+            tile=65536, shard=shard)
+        out.append(torch.stack([c[k] for k in sorted(c)]))
+    return torch.stack(out).cpu().numpy()
+
+
+def _mesh_rank(rank: int, n_ranks: int, rank_device: str, store: str,
+               data_dir: str, ref_path: str, out_path: str) -> None:
+    """One of n_ranks processes on rank_device (cuda:0 for all: gloo;
+    "cuda": a card each, NCCL): (b) the sharded rank pass at Wikidata5M
+    scale and the sharded phase-1 encode, (c) one DP, TP and PP train step
+    each against the one-device step stored at ref_path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from blp_tpu_torch.parallel import comm, eval_parallel, pipeline
+    from blp_tpu_torch.parallel import mesh as mesh_lib
+    from blp_tpu_torch.parallel import train_parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = str(rank)      # one host
+    dev = comm.init_world(rank_device, init_method=f"file://{store}",
+                          world_size=n_ranks, rank=rank)
+    res = {}
+    # Host seconds inside the collectives of the sharded rank pass.
+    spent = [0.0]
+
+    def timed(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return run
+
+    # (b) the rank pass at Wikidata5M scale, each rank counting its block.
+    table, rel, trip, fidx = _w5m_inputs(dev)
+    mesh = mesh_lib.make_mesh(n_ranks, 1, device=dev)
+    n_pad = -(-W5M_ENTITIES // (65536 * n_ranks)) * 65536 * n_ranks
+    shard = eval_parallel.Shard.of(mesh, n_pad)
+    block = shard.pad(table[shard.offset:shard.offset + shard.rows])
+    del table
+    torch.cuda.empty_cache()
+    w5m_counts(block, rel, trip, fidx, shard)        # warm-up
+    torch.cuda.synchronize()
+    plain = (comm.all_gather, comm.all_reduce)
+    comm.all_gather, comm.all_reduce = timed(plain[0]), timed(plain[1])
+    try:
+        t0 = time.perf_counter()
+        res["w5m_counts"] = w5m_counts(block, rel, trip, fidx, shard)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        comm.all_gather, comm.all_reduce = plain
+    comm_ms = spent[0] * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w5m_counts(block, rel, trip, fidx, shard)
+        torch.cuda.synchronize()
+    k1_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "transe_rank" in e.key.lower()) / 1e3
+    res["w5m"] = {"ms_per_batch": wall_ms / W5M_BATCHES,
+                  "k1_ms_per_batch": k1_ms / W5M_BATCHES,
+                  "collective_host_ms_per_batch": comm_ms / W5M_BATCHES,
+                  "block_rows": shard.rows}
+    del block
+    torch.cuda.empty_cache()
+
+    # (b) the sharded phase-1 encode of the synthetic graph, K2 on each rank.
+    cfg, params = make_model(12)
+    tok = WordPieceTokenizer(os.path.join(data_dir, "vocab.txt"))
+    train = TextGraphData.load(os.path.join(data_dir, "ind-train.tsv"),
+                               tokenizer=tok, max_len=SEG)
+    test = GraphData.load(os.path.join(data_dir, "ind-test.tsv"))
+    dev_g = GraphData.load(os.path.join(data_dir, "ind-dev.tsv"))
+    entities = np.arange(len(train.ent_ids))
+    fidx = FilterIndex(np.concatenate([train.triples, dev_g.triples, test.triples]))
+    r, s = wall(lambda: evaluation.eval_link_prediction(
+        params, cfg, test.triples, train, entities, batch_size=64,
+        emb_batch_size=4096, filter_index=fidx, return_embeddings=True,
+        mesh=mesh, device=dev))
+    res["encode"] = {"table": r.ent_emb, "scalars": r.scalars("x"), "s": s}
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) train steps: DP 2 x 1, TP 1 x 2, PP 1 x 2 with 4 microbatches.
+    ref = torch.load(ref_path, weights_only=False)
+    batch = {k: v.to(dev) for k, v in ref["batch"].items()}
+    b = len(batch["rels"])
+    neg_seed, drop_seed = training.step_seeds((0, 0))
+    neg = sampling.sample_negative_indices(
+        torch.Generator(device=dev).manual_seed(neg_seed), b, 64, dev)
+    res["steps"] = {}
+    for name, shape in (("dp", (n_ranks, 1)), ("tp", (1, n_ranks)),
+                        ("pp", (1, n_ranks))):
+        tcfg, full = fp32_model()
+        opt = training.make_optimizer(MESH_LR, 1000, use_scheduler=False)
+        if name == "pp":
+            mesh = pipeline.make_pipeline_mesh(*shape, device=dev)
+            params = pipeline.shard_pipeline_params(training.restack_params(full),
+                                                    mesh)
+            step = pipeline.make_pipeline_train_step(
+                tcfg, opt, mesh=mesh, batch_size=b, num_negatives=64,
+                num_microbatches=4, device=dev)
+            value_and_grad = functools.partial(
+                pipeline.pipeline_value_and_grad, mesh=mesh, num_microbatches=4)
+            gather = lambda p: pipeline.gather_pipeline_params(p, mesh)  # noqa: E731
+        else:
+            mesh = mesh_lib.make_mesh(*shape, device=dev)
+            params, _, split = train_parallel.init_parallel_state(
+                full, opt, mesh, tensor_parallel=name == "tp")
+            step = train_parallel.make_parallel_train_step(
+                tcfg, opt, mesh=mesh, batch_size=b, num_negatives=64, device=dev)
+            value_and_grad = functools.partial(
+                train_parallel.parallel_value_and_grad,
+                data=train_parallel.axis(mesh, "data"),
+                model=train_parallel.model_axis(mesh))
+            gather = lambda p: training.restack_params(  # noqa: E731
+                train_parallel.gather_state(p, mesh, split))
+        del full
+        rows = train_parallel.local_rows(b, train_parallel.axis(mesh, "data"))
+        local = {k: v[rows] for k, v in batch.items()}
+        # The step's loss and gradients, held to one process's.
+        loss, grads = value_and_grad(params, tcfg, dict(local, neg_idx=neg),
+                                     dropout_seed=drop_seed)
+        grads = _leaves(gather(grads))
+        excess = max(((g - w.to(dev)).abs() - (STEP_ATOL + STEP_RTOL * w.to(dev).abs())
+                      ).max().item() for g, w in zip(grads, ref["grads"]))
+        del grads
+        # The whole step, timed; its parameters against one process's.
+        state = opt.init(params)
+        times = []
+        for i in range(3):
+            (p1, s1, _), t = wall(lambda: step(params, state, (0, 0), local))
+            times.append(t * 1e3)
+            if i == 0:
+                got = _leaves(gather(p1))
+            del p1, s1
+        beyond, g_beyond, max_abs = 0, 0.0, 0.0
+        for x, w, g in zip(got, ref["params"], ref["grads"]):
+            w, g = w.to(dev), g.to(dev)
+            out = (x - w).abs() > STEP_ATOL + STEP_RTOL * w.abs()
+            beyond += int(out.sum())
+            if out.any():
+                g_beyond = max(g_beyond, g[out].abs().max().item())
+            max_abs = max(max_abs, (x - w).abs().max().item())
+        res["steps"][name] = {"loss": loss.item(), "ms": times,
+                              "grad_excess": excess, "param_max_abs": max_abs,
+                              "params_beyond": beyond, "grad_at_beyond": g_beyond}
+        del params, step, got
+        torch.cuda.empty_cache()
+    res["launches"] = {"K1": transe_rank.launches, "K2": packed_attention.launches,
+                       "K3": sddmm.launches, "K3 backward": sddmm.backward_launches,
+                       "K1 by variant": dict(transe_rank.launches_by_variant)}
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    with open(out_path % rank, "wb") as f:
+        import pickle
+        pickle.dump(res, f)
+
+
+def fp32_model():
+    """BERT-base BLP-TransE in fp32 with K3 and dropout 0.1, random weights
+    from seed 0, layers unstacked (the multi-rank steps' model)."""
+    cfg = blp.ModelConfig(model="blp", rel_model="transe", dim=128,
+                          num_relations=12, encoder=bert.BertConfig(),
+                          sddmm_pallas=True)
+    params = training.unstack_params(blp.init_params(
+        cfg, torch.Generator().manual_seed(0), device=DEVICE))
+    return cfg, params
+
+
+def _placement(rank_device: str) -> str:
+    dev = torch.device(rank_device)
+    if dev.type != "cuda":
+        return "the CPU (gloo)"
+    return "a card each (NCCL)" if dev.index is None else "one card (gloo)"
+
+
+def mesh_cli(data_dir: str, n_ranks: int = RANKS,
+             rank_device: str = RANK_DEVICE) -> dict:
+    """(d): link_prediction under torch.distributed.run with n_ranks ranks on
+    rank_device and num_data_shards=n_ranks for one epoch (the tiny
+    encoder), then resume=auto on one process for the second."""
+    out_dir = os.path.join(WORK_DIR, "mesh_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = ["link_prediction", "with", f"data_dir={os.path.dirname(data_dir)}",
+            f"dataset={os.path.basename(data_dir)}", f"out_dir={out_dir}",
+            "run_id=mesh", "encoder_name=tiny", "emb_batch_size=4096"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n_ranks}", "-m", "blp_tpu_torch.train", *args,
+           f"num_data_shards={n_ranks}", f"device={rank_device}", "max_epochs=2",
+           "stop_after_epochs=1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT)
+    run_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"torch.distributed.run link_prediction exited "
+            f"{proc.returncode}: {proc.stderr[-3000:]}")
+    mesh_res = [json.loads(ln) for ln in proc.stdout.strip().splitlines()
+                if ln.startswith("{")]
+    require(len(mesh_res) == n_ranks and all(r == mesh_res[0] for r in mesh_res),
+            f"ranks returned {mesh_res}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (rc, res_s) = wall(lambda: train.main(
+            args + [f"device={DEVICE}", "max_epochs=2", "resume=auto"]))
+    require(rc == 0, f"resume on one process exited {rc}")
+    one = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rows = [json.loads(line) for line in
+            open(os.path.join(out_dir, "metrics-mesh.jsonl"))]
+    epochs = [r["step"] for r in rows if "train_loss" in r]
+    require(epochs == [1, 2], f"trained epochs {epochs}, expected [1, 2]")
+    require(math.isfinite(one["test_mrr_filt"]), f"resumed run: {one}")
+    log(f"link_prediction under torch.distributed.run ({n_ranks} ranks on "
+        f"{_placement(rank_device)}, num_data_shards={n_ranks}, tiny encoder): "
+        f"epoch 1 and evals "
+        f"{run_s:.1f} s (launcher included), test MRR filtered "
+        f"{mesh_res[0]['test_mrr_filt']:.4f}; resume=auto on one process ran "
+        f"epoch 2 ({res_s:.1f} s), test MRR filtered {one['test_mrr_filt']:.4f}")
+    return {"mesh_cli_s": run_s, "mesh_cli_resume_s": res_s,
+            "mesh_cli_test_mrr_filt": [mesh_res[0]["test_mrr_filt"],
+                                       one["test_mrr_filt"]]}
+
+
+def mesh_phase(data_dir: str, cfg, read_counts) -> tuple[dict, dict, dict]:
+    """Phase 9. Returns its stats, the kernel launches of its paths (this
+    process's remat steps and the ranks' passes and steps; the one-process
+    passes the ranks are held to are not counted), and the ranks' K1
+    launches by (variant, d)."""
+    stats = remat_policies(data_dir)
+    launches = collections.Counter({k: v for k, v in read_counts().items()
+                                    if k != "K1 by variant"})
+    torch.cuda.empty_cache()
+    rank_stats, rank_launches, by_variant = mesh_ranks(data_dir, cfg)
+    stats.update(rank_stats)
+    launches.update(rank_launches)
+    stats.update(mesh_cli(data_dir))
+    return stats, dict(launches), by_variant
+
+
+def mesh_ranks(data_dir: str, cfg, n_ranks: int = RANKS,
+               rank_device: str = RANK_DEVICE) -> tuple[dict, dict, dict]:
+    """(b) and (c) of phase 9 over n_ranks ranks on rank_device, held to
+    this process's one-device passes. Returns the stats, the ranks' kernel
+    launches summed, and their K1 launches by (variant, d)."""
+    import pickle
+
+    # The one-device step the ranks' steps are held to (fp32, dropout on).
+    tcfg, params = fp32_model()
+    opt = training.make_optimizer(MESH_LR, 1000, use_scheduler=False)
+    step = training.make_train_step(tcfg, opt, batch_size=64, num_negatives=64,
+                                    device=DEVICE)
+    host_batch = text_train_batch(
+        TextGraphData.load(os.path.join(data_dir, "ind-train.tsv"),
+                           tokenizer=WordPieceTokenizer(
+                               os.path.join(data_dir, "vocab.txt")),
+                           max_len=SEG, write_maps=True),
+        next(epoch_batches(GraphData.load(os.path.join(data_dir, "ind-train.tsv")),
+                           64, rng=np.random.default_rng(0))))
+    batch = prefetch.to_device(host_batch, DEVICE)
+    p1, _, loss = step(params, opt.init(params), (0, 0), batch)
+    neg_seed, drop_seed = training.step_seeds((0, 0))
+    _, grads = training.value_and_grad(
+        params, tcfg, dict(batch, neg_idx=sampling.sample_negative_indices(
+            torch.Generator(device=DEVICE).manual_seed(neg_seed), 64, 64, DEVICE)),
+        dropout_seed=drop_seed)
+    ref_path = os.path.join(WORK_DIR, "mesh_ref.pt")
+    torch.save({"batch": {k: v.cpu() for k, v in batch.items()},
+                "params": [x.cpu() for x in _leaves(training.restack_params(p1))],
+                "grads": [x.cpu() for x in _leaves(training.restack_params(grads))],
+                "loss": loss.item()}, ref_path)
+    ref_loss = loss.item()
+    del params, p1, step, grads
+    torch.cuda.empty_cache()
+
+    store = os.path.join(WORK_DIR, "mesh_store")
+    out_path = os.path.join(WORK_DIR, "mesh_rank%d.pkl")
+    ctx = torch.multiprocessing.start_processes(
+        _mesh_rank, args=(n_ranks, rank_device, store, data_dir, ref_path,
+                          out_path),
+        nprocs=n_ranks, join=False, start_method="spawn")
+    t0 = time.perf_counter()
+    while not ctx.join(timeout=5):
+        require(time.perf_counter() - t0 < 600, "the ranks ran past 600 s")
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(n_ranks):
+        with open(out_path % r, "rb") as f:
+            ranks.append(pickle.load(f))
+    log(f"{n_ranks} ranks on {_placement(rank_device)}: {ranks_s:.1f} s for "
+        f"the sharded passes and the three train steps, start-up included")
+
+    # (b) the summed counts equal the one-process pass, bit for bit.
+    table, rel, trip, fidx = _w5m_inputs(DEVICE)
+    one, one_s = wall(lambda: w5m_counts(table, rel, trip, fidx))
+    del table
+    torch.cuda.empty_cache()
+    for r in ranks:
+        require(np.array_equal(r["w5m_counts"], one),
+                "the sharded W5M counts differ from the one-process pass")
+    by_variant = collections.Counter()
+    for r in ranks:
+        by_variant.update(r["launches"]["K1 by variant"])
+    require(by_variant and all(v == "tma" for v, _ in by_variant),
+            f"a sharded K1 launch did not take the tma variant: {by_variant}")
+    w = [r["w5m"] for r in ranks]
+    log(f"sharded rank pass at Wikidata5M scale ({W5M_ENTITIES:,} x {K1_D} "
+        f"fp32 over {n_ranks} ranks, {w[0]['block_rows']:,} rows each, "
+        f"{W5M_BATCHES} batches of 64, 64 filter columns): counts equal the "
+        f"one-process pass bit for bit; per batch "
+        f"{[round(x['ms_per_batch'], 2) for x in w]} ms wall, K1 "
+        f"{[round(x['k1_ms_per_batch'], 3) for x in w]} ms device, collectives "
+        f"{[round(x['collective_host_ms_per_batch'], 2) for x in w]} ms host, by "
+        f"rank; one process {one_s * 1e3 / W5M_BATCHES:.2f} ms per batch; K1 "
+        f"launches by variant {dict(by_variant)}")
+
+    # (b) the sharded phase-1 encode: within the bf16 class of the
+    # one-process table, and its MRR that of one process on the same table.
+    tok = WordPieceTokenizer(os.path.join(data_dir, "vocab.txt"))
+    train_d = TextGraphData.load(os.path.join(data_dir, "ind-train.tsv"),
+                                 tokenizer=tok, max_len=SEG)
+    test = GraphData.load(os.path.join(data_dir, "ind-test.tsv"))
+    dev_g = GraphData.load(os.path.join(data_dir, "ind-dev.tsv"))
+    entities = np.arange(len(train_d.ent_ids))
+    fidx = FilterIndex(np.concatenate([train_d.triples, dev_g.triples, test.triples]))
+    _, params = make_model(12)
+    kw = dict(batch_size=64, filter_index=fidx, device=DEVICE)
+    one_res = evaluation.eval_link_prediction(
+        params, cfg, test.triples, train_d, entities, emb_batch_size=4096,
+        return_embeddings=True, **kw)
+    enc = ranks[0]["encode"]
+    require(all(r["launches"]["K2"] > 0 for r in ranks),
+            "a rank's share of the sharded encode launched no K2")
+    diff = float(np.abs(enc["table"] - one_res.ent_emb).max())
+    require(diff <= 1e-2, f"sharded encode differs from one process by {diff}")
+    same = evaluation.eval_link_prediction(
+        {"rel_emb": params["rel_emb"]}, cfg, test.triples, train_d, entities,
+        ent_emb=enc["table"], **kw)
+    require(all(r["encode"]["scalars"] == same.scalars("x") for r in ranks),
+            "the sharded evaluation's metrics differ from one process on its table")
+    del params
+    torch.cuda.empty_cache()
+    log(f"sharded phase-1 encode of {len(entities):,} entities with K2 on each "
+        f"rank ({[r['launches']['K2'] for r in ranks]} K2 launches by rank): "
+        f"max abs diff from the one-process table {diff:.3g} (limit 1e-2); "
+        f"filtered MRR {enc['scalars']['x_mrr_filt']:.6f}, equal to one process "
+        f"on the same table; {enc['s']:.2f} s for the sharded evaluation")
+
+    # (c) each parallel step against the one-device step: the loss and the
+    # gradients Adam is handed, at the CPU tests' tolerances. The parameters
+    # after the step are reported: Adam's first step maps a gradient
+    # difference d at |g| near eps = 1e-8 to lr d eps / (|g| + eps)^2, so
+    # any other order of the sums moves a few near-zero-gradient elements by
+    # up to lr (tests/test_torch_parallel.py).
+    steps = {}
+    for name in ("dp", "tp", "pp"):
+        for r in ranks:
+            st = r["steps"][name]
+            require(abs(st["loss"] - ref_loss) <= LOSS_RTOL * abs(ref_loss),
+                    f"{name}: loss {st['loss']} vs one device {ref_loss}")
+            require(st["grad_excess"] <= 0, f"{name}: a gradient is beyond "
+                    f"rtol {STEP_RTOL}, atol {STEP_ATOL} of one device's")
+        st = ranks[0]["steps"][name]
+        steps[name] = {"loss": st["loss"],
+                       "ms": [r["steps"][name]["ms"] for r in ranks],
+                       "param_max_abs": st["param_max_abs"],
+                       "params_beyond": st["params_beyond"],
+                       "grad_at_beyond": st["grad_at_beyond"]}
+        log(f"{name} step (BERT-base fp32, B 64, L {SEG}, K3, {n_ranks} ranks "
+            f"on {_placement(rank_device)}): loss {st['loss']:.6f} vs one device {ref_loss:.6f}; "
+            f"gradients within rtol {STEP_RTOL}, atol {STEP_ATOL}; parameters "
+            f"after the Adam step (lr {MESH_LR}) max abs diff "
+            f"{st['param_max_abs']:.3g}, {st['params_beyond']} elements beyond "
+            f"the tolerance, their one-device |g| at most "
+            f"{st['grad_at_beyond']:.3g}; ms per step by rank "
+            f"{[[round(t, 1) for t in ms] for ms in steps[name]['ms']]}")
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update({k: v for k, v in r["launches"].items()
+                         if k != "K1 by variant"})
+    return ({"mesh_w5m": w, "mesh_w5m_one_ms": one_s * 1e3 / W5M_BATCHES,
+             "mesh_encode_diff": diff, "mesh_steps": steps,
+             "mesh_ref_loss": ref_loss, "mesh_ranks_s": ranks_s},
+            launches, by_variant)
+
+
 # -- phase 7: timings at the main path's shapes ----------------------------------
 
 def sm_clock_running(fn, ms: float) -> str:
@@ -1299,10 +1809,18 @@ def main() -> int:
     log(f"main-path launches, word models (phase 8): {word_launches}")
     require(all(word_launches[k] > 0 for k in ("K1", "K3", "K3 backward")),
             "a kernel of the word models' path was never launched")
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    mesh_stats, mesh_launches, mesh_k1 = mesh_phase(data_dir, cfg, read_counts)
+    log(f"main-path launches, multi-device paths (phase 9): {mesh_launches}")
+    require(all(mesh_launches.get(k, 0) > 0 for k in counters),
+            "a kernel of the multi-device paths was never launched")
     launches = {k: infer_launches[k] + train_launches[k] + word_launches[k]
-                for k in counters}
+                + mesh_launches[k] for k in counters}
     k1_counts = sum((p["K1 by variant"] for p in (infer_launches, train_launches,
-                                                  word_launches)), collections.Counter())
+                                                  word_launches)),
+                    collections.Counter(mesh_k1))
     k1_by = {v: {d: c for (w, d), c in sorted(k1_counts.items()) if w == v}
              for v in transe_rank.VARIANTS}   # {variant: {d: launches}}
     log(f"main-path launches: {launches}; K1 by variant and width: {k1_by}")
@@ -1335,7 +1853,7 @@ def main() -> int:
                 f"the host's launch path {kr['call_ms']:.4f} ms (B=64), "
                 f"{kr['at_b1024']['call_ms']:.4f} ms (B=1024)")
     log("summary: " + json.dumps({**serve_stats, **eval_stats, **train_stats,
-                                  **word_stats}))
+                                  **word_stats, **mesh_stats}, default=str))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(card)   # name, power limit: nvidia-smi's own line
     print(json.dumps({"kernels": kernels}))

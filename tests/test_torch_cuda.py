@@ -538,3 +538,117 @@ def test_word_model_train_pass_on_card_matches_cpu(model):
     torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
     for x, y in zip(checkpoint.tree_leaves(g_g), checkpoint.tree_leaves(g_c)):
         torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=1e-6)
+
+
+# -- the multi-device paths: 2 gloo ranks sharing the card ----------------------
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_numpy_tree(v) for v in tree)
+    return tree.cpu().numpy()
+
+
+@pytest.mark.parametrize("remat", ["dots", "names"])
+def test_remat_policies_equal_on_card_with_dropout(remat):
+    enc = bert.BertConfig.tiny(num_layers=3, compute_dtype=torch.bfloat16)
+    cfg = blp.ModelConfig(model="blp", rel_model="transe", dim=16,
+                          num_relations=3, encoder=enc, sddmm_pallas=True)
+    _, _, batch = _train_setup(True)
+    params = blp.to_device(training.unstack_params(blp.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu")), "cuda")
+    batch = {k: v.cuda() for k, v in batch.items()}
+    results = []
+    for r in (False, remat):
+        c = dataclasses.replace(cfg, encoder=dataclasses.replace(enc, remat=r))
+        results.append(training.value_and_grad(params, c, batch, dropout_seed=5))
+    assert torch.equal(results[0][0], results[1][0])
+    for x, y in zip(checkpoint.tree_leaves(results[0][1]),
+                    checkpoint.tree_leaves(results[1][1])):
+        assert torch.equal(x, y)
+
+
+def _mesh_setup():
+    cfg = blp.ModelConfig(model="blp", rel_model="transe", dim=16,
+                          num_relations=3, sddmm_pallas=True,
+                          encoder=bert.BertConfig.tiny(num_layers=4))
+    params = blp.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    b = 16
+    batch = {"text_tok": rng.integers(1, 128, (b, 2, 16)).astype(np.int32),
+             "text_mask": np.ones((b, 2, 16), np.float32),
+             "rels": rng.integers(0, 3, b).astype(np.int32)}
+    neg = sampling.sample_negative_indices(torch.Generator().manual_seed(1), b,
+                                           8, "cpu").numpy()
+    return cfg, params, batch, neg
+
+
+def test_parallel_and_pipeline_grads_on_card_two_ranks(tmp_path):
+    """DP 2 x 1, TP 1 x 2 and PP 1 x 2 (2 microbatches) on two ranks sharing
+    the card: loss within rtol 1e-5 and gradients within rtol 2e-5, atol
+    2e-6 of one process on the card (dropout on; the ranks draw their slices
+    of the one-device masks; K3 scores the global batch)."""
+    import torch_dist_workers as workers
+
+    cfg, params, batch, neg = _mesh_setup()
+    live = blp.to_device(training.unstack_params(params), "cuda")
+    tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    tb["neg_idx"] = torch.from_numpy(neg).cuda()
+    loss, grads = training.value_and_grad(live, cfg, tb, dropout_seed=3)
+    want = workers.numpy_tree(training.restack_params(grads))
+    tree = _numpy_tree(params)
+    common = dict(cfg=cfg, params=tree, batch=batch, neg=neg, device="cuda:0")
+    dp_tp = workers.run_world(workers.parallel_steps, 2, tmp_path,
+                              [dict(common, mesh=(2, 1)), dict(common, mesh=(1, 2))],
+                              device="cuda:0")
+    pp = workers.run_world(workers.pipeline_runs, 2, tmp_path,
+                           [dict(common, mesh=(1, 2), micro=2, dropout_seed=3)],
+                           device="cuda:0")
+    # parallel_steps' injected-negatives case runs at dropout seed 0
+    loss0, grads0 = training.value_and_grad(live, cfg, tb, dropout_seed=0)
+    want0 = workers.numpy_tree(training.restack_params(grads0))
+    for got, w, l in [(r[0], want0, loss0) for r in dp_tp] + \
+                     [(r[1], want0, loss0) for r in dp_tp] + \
+                     [(r[0], want, loss) for r in pp]:
+        assert np.isclose(got["loss"], float(l), rtol=1e-5)
+        for g, x in zip(got["grads"], w):
+            np.testing.assert_allclose(g, x, rtol=2e-5, atol=2e-6)
+
+
+def test_sharded_eval_on_card_two_ranks_takes_tma(tmp_path):
+    """The candidate-sharded evaluation on two ranks sharing the card: the
+    same metrics as one process, bit for bit, with every K1 launch on its
+    "tma" variant (each rank's block is an allocation of its own)."""
+    import torch_dist_workers as workers
+    from blp_tpu_torch.data.datasets import GraphData, TextGraphData
+    from blp_tpu_torch.data.synth import write_synth_dataset
+    from blp_tpu_torch.data.tokenizers import WordPieceTokenizer
+
+    d = write_synth_dataset(str(tmp_path / "synth"), num_entities=300,
+                            num_relations=4, num_triples=900, seed=2)
+    train = TextGraphData.load(f"{d}/ind-train.tsv", max_len=16,
+                               tokenizer=WordPieceTokenizer(f"{d}/vocab.txt"),
+                               write_maps=True)
+    dev = GraphData.load(f"{d}/ind-dev.tsv")
+    test = GraphData.load(f"{d}/ind-test.tsv")
+    cfg = blp.ModelConfig(model="blp", rel_model="transe", dim=16,
+                          num_relations=len(train.rel_ids),
+                          encoder=bert.BertConfig.tiny(vocab_size=30000))
+    params = blp.init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
+    kw = dict(batch_size=8, emb_batch_size=64, tile=256)
+    ranks = workers.run_world(
+        workers.mesh_evals, 2, tmp_path, d,
+        [((2, 1), cfg, _numpy_tree(params), dict(kw, device="cuda:0"))],
+        device="cuda:0")
+    entities = np.unique(np.concatenate([train.entities, dev.entities]))
+    one = evaluation.eval_link_prediction(
+        blp.to_device(params, "cuda"), cfg, dev.triples, train, entities,
+        filter_index=FilterIndex(np.concatenate([train.triples, dev.triples,
+                                                 test.triples])),
+        ent_emb=torch.from_numpy(ranks[0][0]["table"]).cuda(), device="cuda",
+        **kw)
+    for r in ranks:
+        assert r[0]["scalars"] == one.scalars("x")
+        assert r[0]["k1_by_variant"] and all(
+            v == "tma" for v, _ in r[0]["k1_by_variant"])

@@ -122,9 +122,11 @@ def test_remat_gradients_equal_no_remat_with_dropout(remat, dtype, nbits):
 
 
 def test_remat_policy_strings_raise():
+    # "dots" and "names" run (tests/test_torch_remat.py); any other policy
+    # string raises.
     _, jp, ids, mask, probe = _setup(2)
-    with pytest.raises(NotImplementedError, match="policies"):
-        _torch_grads(params_from_jax(jp), _tcfg(remat="dots"), ids, mask,
+    with pytest.raises(ValueError, match="dots"):
+        _torch_grads(params_from_jax(jp), _tcfg(remat="everything"), ids, mask,
                      probe, seed=1)
 
 

@@ -125,8 +125,10 @@ def test_transductive_bilinear_eval_exactly_equal(rel_model):
 
 
 def test_mesh_not_ported(setup):
+    # The mesh path runs in tests/test_torch_eval_mesh.py; what is not a
+    # DeviceMesh is refused.
     s = setup
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         t_eval.eval_link_prediction(s["tp"], s["tcfg"], s["dev"].triples,
                                     s["t_train"], s["entities"], mesh=object(),
                                     device="cpu")

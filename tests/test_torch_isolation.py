@@ -4,6 +4,7 @@ and load nothing of blp_tpu; and an entry point
 called without `device` runs on CUDA or raises — never silently on the
 CPU."""
 
+import json
 import os
 import subprocess
 import sys
@@ -21,7 +22,7 @@ from blp_tpu_torch.models import bert, blp
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now fails
 sys.modules["sklearn"] = None      # the port does not depend on scikit-learn
 import blp_tpu_torch
@@ -29,11 +30,16 @@ names = [m.name for m in pkgutil.walk_packages(blp_tpu_torch.__path__,
                                                 "blp_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke, k1_probe, k2_probe
+import chip_smoke, k1_probe, k2_probe, mesh_probe
 leaked = sorted(m for m in sys.modules
                 if m == "blp_tpu" or m.startswith(("blp_tpu.", "jax.", "jaxlib")))
-print(len(names), leaked)
+print(json.dumps({"names": names, "leaked": leaked}))
 """
+
+#: The multi-device modules (parallel/*), among the modules imported above.
+PARALLEL = {f"blp_tpu_torch.parallel.{m}" for m in
+            ("comm", "mesh", "multihost", "train_parallel", "eval_parallel",
+             "pipeline")}
 
 
 def test_port_imports_without_jax_or_blp_tpu():
@@ -41,9 +47,10 @@ def test_port_imports_without_jax_or_blp_tpu():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, leaked = out.stdout.split(" ", 1)
-    assert int(count) >= 33
-    assert leaked.strip() == "[]"
+    found = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(found["names"]) >= 41
+    assert PARALLEL <= set(found["names"])
+    assert found["leaked"] == []
 
 
 def _tiny():

@@ -107,13 +107,16 @@ def test_state_files_cross_between_packages(workdir, capsys):
     assert epochs == [2]
 
 
-@pytest.mark.parametrize("key,value", [("num_data_shards", 2),
-                                       ("num_model_shards", 2),
-                                       ("num_pipe_shards", 2),
-                                       ("coordinator_address", "localhost:1234"),
-                                       ("multihost_data", "true")])
-def test_mesh_and_multihost_keys_raise(workdir, key, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("key,value,match", [
+    ("num_data_shards", 2, r"\(2 ranks\) != world size 1"),
+    ("num_model_shards", 2, r"\(2 ranks\) != world size 1"),
+    ("num_pipe_shards", 2, r"\(2 ranks\) != world size 1"),
+    ("coordinator_address", "localhost:1234", "num_processes and process_id")])
+def test_mesh_and_multihost_keys_raise(workdir, key, value, match):
+    # The mesh keys run over a world of that size
+    # (tests/test_torch_train_parallel_e2e.py); one process is not one, and
+    # the multi-host keys need the world's size and this process's rank.
+    with pytest.raises(ValueError, match=match):
         t_train.main(_argv(workdir, run_id="x", **{key: value}))
 
 
