@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import json
 import os
+import zipfile
 
 import numpy as np
 import torch
@@ -115,9 +116,41 @@ def peek_num_leaves(path: str) -> int:
         return sum(1 for k in data.files if k.startswith("leaf_"))
 
 
-def _to_tensor(a: np.ndarray, name: str | None) -> torch.Tensor:
+def peek_leaf_shapes(path: str) -> list[tuple]:
+    """Shapes of the stored leaves in load order, read from the .npy headers
+    only (no array data). Tells the stacked and unstacked layouts of a
+    marker-less state file apart where their leaf counts coincide
+    (num_layers == 1: a stacked layer leaf is (1, ...), an unstacked one
+    (...))."""
+    from numpy.lib import format as npf
+
+    shapes = []
+    with zipfile.ZipFile(path) as zf:
+        for name in sorted(zf.namelist()):
+            if not name.startswith("leaf_"):
+                continue
+            with zf.open(name) as f:
+                # Format 1.0 has a 2-byte header length, 2.0 a 4-byte one
+                # (np.savez writes 1.0 unless the header is over 64 KiB).
+                read = (npf.read_array_header_1_0 if npf.read_magic(f) == (1, 0)
+                        else npf.read_array_header_2_0)
+                shape, _, _ = read(f)
+            shapes.append(tuple(shape))
+    return shapes
+
+
+def _to_tensor(a: np.ndarray, name: str | None,
+               like: torch.Tensor | None = None) -> torch.Tensor:
+    """The stored array `a` as a CPU tensor. A void-typed leaf (numpy's form
+    of bfloat16) is viewed through its recorded dtype `name`; a file without
+    the record (a legacy file) uses the dtype of the template leaf `like`
+    where the item sizes match."""
     if a.dtype.kind == "V":
-        if name != "bfloat16" or a.dtype.itemsize != 2:
+        want = name
+        if (want is None and like is not None
+                and like.dtype.itemsize == a.dtype.itemsize):
+            want = str(like.dtype).removeprefix("torch.")
+        if want != "bfloat16" or a.dtype.itemsize != 2:
             raise ValueError(f"cannot restore a leaf stored as {a.dtype} "
                              f"with recorded dtype {name!r}")
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
@@ -127,7 +160,8 @@ def _to_tensor(a: np.ndarray, name: str | None) -> torch.Tensor:
 def load_pytree(path: str, template=None):
     """Returns (tree of CPU tensors, metadata). With `template`, the leaves
     are unflattened into the template's tree in JAX's flatten order (its
-    leaves only give the count; they may live on the `meta` device);
+    leaves give the count, and the dtype of a void-typed leaf in a file
+    without dtype records; they may live on the `meta` device);
     otherwise the tree is rebuilt from the file's `__structure__`."""
     with np.load(path, allow_pickle=False) as data:
         metadata = json.loads(str(data["__metadata__"]))
@@ -135,13 +169,14 @@ def load_pytree(path: str, template=None):
         names = (json.loads(str(data["__leaf_dtypes__"]))
                  if "__leaf_dtypes__" in data.files else None)
         arrays = [data[k] for k in sorted(data.files) if k.startswith("leaf_")]
-    leaves = [_to_tensor(a, names[i] if names else None)
+    like = tree_leaves(template) if template is not None else None
+    if like is not None and len(like) != len(arrays):
+        raise ValueError(f"{path} holds {len(arrays)} leaves, the "
+                         f"template {len(like)}")
+    leaves = [_to_tensor(a, names[i] if names else None,
+                         like[i] if like is not None else None)
               for i, a in enumerate(arrays)]
     if template is not None:
-        want = len(tree_leaves(template))
-        if want != len(leaves):
-            raise ValueError(f"{path} holds {len(leaves)} leaves, the "
-                             f"template {want}")
         return tree_unflatten(template, leaves), metadata
     if structure is None:
         raise ValueError(f"{path} has no __structure__ record to restore its tree")

@@ -9,9 +9,11 @@ File-format compatible with the reference's data directories
     entity2textlong.txt / entity2text.txt   entity <TAB> description
     {split}-ents.txt                  entity names per split
 
-Copy of blp_tpu/data/datasets.py for the PyTorch port, on the pure-Python
-parse and tokenize path only (the TPU package's native C++ packer is not
-ported yet). Everything is packed into flat numpy arrays up front, the token
+Copy of blp_tpu/data/datasets.py for the PyTorch port. The triple parse and
+the ASCII WordPiece pass take the port's native C++ packer
+(blp_tpu_torch/native) where it builds, under the TPU package's conditions,
+and the pure-Python path otherwise; both give the same arrays. Everything
+is packed into flat numpy arrays up front, the token
 matrix is cached as .npz keyed by tokenizer settings (the same file name as
 the TPU package's, with the same contents), and id maps are stored as JSON
 next to the data (the torch `maps.pt` of a reference checkout is read
@@ -29,6 +31,7 @@ import tempfile
 
 import numpy as np
 
+from blp_tpu_torch import native
 from blp_tpu_torch.data.text import remove_stopwords
 
 CATEGORY_IDS = {"1-to-1": 0, "1-to-many": 1, "many-to-1": 2, "many-to-many": 3}
@@ -125,6 +128,15 @@ class GraphData:
 
     @staticmethod
     def _parse_triples(triples_file, directory, ent_ids, rel_ids) -> np.ndarray:
+        # Fast path: the mmap'd C++ parser, when the id maps come straight
+        # from entities.txt/relations.txt line order.
+        ents_path = osp.join(directory, "entities.txt")
+        rels_path = osp.join(directory, "relations.txt")
+        if osp.exists(ents_path) and osp.exists(rels_path) and native.available():
+            packed = native.pack_triples(triples_file, ents_path, rels_path)
+            if packed is not None:
+                return packed
+
         heads, tails, rels = [], [], []
         with open(triples_file, encoding="utf-8") as f:
             for line in f:
@@ -195,8 +207,22 @@ class TextGraphData(GraphData):
                       for name in ("entity2textlong.txt", "entity2text.txt")
                       if osp.exists(osp.join(directory, name))]
 
+        # Native fast path: C++ WordPiece straight into the packed matrix
+        # (ASCII rows; the Python pass below fills the non-ASCII ones). With
+        # several text files a non-ASCII row of the first must not be filled
+        # natively from the second (first file wins), so only one file.
+        vocab_file = getattr(tokenizer, "vocab_file", None)
+        if (vocab_file and not drop_stopwords and len(text_files) == 1
+                and native.available()):
+            native.wordpiece_encode_file(
+                text_files[0], osp.join(directory, "entities.txt"),
+                vocab_file, max_len=max_len,
+                do_lower=getattr(tokenizer, "do_lower_case", False),
+                text_data=text_data)
+
         read = set()
-        # First file wins (reference: data.py:221-236).
+        # The Python pass fills what the native pass left empty. First file
+        # wins (reference: data.py:221-236).
         for path in text_files:
             with open(path, encoding="utf-8") as f:
                 for line in f:
@@ -206,6 +232,8 @@ class TextGraphData(GraphData):
                         continue
                     read.add(entity)
                     row = ent_ids[entity]
+                    if text_data[row, -1] != 0:
+                        continue  # packed natively
                     text = " ".join(values[1:])
                     if drop_stopwords:
                         text = remove_stopwords(text)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from blp_tpu_torch import metrics
+from blp_tpu_torch.data import prefetch
 from blp_tpu_torch.data.datasets import CATEGORY_IDS
 from blp_tpu_torch.data.filtering import FilterIndex, build_filters
 from blp_tpu_torch.models import blp
@@ -81,24 +82,50 @@ def build_entity_table(
 ) -> torch.Tensor:
     """Encode all candidate entities into an (Np, d) float32 table on
     `device`, in chunks of emb_batch_size (the last chunk padded; padded rows
-    get mask[:, 0] = 1 so no row is all-masked)."""
+    get mask[:, 0] = 1 so no row is all-masked).
+
+    Each chunk's description gather, padding and host-to-device copy run on
+    the prefetch thread (data/prefetch.py), so they overlap the encode of
+    the chunk before; `encode_batch` receives device tensors. The copies
+    come from pinned memory with non_blocking=True, issued on the caller's
+    current stream (the thread would otherwise use its own current stream
+    and current device), so each encode is queued behind its chunk's copy
+    and never reads a buffer mid-copy."""
+    dev = torch.device(device)
+    stream = None
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device()
+                           if dev.index is None else dev.index)
+        stream = torch.cuda.current_stream(dev)
     n = len(entities)
     n_pad = _round_up(max(n, 1), pad_to)
     emb_batch_size = min(_round_up(emb_batch_size, chunk_multiple),
                          _round_up(max(n, 1), chunk_multiple))
-    chunks = []
-    for ci, start in enumerate(range(0, n, emb_batch_size)):
-        ids = entities[start:start + emb_batch_size]
-        tok, mask = text_data.get_entity_descriptions(ids)
-        if len(ids) < emb_batch_size:
-            pad = emb_batch_size - len(ids)
-            tok = np.pad(tok, ((0, pad), (0, 0)))
-            mask = np.pad(mask, ((0, pad), (0, 0)))
-            mask[len(ids):, 0] = 1.0
-        chunks.append(encode_batch(tok, mask)[:len(ids)])
+
+    def host_chunks():
+        for start in range(0, n, emb_batch_size):
+            ids = entities[start:start + emb_batch_size]
+            tok, mask = text_data.get_entity_descriptions(ids)
+            if len(ids) < emb_batch_size:
+                pad = emb_batch_size - len(ids)
+                tok = np.pad(tok, ((0, pad), (0, 0)))
+                mask = np.pad(mask, ((0, pad), (0, 0)))
+                mask[len(ids):, 0] = 1.0
+            yield {"tok": tok, "mask": mask}, len(ids)
+
+    def place(item):
+        chunk, real = item
+        with torch.cuda.stream(stream):
+            return prefetch.to_device(chunk, dev), real
+
+    chunks, done = [], 0
+    for ci, (chunk, real) in enumerate(prefetch.prefetch_to_device(
+            host_chunks(), placement=place)):
+        chunks.append(encode_batch(chunk["tok"], chunk["mask"])[:real])
+        done += real
         if log and ci % 20 == 0:
-            log.info(f"[encode {start + len(ids):,}/{n:,}]")
-    table = torch.zeros((n_pad, dim), dtype=torch.float32, device=device)
+            log.info(f"[encode {done:,}/{n:,}]")
+    table = torch.zeros((n_pad, dim), dtype=torch.float32, device=dev)
     if chunks:
         table[:n] = torch.cat(chunks, dim=0)
     return table

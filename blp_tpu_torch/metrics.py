@@ -42,6 +42,17 @@ def metrics_from_ranks(ranks, k_values=(1, 3, 10)):
     return reciprocals, ranks[:, None] <= ks[None, :]
 
 
+def get_metrics(pred_scores, true_idx, k_values=(1, 3, 10)):
+    """(reciprocals, hits) from dense scores, the reference's signature
+    (reference: utils.py:86-111). pred_scores: (B, N), higher ranks first;
+    true_idx: (B,) index of the true entity in each row."""
+    pred_scores = torch.as_tensor(pred_scores)
+    true_idx = torch.as_tensor(true_idx).long()
+    true_scores = torch.take_along_dim(pred_scores, true_idx[:, None], dim=1)
+    gt, geq = rank_counts(pred_scores, true_scores)
+    return metrics_from_ranks(ranks_from_counts(gt, geq), k_values)
+
+
 # The breakdowns below add float32 reciprocals in a fixed order: the order of
 # XLA's CPU backend, which computes the TPU package's breakdowns wherever the
 # two packages are compared, so the two agree to the bit. A reduce there runs

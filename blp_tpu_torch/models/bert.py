@@ -616,6 +616,13 @@ def _bert_encode(params, input_ids, attention_mask, cfg: BertConfig,
     return x.reshape(B, S, x.shape[-1]) if pack > 1 else x
 
 
+def bert_pooler(params: dict, hidden, cfg: BertConfig):
+    """HF pooler: tanh(dense([CLS])). BLP does not use it; it is kept for
+    checkpoint round-trips and downstream users."""
+    return torch.tanh(_dense(hidden[:, 0], params["pooler"]["w"],
+                             params["pooler"]["b"], cfg.compute_dtype))
+
+
 def params_from_hf_state_dict(state_dict: dict, cfg: BertConfig) -> dict:
     """Convert a `transformers.BertModel.state_dict()` (torch tensors or numpy
     arrays, with or without the `bert.` prefix) into this module's
@@ -669,3 +676,21 @@ def params_from_hf_state_dict(state_dict: dict, cfg: BertConfig) -> dict:
             "b": get("pooler.dense.bias"),
         },
     }
+
+
+def config_from_hf(hf_config) -> BertConfig:
+    """A BertConfig from a transformers BertConfig, or any object with its
+    attribute names (only attributes are read, so no transformers import)."""
+    return BertConfig(
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.hidden_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        intermediate_size=hf_config.intermediate_size,
+        max_position_embeddings=hf_config.max_position_embeddings,
+        type_vocab_size=hf_config.type_vocab_size,
+        layer_norm_eps=hf_config.layer_norm_eps,
+        hidden_dropout=hf_config.hidden_dropout_prob,
+        attention_dropout=hf_config.attention_probs_dropout_prob,
+        initializer_range=hf_config.initializer_range,
+    )

@@ -205,6 +205,40 @@ class _Layout:
         return params, opt_state
 
 
+def load_train_state(path: str, template: dict, optimizer):
+    """((params, opt_state), metadata) of a state file, as CPU tensors in
+    the stacked layout. `template` is the stacked params tree (shapes and
+    dtypes only: it may live on the `meta` device).
+
+    Files with the `"layout": "stacked"` marker are stacked. A marker-less
+    (legacy) file was written in the layout its run trained in, so it is
+    matched against the unstacked and the stacked templates by leaf count,
+    then by leaf shape (with num_layers == 1 the counts coincide and only
+    the leading (1,) axis of a stacked layer leaf tells them apart), and
+    restacked when it is unstacked."""
+    stacked = (template, optimizer.init(template))
+    if ckpt.peek_metadata(path).get("layout") == "stacked":
+        return ckpt.load_pytree(path, template=stacked)
+    unstacked = (training.unstack_params(stacked[0]),
+                 training.unstack_opt_state(stacked[1]))
+    shapes = ckpt.peek_leaf_shapes(path)
+    misses = []
+    for name, tmpl in (("unstacked", unstacked), ("stacked", stacked)):
+        want = [tuple(x.shape) for x in ckpt.tree_leaves(tmpl)]
+        if want == shapes:
+            (p_raw, o_raw), meta = ckpt.load_pytree(path, template=tmpl)
+            return ((training.restack_params(p_raw),
+                     training.restack_opt_state(o_raw)), meta)
+        i = next((i for i, (a, b) in enumerate(zip(shapes, want)) if a != b),
+                 min(len(shapes), len(want)))
+        at = lambda xs: xs[i] if i < len(xs) else None  # noqa: E731
+        misses.append(f"{name}: {len(want)} leaves, leaf {i} {at(want)} "
+                      f"where the file has {at(shapes)}")
+    raise ValueError(
+        f"{path} ({len(shapes)} leaves, no layout marker) matches neither "
+        f"state layout of this run: {'; '.join(misses)}")
+
+
 def _save(path: str, tree, metadata: dict) -> None:
     """Rank 0 writes the (full, host) tree; every rank returns once it is
     written."""
@@ -336,17 +370,10 @@ def _link_prediction(cfg: ExperimentConfig, run_id: str,
     # otherwise resume= names a state file.
     resume_path = state_file if cfg.resume == "auto" else cfg.resume
     if resume_path and osp.exists(resume_path):
-        meta = ckpt.peek_metadata(resume_path)
-        if meta.get("layout") != "stacked":
-            raise NotImplementedError(
-                f"{resume_path} has no 'layout': 'stacked' marker; legacy "
-                f"state files are not ported (ROADMAP.md, Queue 1: the rest of "
-                f"train.py)")
-        # Every rank loads the full one-device state through a stacked
-        # template on the meta device, then takes its slices in the live
-        # layout.
-        tmpl = (full_template, optimizer.init(full_template))
-        (p_raw, o_raw), meta = ckpt.load_pytree(resume_path, template=tmpl)
+        # Every rank loads the full one-device state, then takes its slices
+        # in the live layout.
+        (p_raw, o_raw), meta = load_train_state(resume_path, full_template,
+                                                optimizer)
         params, opt_state = blp.to_device(layout.live(p_raw, o_raw), device)
         start_epoch = int(meta["epoch"]) + 1
         best_mrr = float(meta.get("best_mrr", 0.0))

@@ -8,7 +8,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 1. Require CUDA; print the card's name and power limit; keep fp32 products
    in full fp32 (no TF32).
 2. Build every kernel under blp_tpu_torch/csrc/ (one nvcc per source, in
-   parallel, into build/kernels/) and print the build seconds.
+   parallel, into build/kernels/) and print the build seconds; then build
+   the native data packer (g++, into build/native/) and print its seconds.
 3. Check each kernel against its plain PyTorch version on the card: K1
    (TransE rank counts, at d 128, 300 and 768 on its "tma" variant, and at
    d 128 on its "scalar" variant through a view 4 bytes off) must give
@@ -82,6 +83,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    second. The launches of (a) and of the ranks count; the one-process
    passes they are held to do not. Ranks sharing one card time the paths,
    not their scaling.
+10. The modules that complete the port (after phase 9, before the timings
+   of phase 7), with every count set to 0 again just before it. The
+   link_prediction command runs in-process with K2 and K3 switched on in
+   the model config it builds (its own defaults, as the TPU package's,
+   leave both off). (a) The native packer built (phase 2's seconds); the
+   4,096-entity graph's triple files and token matrix equal the Python
+   path's; both load a 1M-triple random graph (host times of this
+   machine). (b) A reference-shaped BERT-base BLP-TransE state dict (random
+   from seed 0, `module.` prefix) goes through `python -m
+   blp_tpu_torch.tools.convert_reference_checkpoint`, then `link_prediction
+   max_epochs=0 checkpoint=` (bf16): its test MRR, raw and filtered, equals
+   an in-process evaluation of the converted parameters, and it launches
+   K1 and K2. (c) Phase 1 of the 4,096 entities (BERT-base bf16, K2, chunks
+   of 1,024) from evaluation.build_entity_table, whose prefetch thread
+   gathers and copies the chunks, and from an in-line loop over the same
+   chunks: tables bit-equal; entities/s of both; the device's busy share
+   from profiling.summarize_trace_stats. (d) A one-epoch run (B 64, L 32,
+   K3) on a 1,024-entity synthetic graph; marker-less stacked and unstacked copies of its state file load to
+   its parameters and Adam moments bit for bit and resume at epoch 2,
+   whose steps launch K3. (e) profiling.StepTimer over 5 flagship steps; 3
+   steps traced, whose summarized device time is within 2% of
+   device_profile's for the same 3 steps; device_memory_stats' peak equals
+   max_memory_allocated.
 7. Time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function, at the main path's shapes
    (K3's backward: the kernel with its index bookkeeping against the plain
@@ -91,7 +115,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the sum of the counts read after phases 4-5 (inference), after phase 6
    (train) and after phase 8 (word models), each path driven with every
    count (K3's forward and backward each have one) set to 0 just before it,
-   plus phase 9's.
+   plus phase 9's and phase 10's.
    K1's record also counts its launches by variant and width (every
    main-path launch must take the "tma" variant, at d 128, 300 and 768),
    reads the SM clock right after its timing with the kernel running, and
@@ -119,8 +143,11 @@ import time
 import numpy as np
 import torch
 
-from blp_tpu_torch import evaluation, retrieval, serve, train, training
+from blp_tpu_torch import (evaluation, native, profiling, retrieval, serve,
+                           train, training)
+from blp_tpu_torch import checkpoint as ckpt
 from blp_tpu_torch.checkpoint import tree_leaves as _leaves
+from blp_tpu_torch.config import ExperimentConfig
 from blp_tpu_torch.data import prefetch, sampling
 from blp_tpu_torch.data.datasets import GraphData, TextGraphData
 from blp_tpu_torch.data.filtering import FilterIndex
@@ -226,21 +253,6 @@ def require(cond: bool, what: str) -> None:
         raise SystemExit(f"FAILED: {what}")
 
 
-def _kernel_group(name: str) -> str:
-    low = name.lower()
-    if "packed_attention" in low:
-        return "K2 packed_attention"
-    if "transe_rank" in low:
-        return "K1 transe_rank"
-    if "sddmm_bwd" in low:
-        return "K3 sddmm backward"
-    if "sddmm" in low:
-        return "K3 sddmm forward"
-    if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
-        return "GEMM (cuBLAS)"
-    return "other (elementwise, reductions, copies)"
-
-
 def device_profile(label: str, fn) -> dict:
     """Run `fn` once under torch.profiler; print device time by kernel group,
     the top kernels, the device's busy share of the wall time, and the host
@@ -262,12 +274,10 @@ def device_profile(label: str, fn) -> dict:
     waits = {e.key: e.count for e in prof.key_averages()
              if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                           "cudaMemcpyAsync")}
-    groups: dict[str, float] = {}
-    for name, ms, _ in kernels:
-        groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + ms
+    groups = profiling.device_time_by_group((name, ms) for name, ms, _ in kernels)
     log(f"profile {label}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
         f"({100 * busy / wall_ms:.1f}% of wall)")
-    for g, ms in sorted(groups.items(), key=lambda x: -x[1]):
+    for g, ms in groups.items():
         log(f"  {g}: {ms:.2f} ms ({100 * ms / max(busy, 1e-9):.1f}% of device time)")
     for name, ms, count in sorted(kernels, key=lambda x: -x[1])[:6]:
         log(f"    {ms:8.2f} ms x{count:<5d} {name[:90]}")
@@ -1549,6 +1559,420 @@ def mesh_ranks(data_dir: str, cfg, n_ranks: int = RANKS,
             launches, by_variant)
 
 
+# -- phase 10: the modules that complete the port --------------------------------
+
+NATIVE_TRIPLES = 1_000_000        # the synthetic graph of (a)'s load times
+NATIVE_ENTITIES, NATIVE_RELATIONS = 100_000, 200
+PREFETCH_CHUNK = 1024             # phase-1 chunk of (c): 4 chunks of 4,096
+
+
+@contextlib.contextmanager
+def python_data_path():
+    """The data layer's pure-Python parse and tokenize (the native packer
+    reported unavailable), for the comparisons of (a)."""
+    available = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = available
+
+
+@contextlib.contextmanager
+def kernels_on():
+    """The link_prediction command keeps the TPU package's defaults: XLA-style
+    attention in its bf16 encodes and the plain scorer in its steps. Driven
+    in-process here, the model config it builds gets K2
+    (fused_attention=True) and K3 (sddmm_pallas=True)."""
+    make = train.make_model_config
+
+    def with_kernels(*args, **kw):
+        mcfg = make(*args, **kw)
+        enc = mcfg.encoder and dataclasses.replace(mcfg.encoder,
+                                                   fused_attention=True)
+        return dataclasses.replace(mcfg, encoder=enc, sddmm_pallas=True)
+
+    train.make_model_config = with_kernels
+    try:
+        yield
+    finally:
+        train.make_model_config = make
+
+
+def fresh_copy(data_dir: str, name: str) -> str:
+    """The dataset's files without the token caches earlier phases wrote."""
+    out = os.path.join(WORK_DIR, name)
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(data_dir, out, ignore=shutil.ignore_patterns("text_*.npz"))
+    return out
+
+
+def write_native_graph(directory: str, seed: int = 0) -> str:
+    """entities.txt, relations.txt and a train.tsv of NATIVE_TRIPLES random
+    triples, from `seed`."""
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ents = [f"/m/ent{i:06d}" for i in range(NATIVE_ENTITIES)]
+    rels = [f"/rel/r{i:03d}" for i in range(NATIVE_RELATIONS)]
+    for name, names in (("entities.txt", ents), ("relations.txt", rels)):
+        with open(os.path.join(directory, name), "w") as f:
+            f.write("\n".join(names) + "\n")
+    h = rng.integers(0, NATIVE_ENTITIES, NATIVE_TRIPLES)
+    t = rng.integers(0, NATIVE_ENTITIES, NATIVE_TRIPLES)
+    r = rng.integers(0, NATIVE_RELATIONS, NATIVE_TRIPLES)
+    with open(os.path.join(directory, "train.tsv"), "w") as f:
+        f.write("".join(f"{ents[a]}\t{rels[c]}\t{ents[b]}\n"
+                        for a, b, c in zip(h, t, r)))
+    return directory
+
+
+def native_packer(data_dir: str, build_s: float) -> dict:
+    """(a): the native packer built on this host (in `build_s` seconds, in
+    phase 2); its parse and tokenize of the synthetic graph equal the Python
+    path's; both load times of a 1M-triple graph."""
+    require(native.available(),
+            f"the native packer did not build: {native.build_error}")
+    calls = native.calls
+    tok = WordPieceTokenizer(os.path.join(data_dir, "vocab.txt"))
+    loaded = {}
+    for path in ("native", "python"):
+        d = fresh_copy(data_dir, f"native_{path}")
+        with python_data_path() if path == "python" else contextlib.nullcontext():
+            loaded[path] = [TextGraphData.load(os.path.join(d, "ind-train.tsv"),
+                                               tokenizer=tok, max_len=SEG,
+                                               write_maps=True)]
+            loaded[path] += [GraphData.load(os.path.join(d, f"{s}.tsv"))
+                             for s in ("train", "ind-dev", "ind-test")]
+    require(native.calls - calls == 5,
+            f"{native.calls - calls} native calls for 4 parses and 1 tokenize")
+    for a, b in zip(loaded["native"], loaded["python"]):
+        require(np.array_equal(a.triples, b.triples),
+                "native and Python triple parses differ")
+    require(np.array_equal(loaded["native"][0].text_data,
+                           loaded["python"][0].text_data),
+            "native and Python token matrices differ")
+    big = write_native_graph(os.path.join(WORK_DIR, "native_1m"))
+    times = {}
+    for path in ("python", "native", "native", "python"):
+        with python_data_path() if path == "python" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            g = GraphData.load(os.path.join(big, "train.tsv"), write_maps=True)
+            times.setdefault(path, []).append(time.perf_counter() - t0)
+        require(len(g.triples) == NATIVE_TRIPLES, f"{len(g.triples)} triples")
+    shutil.rmtree(big, ignore_errors=True)
+    log(f"native packer (ready after {build_s:.2f} s in phase 2): the "
+        f"{len(loaded['native'][0].ent_ids):,}-entity graph's 4 triple files "
+        f"and token matrix equal the Python path's; {NATIVE_TRIPLES:,}-triple "
+        f"GraphData.load, host time of this machine: native "
+        f"{[round(x, 3) for x in times['native']]} s, Python "
+        f"{[round(x, 3) for x in times['python']]} s "
+        f"({min(times['python']) / min(times['native']):.1f}x)")
+    return {"native_build_s": build_s, "native_calls": native.calls - calls,
+            "native_load_1m_s": times["native"],
+            "python_load_1m_s": times["python"]}
+
+
+def reference_bert_state_dict(vocab: int, num_relations: int,
+                              seed: int = 0) -> dict:
+    """A released dfdazac/blp BLP-TransE checkpoint's state dict, BERT-base
+    (hidden 768, 12 layers, FFN 3072, 512 positions, dim 128), random from
+    `seed`, with DataParallel's `module.` prefix (reference models.py)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape):
+        return 0.02 * torch.randn(shape, generator=g)
+
+    hidden, ffn = 768, 3072
+    sd = {"rel_emb.weight": w(num_relations, 128),
+          "enc_linear.weight": w(128, hidden),
+          "encoder.embeddings.word_embeddings.weight": w(vocab, hidden),
+          "encoder.embeddings.position_embeddings.weight": w(512, hidden),
+          "encoder.embeddings.token_type_embeddings.weight": w(2, hidden),
+          "encoder.embeddings.LayerNorm.weight": 1 + w(hidden),
+          "encoder.embeddings.LayerNorm.bias": w(hidden),
+          "encoder.pooler.dense.weight": w(hidden, hidden),
+          "encoder.pooler.dense.bias": w(hidden)}
+    for i in range(12):
+        p = f"encoder.encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            sd[f"{p}attention.self.{name}.weight"] = w(hidden, hidden)
+            sd[f"{p}attention.self.{name}.bias"] = w(hidden)
+        sd[f"{p}attention.output.dense.weight"] = w(hidden, hidden)
+        sd[f"{p}attention.output.dense.bias"] = w(hidden)
+        sd[f"{p}attention.output.LayerNorm.weight"] = 1 + w(hidden)
+        sd[f"{p}attention.output.LayerNorm.bias"] = w(hidden)
+        sd[f"{p}intermediate.dense.weight"] = w(ffn, hidden)
+        sd[f"{p}intermediate.dense.bias"] = w(ffn)
+        sd[f"{p}output.dense.weight"] = w(hidden, ffn)
+        sd[f"{p}output.dense.bias"] = w(hidden)
+        sd[f"{p}output.LayerNorm.weight"] = 1 + w(hidden)
+        sd[f"{p}output.LayerNorm.bias"] = w(hidden)
+    return {f"module.{k}": v for k, v in sd.items()}
+
+
+def cli_args(data_dir: str, out_dir: str, run_id: str) -> list[str]:
+    return ["link_prediction", "with", f"data_dir={os.path.dirname(data_dir)}",
+            f"dataset={os.path.basename(data_dir)}", f"out_dir={out_dir}",
+            f"run_id={run_id}", "model=blp", "rel_model=transe", "bf16=True",
+            "device=cuda", "emb_batch_size=4096"]
+
+
+def run_cli(argv: list[str]) -> tuple[dict, float]:
+    """`python -m blp_tpu_torch.train ...` in-process, with K2 and K3 on:
+    (its result line, seconds)."""
+    buf = io.StringIO()
+    with kernels_on(), contextlib.redirect_stdout(buf):
+        rc, s = wall(lambda: train.main(argv))
+    require(rc == 0, f"{' '.join(argv[2:])} exited {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), s
+
+
+def released_checkpoint(data_dir: str, read_counts) -> dict:
+    """(b): a reference-shaped BERT-base state dict through the port's
+    converter, then `link_prediction max_epochs=0 checkpoint=`, whose test
+    MRR must equal an in-process evaluation of the same parameters."""
+    out_dir = os.path.join(WORK_DIR, "released")
+    os.makedirs(out_dir, exist_ok=True)
+    tok = WordPieceTokenizer(os.path.join(data_dir, "vocab.txt"))
+    num_rels = len(GraphData.load(os.path.join(data_dir, "ind-train.tsv"),
+                                  write_maps=True).rel_ids)
+    pt, npz = os.path.join(out_dir, "model.pt"), os.path.join(out_dir, "model-blp.npz")
+    torch.save(reference_bert_state_dict(len(tok.vocab), num_rels), pt)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "blp_tpu_torch.tools.convert_reference_checkpoint",
+         "--model", "blp", "--input", pt, "--output", npz],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    convert_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"the converter exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    before = read_counts()
+    res, cli_s = run_cli(cli_args(data_dir, out_dir, "released")
+                         + ["max_epochs=0", f"checkpoint={npz}"])
+    after = read_counts()
+    k1, k2 = (after[k] - before[k] for k in ("K1", "K2"))
+
+    # The same evaluation in-process: the command's test split, candidates,
+    # filter and new-entity set.
+    cfg = ExperimentConfig(data_dir=os.path.dirname(data_dir),
+                           dataset=os.path.basename(data_dir), bf16=True)
+    train_d = TextGraphData.load(os.path.join(data_dir, "ind-train.tsv"),
+                                 tokenizer=tok, max_len=cfg.max_len)
+    dev = GraphData.load(os.path.join(data_dir, "ind-dev.tsv"))
+    test = GraphData.load(os.path.join(data_dir, "ind-test.tsv"))
+    val_ents = np.unique(np.concatenate([train_d.entities, dev.entities]))
+    all_ents = np.unique(np.concatenate([val_ents, test.entities]))
+    with kernels_on():
+        mcfg = train.make_model_config(cfg, tok, len(train_d.rel_ids),
+                                       len(train_d.ent_ids))
+    params, _ = ckpt.load_pytree(npz)
+    ref = evaluation.eval_link_prediction(
+        blp.to_device(params, "cuda"), mcfg, test.triples, train_d, all_ents,
+        batch_size=cfg.eval_batch_size, emb_batch_size=4096, tile=cfg.tile,
+        filter_index=FilterIndex(np.concatenate(
+            [train_d.triples, dev.triples, test.triples])),
+        new_entities=np.setdiff1d(all_ents, val_ents),
+        rel_categories=train_d.rel_categories, device="cuda")
+    require(res["test_mrr_filt"] == ref.mrr_filt and res["test_mrr"] == ref.mrr,
+            f"link_prediction checkpoint= test MRR {res} != in-process "
+            f"{ref.mrr} / {ref.mrr_filt}")
+    require(k1 > 0 and k2 > 0, f"released-checkpoint evaluation launched K1 "
+            f"{k1}, K2 {k2} times")
+    log(f"released checkpoint (reference BERT-base BLP-TransE state dict, "
+        f"{len(params['bert']['layers']['q_w'])} layers, `module.` prefix): "
+        f"converted by `python -m blp_tpu_torch.tools.convert_reference_checkpoint` "
+        f"in {convert_s:.1f} s; link_prediction max_epochs=0 checkpoint= "
+        f"{cli_s:.1f} s, test MRR {res['test_mrr']:.6f} filtered "
+        f"{res['test_mrr_filt']:.6f}, equal to the in-process evaluation; "
+        f"K1 launched {k1} times, K2 {k2}")
+    return {"released_convert_s": convert_s, "released_cli_s": cli_s,
+            "released_test_mrr_filt": res["test_mrr_filt"],
+            "released_k1": k1, "released_k2": k2}
+
+
+def prefetched_encode(data_dir: str) -> dict:
+    """(c): phase 1 of 4,096 entities through BERT-base bf16 with K2, from
+    build_entity_table (prefetch thread) and from an in-line loop over the
+    same chunks: bit-equal tables; entities/s of both; the device's busy
+    share of the prefetched one."""
+    cfg, params = make_model(num_relations=12)
+    enc = blp.encode_view(params, cfg)
+    data = TextGraphData.load(os.path.join(data_dir, "ind-train.tsv"),
+                              tokenizer=WordPieceTokenizer(
+                                  os.path.join(data_dir, "vocab.txt")),
+                              max_len=SEG)
+    ents = np.arange(len(data.ent_ids))
+    n, chunk = len(ents), PREFETCH_CHUNK
+
+    def encode_batch(tok, mask):
+        return blp.encode(enc, cfg, tok, mask, device="cuda")
+
+    def prefetched():
+        return evaluation.build_entity_table(
+            encode_batch, data, ents, emb_batch_size=chunk, dim=cfg.entity_dim,
+            device="cuda", chunk_multiple=4)
+
+    def inline():
+        rows = []
+        for start in range(0, n, chunk):
+            ids = ents[start:start + chunk]
+            tok, mask = data.get_entity_descriptions(ids)
+            rows.append(encode_batch(tok, mask)[:len(ids)])
+        table = torch.zeros((n, cfg.entity_dim), device="cuda")
+        table[:n] = torch.cat(rows)
+        return table
+
+    require(n % chunk == 0, "the chunks of (c) must cover the entities evenly")
+    times = {"inline": [], "prefetch": []}
+    tables = {}
+    for name in ("inline", "prefetch", "prefetch", "inline", "inline", "prefetch"):
+        tables[name], s = wall(inline if name == "inline" else prefetched)
+        times[name].append(s)
+    require(torch.equal(tables["prefetch"], tables["inline"]),
+            "the prefetched table differs from the in-line loop's")
+    trace_dir = os.path.join(WORK_DIR, "trace_encode")
+    with profiling.trace(trace_dir):
+        _, traced_s = wall(prefetched)
+    stats = profiling.summarize_trace_stats(trace_dir)
+    busy = stats["total_device_time_us"] / 1e6 / traced_s
+    rate = {k: n / min(v) for k, v in times.items()}
+    log(f"phase-1 encode of {n:,} entities (BERT-base bf16, K2, chunks of "
+        f"{chunk:,}): in line {[round(x * 1e3, 1) for x in times['inline']]} ms "
+        f"= {rate['inline']:,.0f} entities/s at best; prefetched "
+        f"{[round(x * 1e3, 1) for x in times['prefetch']]} ms = "
+        f"{rate['prefetch']:,.0f} entities/s; tables bit-equal; traced "
+        f"prefetched run: device busy {stats['total_device_time_us'] / 1e3:.2f} "
+        f"of {traced_s * 1e3:.2f} ms wall ({100 * busy:.1f}%), by group "
+        f"{ {k: round(v / 1e3, 2) for k, v in stats['by_category_us'].items()} } ms")
+    return {"encode_inline_s": times["inline"], "encode_prefetch_s": times["prefetch"],
+            "encode_inline_entities_per_s": rate["inline"],
+            "encode_prefetch_entities_per_s": rate["prefetch"],
+            "encode_prefetch_busy_share": busy}
+
+
+def legacy_resume(read_counts) -> dict:
+    """(d): a one-epoch BERT-base link_prediction run (B 64, L 32, K3) on a
+    1,024-entity synthetic graph (a quarter of the flagship graph, to keep
+    its three epochs short); marker-less stacked and unstacked copies of its
+    state file load to the file's parameters and Adam moments bit for bit
+    and resume at epoch 2, whose steps launch K3."""
+    out_dir = os.path.join(WORK_DIR, "legacy")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    data_dir = write_synth_dataset(os.path.join(WORK_DIR, "synth1024"),
+                                   num_entities=1024, num_relations=12,
+                                   num_triples=2000, seed=0)
+    base = cli_args(data_dir, out_dir, "legacy") + ["batch_size=64",
+                                                    f"max_len={SEG}"]
+    _, first_s = run_cli(base + ["max_epochs=2", "stop_after_epochs=1"])
+    state = os.path.join(out_dir, "train_state-legacy.npz")
+    tree, meta = ckpt.load_pytree(state)
+    require(meta.pop("layout") == "stacked", "the run wrote no layout marker")
+    files = {"stacked": os.path.join(out_dir, "legacy-stacked.npz"),
+             "unstacked": os.path.join(out_dir, "legacy-unstacked.npz")}
+    ckpt.save_pytree(files["stacked"], tree, meta)
+    ckpt.save_pytree(files["unstacked"], (training.unstack_params(tree[0]),
+                                          training.unstack_opt_state(tree[1])), meta)
+    want = _leaves(tree)
+    tmpl = blp.to_device(tree[0], "meta")
+    opt = training.make_optimizer(2e-5, 1)
+    out = {"legacy_first_epoch_s": first_s}
+    for name, path in files.items():
+        (p, o), m = train.load_train_state(path, tmpl, opt)
+        live = blp.to_device((training.unstack_params(p),
+                              training.unstack_opt_state(o)), "cuda")
+        got = _leaves((training.restack_params(live[0]),
+                       training.restack_opt_state(live[1])))
+        require(len(got) == len(want) and all(
+            torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+            f"the {name} legacy file loaded to another state")
+        require(int(m["epoch"]) + 1 == 2, f"{name}: start epoch {m['epoch'] + 1}")
+        before = read_counts()
+        res, s = run_cli(base + ["max_epochs=2", f"resume={path}",
+                                 f"run_id=legacy-{name}"])
+        k3 = read_counts()["K3"] - before["K3"]
+        rows = [json.loads(line) for line in
+                open(os.path.join(out_dir, f"metrics-legacy-{name}.jsonl"))]
+        epochs = [r["step"] for r in rows if "train_loss" in r]
+        require(epochs == [2] and k3 > 0 and math.isfinite(res["test_mrr_filt"]),
+                f"{name} legacy resume: epochs {epochs}, K3 {k3}, {res}")
+        log(f"legacy resume, marker-less {name} file: parameters and Adam "
+            f"moments bit-equal to the file's on the card, start epoch 2; "
+            f"epoch 2 and evals {s:.1f} s, K3 launched {k3} times, test MRR "
+            f"filtered {res['test_mrr_filt']:.4f}")
+        out[f"legacy_{name}_resume_s"] = s
+        out[f"legacy_{name}_k3"] = k3
+    return out
+
+
+def profiling_check(data_dir: str, card: str) -> dict:
+    """(e): StepTimer over 5 flagship steps; 3 of them traced, whose
+    summarized device time must be within 2% of device_profile's busy time
+    for the same 3 steps; device_memory_stats' peak against
+    max_memory_allocated."""
+    cfg, params = train_model(12)
+    opt = training.make_optimizer(2e-5, 1000)
+    state = opt.init(params)
+    step = training.make_train_step(cfg, opt, batch_size=64, num_negatives=64,
+                                    device="cuda")
+    batches = train_batches(data_dir, SEG, 64, 5)
+    torch.cuda.reset_peak_memory_stats()
+    timer = profiling.StepTimer(sync_every=1)
+    losses = []
+    for i, batch in enumerate(batches):
+        with timer.step():
+            params, state, loss = step(params, state, (0, i), batch)
+            losses.append(timer.sync(loss))
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+
+    def three():
+        for i in range(3):
+            step(params, state, (0, 5 + i), batches[i])
+
+    trace_dir = os.path.join(WORK_DIR, "trace_steps")
+    with profiling.trace(trace_dir):
+        three()
+    stats = profiling.summarize_trace_stats(trace_dir)
+    prof = device_profile("3 flagship steps (as traced)", three)
+    traced_ms = stats["total_device_time_us"] / 1e3
+    rel = abs(traced_ms - prof["busy_ms"]) / prof["busy_ms"]
+    require(rel <= 0.02, f"summarize_trace_stats {traced_ms:.3f} ms against "
+            f"device_profile {prof['busy_ms']:.3f} ms of device time")
+    mem = profiling.device_memory_stats()[0]
+    peak = torch.cuda.max_memory_allocated()
+    require(mem["allocated_bytes.all.peak"] == peak,
+            f"device_memory_stats peak {mem['allocated_bytes.all.peak']} != "
+            f"max_memory_allocated {peak}")
+    summary = timer.summary()
+    log(f"profiling: StepTimer over 5 flagship steps (synced each step): "
+        f"{summary}; 3 steps traced: {traced_ms:.3f} ms device time by "
+        f"summarize_trace_stats against {prof['busy_ms']:.3f} by device_profile "
+        f"({100 * rel:.2f}% apart, limit 2%); top op "
+        f"{stats['top_ops'][0]['name'][:60]} "
+        f"{stats['top_ops'][0]['self_time_us'] / 1e3:.2f} ms; peak "
+        f"{peak / 2**30:.2f} GiB from device_memory_stats equals "
+        f"max_memory_allocated, on {card}")
+    return {"step_timer": summary, "trace_device_ms": traced_ms,
+            "profile_busy_ms": prof["busy_ms"], "trace_vs_profile": rel,
+            "profiling_peak_bytes": peak}
+
+
+def completion_phase(data_dir: str, card: str, read_counts,
+                     native_build_s: float) -> dict:
+    """Phase 10, (a)-(e); every count set to 0 just before it."""
+    t0 = time.perf_counter()
+    stats = native_packer(data_dir, native_build_s)
+    stats.update(released_checkpoint(data_dir, read_counts))
+    torch.cuda.empty_cache()
+    stats.update(prefetched_encode(data_dir))
+    torch.cuda.empty_cache()
+    stats.update(legacy_resume(read_counts))
+    torch.cuda.empty_cache()
+    stats.update(profiling_check(data_dir, card))
+    stats["phase10_s"] = time.perf_counter() - t0
+    log(f"phase 10: {stats['phase10_s']:.1f} s")
+    return stats
+
+
 # -- phase 7: timings at the main path's shapes ----------------------------------
 
 def sm_clock_running(fn, ms: float) -> str:
@@ -1763,6 +2187,16 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  {name}: {line.strip()}")
 
+    # The native packer, which every data load below uses, builds here.
+    t0 = time.perf_counter()
+    built_before = native.library_path().exists()
+    require(native.available(),
+            f"the native packer did not build: {native.build_error}")
+    native_build_s = time.perf_counter() - t0
+    how = "loaded (built before)" if built_before else "built (g++) and loaded"
+    log(f"native packer: {how} in {native_build_s:.2f} s "
+        f"({native.library_path().name})")
+
     check_k1()
     check_k2()
     check_k3()
@@ -1816,10 +2250,18 @@ def main() -> int:
     log(f"main-path launches, multi-device paths (phase 9): {mesh_launches}")
     require(all(mesh_launches.get(k, 0) > 0 for k in counters),
             "a kernel of the multi-device paths was never launched")
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    done_stats = completion_phase(data_dir, card, read_counts, native_build_s)
+    done_launches = read_counts()
+    log(f"main-path launches, the completing modules (phase 10): {done_launches}")
+    require(all(done_launches[k] > 0 for k in counters),
+            "a kernel of phase 10's paths was never launched")
     launches = {k: infer_launches[k] + train_launches[k] + word_launches[k]
-                + mesh_launches[k] for k in counters}
+                + mesh_launches[k] + done_launches[k] for k in counters}
     k1_counts = sum((p["K1 by variant"] for p in (infer_launches, train_launches,
-                                                  word_launches)),
+                                                  word_launches, done_launches)),
                     collections.Counter(mesh_k1))
     k1_by = {v: {d: c for (w, d), c in sorted(k1_counts.items()) if w == v}
              for v in transe_rank.VARIANTS}   # {variant: {d: launches}}
@@ -1853,7 +2295,8 @@ def main() -> int:
                 f"the host's launch path {kr['call_ms']:.4f} ms (B=64), "
                 f"{kr['at_b1024']['call_ms']:.4f} ms (B=1024)")
     log("summary: " + json.dumps({**serve_stats, **eval_stats, **train_stats,
-                                  **word_stats, **mesh_stats}, default=str))
+                                  **word_stats, **mesh_stats, **done_stats},
+                                 default=str))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(card)   # name, power limit: nvidia-smi's own line
     print(json.dumps({"kernels": kernels}))

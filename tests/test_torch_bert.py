@@ -178,3 +178,34 @@ def test_unstack_restack_roundtrip():
         assert torch.equal(back["layers"][k], v)
     assert t_bert.unstack_layers(t_bert.unstack_layers(tp))["layers"][1]["q_w"].shape == (32, 32)
     assert dataclasses.replace(t_bert.BertConfig.tiny(), seq_pack=1).seq_pack == 1
+
+
+def test_bert_pooler_matches_jax():
+    jcfg, tcfg = _configs(TINY)
+    jp = _jax_params(jcfg, seed=3)
+    hidden = np.random.default_rng(3).standard_normal((5, 7, 32)).astype(np.float32)
+    want = j_bert.bert_pooler(jp, jnp.asarray(hidden), jcfg)
+    got = t_bert.bert_pooler(params_from_jax(jp), torch.from_numpy(hidden), tcfg)
+    assert got.shape == (5, 32) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
+def test_config_from_hf_reads_attributes_as_jax_does():
+    from types import SimpleNamespace
+
+    hf = SimpleNamespace(
+        vocab_size=30522, hidden_size=256, num_hidden_layers=4,
+        num_attention_heads=4, intermediate_size=1024,
+        max_position_embeddings=128, type_vocab_size=2, layer_norm_eps=1e-7,
+        hidden_dropout_prob=0.15, attention_probs_dropout_prob=0.05,
+        initializer_range=0.01)
+    want = dataclasses.asdict(j_bert.config_from_hf(hf))
+    got = dataclasses.asdict(t_bert.config_from_hf(hf))
+    read = ("vocab_size", "hidden_size", "num_layers", "num_heads",
+            "intermediate_size", "max_position_embeddings", "type_vocab_size",
+            "layer_norm_eps", "hidden_dropout", "attention_dropout",
+            "initializer_range")
+    assert {k: got[k] for k in read} == {k: want[k] for k in read}
+    assert got["num_layers"] == 4 and got["hidden_dropout"] == 0.15
+    # The rest keeps the port's defaults.
+    assert t_bert.config_from_hf(hf) == t_bert.BertConfig(**{k: got[k] for k in read})

@@ -652,3 +652,70 @@ def test_sharded_eval_on_card_two_ranks_takes_tma(tmp_path):
         assert r[0]["scalars"] == one.scalars("x")
         assert r[0]["k1_by_variant"] and all(
             v == "tma" for v, _ in r[0]["k1_by_variant"])
+
+
+def test_prefetched_entity_table_bit_equal_to_inline_on_card(tmp_path):
+    """Phase 1 with the prefetch thread (pinned, non-blocking copies on the
+    caller's stream) gives the table of the same chunks encoded in line, bit
+    for bit, through K2 in bf16; also on a side stream of the caller's."""
+    from blp_tpu_torch.data.datasets import TextGraphData
+    from blp_tpu_torch.data.synth import write_synth_dataset
+    from blp_tpu_torch.data.tokenizers import WordPieceTokenizer
+
+    d = write_synth_dataset(str(tmp_path / "synth"), num_entities=300,
+                            num_relations=4, num_triples=600, seed=6)
+    data = TextGraphData.load(f"{d}/ind-train.tsv", max_len=32,
+                              tokenizer=WordPieceTokenizer(f"{d}/vocab.txt"),
+                              write_maps=True)
+    enc_cfg = bert.BertConfig.tiny(hidden_size=64, num_heads=4,
+                                   intermediate_size=128, vocab_size=30000,
+                                   compute_dtype=torch.bfloat16,
+                                   fused_attention=True)
+    cfg = blp.ModelConfig(model="blp", rel_model="transe", dim=16,
+                          num_relations=3, encoder=enc_cfg)
+    params = blp.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cuda")
+    enc = blp.encode_view(params, cfg)
+
+    def encode_batch(tok, mask):
+        return blp.encode(enc, cfg, tok, mask, device="cuda")
+
+    ents = np.arange(len(data.ent_ids))
+    inline = []
+    for start in range(0, len(ents), 64):
+        ids = ents[start:start + 64]
+        tok, mask = data.get_entity_descriptions(ids)
+        pad = 64 - len(ids)
+        tok, mask = np.pad(tok, ((0, pad), (0, 0))), np.pad(mask, ((0, pad), (0, 0)))
+        mask[len(ids):, 0] = 1.0
+        inline.append(encode_batch(tok, mask)[:len(ids)])
+    inline = torch.cat(inline)
+    before = packed_attention.launches
+    table = evaluation.build_entity_table(
+        encode_batch, data, ents, emb_batch_size=64, dim=16, device="cuda",
+        chunk_multiple=4)
+    assert packed_attention.launches > before
+    assert torch.equal(table[:len(ents)], inline)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        on_side = evaluation.build_entity_table(
+            encode_batch, data, ents, emb_batch_size=64, dim=16,
+            device="cuda", chunk_multiple=4)
+    side.synchronize()
+    assert torch.equal(on_side, table)
+
+
+def test_device_memory_stats_reads_the_allocator():
+    from blp_tpu_torch import profiling
+
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.empty((1 << 20,), device="cuda")
+    stats = profiling.device_memory_stats()
+    assert len(stats) == torch.cuda.device_count()
+    s0 = stats[0]
+    assert s0["device"] == "cuda:0"
+    assert s0["allocated_bytes.all.peak"] == torch.cuda.max_memory_allocated()
+    assert s0["allocated_bytes.all.current"] >= x.numel() * 4
+    assert 0 < s0["free_bytes"] <= s0["total_bytes"]
+    (one,) = profiling.device_memory_stats("cuda:0")
+    assert one["device"] == "cuda:0" and set(one) == set(s0)

@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from blp_tpu_torch import (evaluation, linear_model, retrieval, serve, train,
-                           training)
+from blp_tpu_torch import (evaluation, linear_model, profiling, retrieval,
+                           serve, train, training)
 from blp_tpu_torch.config import ExperimentConfig
 from blp_tpu_torch.data import sampling
 from blp_tpu_torch.models import bert, blp
@@ -40,6 +40,11 @@ print(json.dumps({"names": names, "leaked": leaked}))
 PARALLEL = {f"blp_tpu_torch.parallel.{m}" for m in
             ("comm", "mesh", "multihost", "train_parallel", "eval_parallel",
              "pipeline")}
+#: The modules that complete the port: profiling, the native packer, the
+#: split tooling and the reference-checkpoint converter.
+COMPLETING = {"blp_tpu_torch.profiling", "blp_tpu_torch.native",
+              "blp_tpu_torch.data.splits",
+              "blp_tpu_torch.tools.convert_reference_checkpoint"}
 
 
 def test_port_imports_without_jax_or_blp_tpu():
@@ -48,8 +53,9 @@ def test_port_imports_without_jax_or_blp_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     found = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(found["names"]) >= 41
+    assert len(found["names"]) >= 45
     assert PARALLEL <= set(found["names"])
+    assert COMPLETING <= set(found["names"])
     assert found["leaked"] == []
 
 
@@ -65,7 +71,7 @@ def _tiny():
                                    "make_train_step", "link_prediction",
                                    "sample_negative_indices",
                                    "node_classification", "LogisticRegression",
-                                   "rerank"])
+                                   "rerank", "device_memory_stats"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     cfg, params = _tiny()
     calls = {
@@ -87,6 +93,7 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
             np.eye(2), np.arange(2)),
         "rerank": lambda: retrieval.rerank(retrieval.RetrievalConfig(
             out_dir=str(tmp_path))),
+        "device_memory_stats": lambda: profiling.device_memory_stats(),
     }
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is usable")

@@ -54,3 +54,18 @@ def test_breakdowns_match(B):
                                          torch.from_numpy(cats))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+@pytest.mark.parametrize("k_values", [(1, 3, 10), (1, 5)])
+def test_get_metrics_equals_jax(k_values):
+    """Dense scores with ties (small integers) and the true index per row."""
+    rng = np.random.default_rng(len(k_values))
+    scores = rng.integers(-4, 5, (9, 23)).astype(np.float32)
+    true_idx = rng.integers(0, 23, 9)
+    j_rec, j_hits = j_metrics.get_metrics(jnp.asarray(scores),
+                                          jnp.asarray(true_idx), k_values)
+    t_rec, t_hits = t_metrics.get_metrics(torch.from_numpy(scores),
+                                          torch.from_numpy(true_idx), k_values)
+    assert t_rec.dtype == torch.float32 and t_hits.dtype == torch.bool
+    np.testing.assert_array_equal(t_rec.numpy(), np.asarray(j_rec))
+    np.testing.assert_array_equal(t_hits.numpy(), np.asarray(j_hits))
