@@ -58,11 +58,14 @@
 //   scale, bias and the bf16 round, takes the row max and sum with quad
 //   shuffles, and repacks bf16 p directly as the A operand of p v. No logits
 //   tile goes to shared memory. A warp's key range is the union of the
-//   segments of its rows (32 keys at seg 32); when a segment of the tile has
-//   no real key, the range is all Sp keys. A range wider than 32 keys runs
-//   in 32-key chunks over two passes, recomputing q k^T: the first takes
-//   the row max and the sum of e (the partial sum rescaled when the max
-//   grows), the second p = bf16(exp(x - max) / sum) and p v.
+//   segments of its rows (32 keys at seg 32, 64 at seg 64); when a segment
+//   of the tile has no real key, the range is all Sp keys. The range runs
+//   in 32-key chunks. One or two chunks stay in registers (16 or 32 logits
+//   a lane; each count its own instance, so seg 32 pays for one), so q k^T
+//   is computed once and the max and sum taken over both. A wider range
+//   runs over two passes, recomputing q k^T: the first takes the row max
+//   and the sum of e (the partial sum rescaled when the max grows), the
+//   second p = bf16(exp(x - max) / sum) and p v.
 // - The context tile goes through the warp's own (now dead) q rows in
 //   shared memory, so each 128-byte head slice of an output row is written
 //   with 16-byte stores into the (B, Sp, nh*hd) layout the attention-output
@@ -209,18 +212,27 @@ __device__ inline void load_stage(unsigned char* stage, const Layout& L,
     cp_async4(s0 + 3 * L.qkv_bytes + j * 4, m + j);
 }
 
-// x[j][e] for keys c0 + 8j + 2t + (e & 1), rows g + 8 (e >> 1) of the tile:
+// A warp's tile: its 16 query rows from r0 and their key range [k0, kend),
+// nch chunks of kChunk keys, as chunk_logits reads them.
+struct Tile {
+  uint32_t q_s, k_s, v_s;  // the staged q, k, v
+  const float* mk;         // the staged key mask
+  int r0, k0, kend, nch, seg, lo0, lo1;
+  bool one_seg;
+  float scale;
+};
+
+// Chunk c of tile T, from key c0 = k0 + 32c: x[j][e] for keys
+// c0 + 8j + 2t + (e & 1), rows g + 8 (e >> 1) of the tile:
 // bf16(q k^T * scale + bias), or -inf for keys at or past `kend`. A key is
 // visible to a row when it is real and inside [lo, lo + seg) of the row's
 // segment; when the tile's rows and the key range are one segment
 // (`one_seg`), every real key is.
 template <int HDP>
-__device__ inline void chunk_logits(float (&x)[4][4], uint32_t q_s, uint32_t k_s,
-                                    const Layout& L, int r0, int c0, int kend,
-                                    const float* mk, int seg, int lo0, int lo1,
-                                    bool one_seg, float scale) {
+__device__ inline void chunk_logits(float (&x)[4][4], const Tile& T, const Layout& L, int c) {
+  const int c0 = T.k0 + c * kChunk;
   const int lane = threadIdx.x & 31;
-  const uint32_t real = __ballot_sync(0xffffffffu, c0 + lane < kend && mk[c0 + lane] > 0.0f);
+  const uint32_t real = __ballot_sync(0xffffffffu, c0 + lane < T.kend && T.mk[c0 + lane] > 0.0f);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -229,12 +241,13 @@ __device__ inline void chunk_logits(float (&x)[4][4], uint32_t q_s, uint32_t k_s
 #pragma unroll
   for (int kk = 0; kk < HDP / 16; ++kk) {
     uint32_t a[4];
-    ldsm_x4(q_s + chunk_off<HDP>(r0 + (lane & 15), kk * 2 + (lane >> 4)), a[0], a[1], a[2], a[3]);
+    ldsm_x4(T.q_s + chunk_off<HDP>(T.r0 + (lane & 15), kk * 2 + (lane >> 4)), a[0], a[1], a[2],
+            a[3]);
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
       const int key = min(c0 + jj * 16 + (m >> 1) * 8 + (lane & 7), L.sp16 - 1);
       uint32_t b0, b1, b2, b3;
-      ldsm_x4(k_s + chunk_off<HDP>(key, kk * 2 + (m & 1)), b0, b1, b2, b3);
+      ldsm_x4(T.k_s + chunk_off<HDP>(key, kk * 2 + (m & 1)), b0, b1, b2, b3);
       mma16816(x[2 * jj], a, b0, b1);
       mma16816(x[2 * jj + 1], a, b2, b3);
     }
@@ -245,11 +258,11 @@ __device__ inline void chunk_logits(float (&x)[4][4], uint32_t q_s, uint32_t k_s
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int off = 8 * j + 2 * t + (e & 1), key = c0 + off;
-      const int lo = (e >> 1) ? lo1 : lo0;
-      const bool vis = ((real >> off) & 1u) && (one_seg || (key >= lo && key < lo + seg));
+      const int lo = (e >> 1) ? T.lo1 : T.lo0;
+      const bool vis = ((real >> off) & 1u) && (T.one_seg || (key >= lo && key < lo + T.seg));
       const float y = __bfloat162float(__float2bfloat16_rn(
-          __fadd_rn(__fmul_rn(x[j][e], scale), vis ? 0.0f : -10000.0f)));
-      x[j][e] = key < kend ? y : -INFINITY;
+          __fadd_rn(__fmul_rn(x[j][e], T.scale), vis ? 0.0f : -10000.0f)));
+      x[j][e] = key < T.kend ? y : -INFINITY;
     }
 }
 
@@ -261,6 +274,126 @@ __device__ inline float quad_max(float v) {
 __device__ inline float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The running row max of a chunk's logits, this lane's share (rows g and
+// g + 8 of the tile).
+__device__ inline void row_max(const float (&x)[4][4], float& m0, float& m1) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    m0 = fmaxf(m0, fmaxf(x[j][0], x[j][1]));
+    m1 = fmaxf(m1, fmaxf(x[j][2], x[j][3]));
+  }
+}
+
+// x = e = exp(x - max), added to this lane's share of the row sums.
+__device__ inline void exp_sum(float (&x)[4][4], float m0, float m1, float& s0, float& s1) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    x[j][0] = expf(x[j][0] - m0);
+    x[j][1] = expf(x[j][1] - m0);
+    x[j][2] = expf(x[j][2] - m1);
+    x[j][3] = expf(x[j][3] - m1);
+    s0 += x[j][0] + x[j][1];
+    s1 += x[j][2] + x[j][3];
+  }
+}
+
+// p = bf16(e / sum) of a chunk, packed as the A operands of its two 16-key
+// k-steps of p v.
+__device__ inline void pack_p(uint32_t (&p)[2][4], const float (&x)[4][4], float s0, float s1) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    p[s][0] = pack_bf16(x[2 * s][0] / s0, x[2 * s][1] / s0);
+    p[s][1] = pack_bf16(x[2 * s][2] / s1, x[2 * s][3] / s1);
+    p[s][2] = pack_bf16(x[2 * s + 1][0] / s0, x[2 * s + 1][1] / s0);
+    p[s][3] = pack_bf16(x[2 * s + 1][2] / s1, x[2 * s + 1][3] / s1);
+  }
+}
+
+// o += p v over the 32 keys from c0.
+template <int HDP>
+__device__ inline void chunk_pv(float (&o)[HDP / 8][4], const uint32_t (&p)[2][4], uint32_t v_s,
+                                const Layout& L, int c0) {
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int key = min(c0 + s * 16 + (m & 1) * 8 + (lane & 7), L.sp16 - 1);
+#pragma unroll
+    for (int u = 0; u < HDP / 16; ++u) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4_t(v_s + chunk_off<HDP>(key, 2 * u + (m >> 1)), b0, b1, b2, b3);
+      mma16816(o[2 * u], p[s], b0, b1);
+      mma16816(o[2 * u + 1], p[s], b2, b3);
+    }
+  }
+}
+
+// The tile's context o = softmax(x) v in f32. NCH > 0: the range is NCH
+// chunks, held in registers, so q k^T is computed once and the max and sum
+// are taken over all of them; p is packed before o goes live. NCH = 0: any
+// number of chunks streamed over two passes, the first taking the row max
+// and the sum of e (the partial sum rescaled when a later chunk raises the
+// max), the second recomputing q k^T for p v. A chunk starts below kend, so
+// every row's max is finite. One instance for each NCH keeps the one-chunk
+// path's registers those of one chunk.
+template <int HDP, int NCH>
+__device__ inline void tile_context(float (&o)[HDP / 8][4], const Tile& T, const Layout& L) {
+  float m0 = -INFINITY, m1 = -INFINITY, s0 = 0.0f, s1 = 0.0f;
+  if constexpr (NCH > 0) {
+    float x[NCH][4][4];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      chunk_logits<HDP>(x[c], T, L, c);
+      row_max(x[c], m0, m1);
+    }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) exp_sum(x[c], m0, m1, s0, s1);
+    s0 = quad_sum(s0);
+    s1 = quad_sum(s1);
+    uint32_t p[NCH][2][4];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) pack_p(p[c], x[c], s0, s1);
+#pragma unroll
+    for (int n = 0; n < HDP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) chunk_pv<HDP>(o, p[c], T.v_s, L, T.k0 + c * kChunk);
+  } else {
+    float x[4][4];
+    for (int c = 0; c < T.nch; ++c) {
+      chunk_logits<HDP>(x, T, L, c);
+      float n0 = m0, n1 = m1;
+      row_max(x, n0, n1);
+      n0 = quad_max(n0);
+      n1 = quad_max(n1);
+      if (c > 0) {
+        s0 *= expf(m0 - n0);
+        s1 *= expf(m1 - n1);
+      }
+      m0 = n0;
+      m1 = n1;
+      exp_sum(x, m0, m1, s0, s1);
+    }
+    s0 = quad_sum(s0);
+    s1 = quad_sum(s1);
+#pragma unroll
+    for (int n = 0; n < HDP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+    for (int c = 0; c < T.nch; ++c) {
+      chunk_logits<HDP>(x, T, L, c);
+      float unused0 = 0.0f, unused1 = 0.0f;  // the sums are pass 1's
+      exp_sum(x, m0, m1, unused0, unused1);
+      uint32_t p[2][4];
+      pack_p(p, x, s0, s1);
+      chunk_pv<HDP>(o, p, T.v_s, L, T.k0 + c * kChunk);
+    }
+  }
 }
 
 // Write `rows` staged context rows from r0 on, 16 bytes a lane (CPR as in
@@ -285,7 +418,6 @@ __device__ inline void attend_tile(unsigned char* stage, const Layout& L, int r0
   const int g = lane >> 2, t = lane & 3;
   const uint32_t q_s = smem_u32(stage);
   const uint32_t k_s = q_s + L.qkv_bytes;
-  const uint32_t v_s = q_s + 2 * L.qkv_bytes;
   const float* mk = reinterpret_cast<const float*>(stage + 3 * L.qkv_bytes);
 
   // Key range: the segments of the tile's real rows, or the whole row when
@@ -299,81 +431,16 @@ __device__ inline void attend_tile(unsigned char* stage, const Layout& L, int r0
   }
   const int k0 = wide ? 0 : sa * seg;
   const int kend = wide ? sp : (sb + 1) * seg;
-  const int nch = (kend - k0 + kChunk - 1) / kChunk;
-  const int lo0 = (r0 + g) / seg * seg, lo1 = (r0 + g + 8) / seg * seg;
-  const bool one_seg = !wide && sa == sb;
-
-  // Pass 1: the row max and the sum of e = exp(x - max), the partial sum
-  // rescaled when a later chunk raises the max. A chunk starts below kend,
-  // so every row's max is finite. With one chunk nothing is rescaled and x
-  // keeps e for p v.
-  float x[4][4];
-  float m0 = -INFINITY, m1 = -INFINITY, s0 = 0.0f, s1 = 0.0f;
-  for (int c = 0; c < nch; ++c) {
-    chunk_logits<HDP>(x, q_s, k_s, L, r0, k0 + c * kChunk, kend, mk, seg, lo0, lo1, one_seg,
-                      scale);
-    float n0 = m0, n1 = m1;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      n0 = fmaxf(n0, fmaxf(x[j][0], x[j][1]));
-      n1 = fmaxf(n1, fmaxf(x[j][2], x[j][3]));
-    }
-    n0 = quad_max(n0);
-    n1 = quad_max(n1);
-    if (c > 0) {
-      s0 *= expf(m0 - n0);
-      s1 *= expf(m1 - n1);
-    }
-    m0 = n0;
-    m1 = n1;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x[j][0] = expf(x[j][0] - m0);
-      x[j][1] = expf(x[j][1] - m0);
-      x[j][2] = expf(x[j][2] - m1);
-      x[j][3] = expf(x[j][3] - m1);
-      s0 += x[j][0] + x[j][1];
-      s1 += x[j][2] + x[j][3];
-    }
-  }
-  s0 = quad_sum(s0);
-  s1 = quad_sum(s1);
-
+  const Tile T = {q_s, k_s, q_s + 2 * L.qkv_bytes, mk, r0, k0, kend,
+                  (kend - k0 + kChunk - 1) / kChunk, seg, (r0 + g) / seg * seg,
+                  (r0 + g + 8) / seg * seg, !wide && sa == sb, scale};
   float o[HDP / 8][4];
-#pragma unroll
-  for (int n = 0; n < HDP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
-  const int m = lane >> 3;
-  for (int c = 0; c < nch; ++c) {
-    const int c0 = k0 + c * kChunk;
-    if (nch > 1) {
-      chunk_logits<HDP>(x, q_s, k_s, L, r0, c0, kend, mk, seg, lo0, lo1, one_seg, scale);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        x[j][0] = expf(x[j][0] - m0);
-        x[j][1] = expf(x[j][1] - m0);
-        x[j][2] = expf(x[j][2] - m1);
-        x[j][3] = expf(x[j][3] - m1);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {  // 16 keys per k-step; A operand = bf16 p
-      uint32_t pa[4];
-      pa[0] = pack_bf16(x[2 * s][0] / s0, x[2 * s][1] / s0);
-      pa[1] = pack_bf16(x[2 * s][2] / s1, x[2 * s][3] / s1);
-      pa[2] = pack_bf16(x[2 * s + 1][0] / s0, x[2 * s + 1][1] / s0);
-      pa[3] = pack_bf16(x[2 * s + 1][2] / s1, x[2 * s + 1][3] / s1);
-      const int key = min(c0 + s * 16 + (m & 1) * 8 + (lane & 7), L.sp16 - 1);
-#pragma unroll
-      for (int u = 0; u < HDP / 16; ++u) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(v_s + chunk_off<HDP>(key, 2 * u + (m >> 1)), b0, b1, b2, b3);
-        mma16816(o[2 * u], pa, b0, b1);
-        mma16816(o[2 * u + 1], pa, b2, b3);
-      }
-    }
-  }
+  if (T.nch == 1)
+    tile_context<HDP, 1>(o, T, L);
+  else if (T.nch == 2)
+    tile_context<HDP, 2>(o, T, L);
+  else
+    tile_context<HDP, 0>(o, T, L);
 
   // Stage the bf16 context in the tile's own q rows (read above, by this
   // warp only; every read has fed an mma whose result the stores depend

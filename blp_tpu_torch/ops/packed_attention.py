@@ -18,14 +18,17 @@ package's interpret fallback is gone).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from blp_tpu_torch.ops import _cuda
 
-#: Kernel launches since the last reset (a plain counter).
+#: Kernel launches since the last reset (a plain counter), and the same
+#: launches by segment length.
 launches = 0
+launches_by_seg: collections.Counter = collections.Counter()
 
 #: Shared memory one block may use on Hopper (227 KB).
 _SMEM_LIMIT = 232_448
@@ -92,6 +95,7 @@ def _kernel(q, k, v, key_mask, *, seg: int, scale: float) -> torch.Tensor:
              torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "packed_attention launch")
     launches += 1
+    launches_by_seg[seg] += 1
     return out
 
 

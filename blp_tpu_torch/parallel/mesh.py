@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from blp_tpu_torch.parallel import comm
+from blp_tpu_torch.utils import resolve_device
 
 #: The split axis of each tensor-parallel layer leaf, counted from the end,
 #: so one rule covers stacked (L, ...) and per-layer leaves: -1 column
@@ -34,16 +35,17 @@ TP_SPLIT = {"q_w": -1, "q_b": -1, "k_w": -1, "k_b": -1, "v_w": -1, "v_b": -1,
 
 
 def make_mesh(num_data: int, num_other: int = 1, *, other: str = "model",
-              device="cpu"):
-    """A (data, `other`) DeviceMesh over the world, on `device`'s type.
-    Raises ValueError when the mesh size differs from the world size."""
+              device=None):
+    """A (data, `other`) DeviceMesh over the world, on `device`'s type
+    (default cuda). Raises ValueError when the mesh size differs from the
+    world size, before it looks at the device."""
     from torch.distributed.device_mesh import init_device_mesh
 
     world = comm.world_size()
     if num_data * num_other != world:
         raise ValueError(f"mesh data={num_data} x {other}={num_other} "
                          f"({num_data * num_other} ranks) != world size {world}")
-    return init_device_mesh(torch.device(device).type, (num_data, num_other),
+    return init_device_mesh(resolve_device(device).type, (num_data, num_other),
                             mesh_dim_names=("data", other))
 
 

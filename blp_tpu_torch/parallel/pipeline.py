@@ -42,10 +42,11 @@ from blp_tpu_torch.models import blp, scoring
 from blp_tpu_torch.parallel import comm
 from blp_tpu_torch.parallel import mesh as mesh_lib
 from blp_tpu_torch.parallel import train_parallel
+from blp_tpu_torch.utils import resolve_device
 
 
-def make_pipeline_mesh(num_data: int, num_pipe: int, device="cpu"):
-    """A (data, pipe) DeviceMesh over the world."""
+def make_pipeline_mesh(num_data: int, num_pipe: int, device=None):
+    """A (data, pipe) DeviceMesh over the world (default cuda)."""
     return mesh_lib.make_mesh(num_data, num_pipe, other="pipe", device=device)
 
 
@@ -175,13 +176,13 @@ def pipeline_value_and_grad(params, cfg: blp.ModelConfig, batch: dict, *,
 
 def make_pipeline_train_step(cfg: blp.ModelConfig, optimizer, *, mesh,
                              batch_size: int, num_negatives: int,
-                             num_microbatches: int = 4, device="cpu",
+                             num_microbatches: int = 4, device=None,
                              deterministic: bool = False):
     """step(params, opt_state, key, batch) -> (params, opt_state, loss) of
     the DP x PP pipeline; params and opt_state are this stage's slices
     (`shard_pipeline_params`), batch this data rank's rows."""
     check_config(cfg, comm.Axis.of(mesh, "pipe").size)
-    dev = torch.device(device)
+    dev = resolve_device(device)
 
     def step(params, opt_state, key, batch):
         neg_seed, drop_seed = training.step_seeds(key)

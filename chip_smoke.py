@@ -14,9 +14,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (TransE rank counts, at d 128, 300 and 768 on its "tma" variant, and at
    d 128 on its "scalar" variant through a view 4 bytes off) must give
    identical counts;
-   K2 (packed attention, with about 1 row in 8 ending in empty segments)
-   must agree within rtol = atol = 2e-2, and the share of outputs more than
-   one bf16 ulp away is printed; K3 (the SDDMM scorer of training, forward and backward kernels)
+   K2 (packed attention, with about 1 row in 8 ending in empty segments, at
+   segment lengths 32 and 64) must agree within rtol = atol = 2e-2, and the
+   max error and the share of outputs more than one bf16 ulp away are
+   printed for each; K3 (the SDDMM scorer of training, forward and backward kernels)
    for all four scorers at B = 64 and 1,024 (K 64, d 128, fp32) and at
    B = 64 with d 300 and 768, on
    negatives from the port's sampler and on an adversarial set (a hot row
@@ -106,6 +107,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    steps traced, whose summarized device time is within 2% of
    device_profile's for the same 3 steps; device_memory_stats' peak equals
    max_memory_allocated.
+11. The Wikidata5M mode (after phase 10, before the timings of phase 7),
+   with every count set to 0 again just before it, K2 and K3 switched on as
+   in phase 10. (a) `link_prediction` in-process with every key of
+   scripts/blp-transe-wikidata5m.sh (BERT-base bf16, remat=8, max_len 64,
+   B 1,024, K 64, lr 5e-5 with warmup, emb_batch_size 12,288,
+   large_dataset=True) for one epoch on a 20,000-entity synthetic graph
+   with 3% of its entities held out (22 steps; valid and test splits of
+   several hundred triples): seconds a step and each evaluation's seconds;
+   K3 launched once a step forward and backward, K2 only at seg 64, 12 per
+   encode, K1 once a batch of every evaluation. (b) The -pretrained keys
+   (`max_epochs=0 checkpoint=<(a)'s model file> use_cached_text=True`):
+   valid and test MRR, raw and filtered, equal to (a)'s final evaluation,
+   the text cache read and not rewritten. (c) `python -m
+   blp_tpu_torch.tools.w5m_e2e_eval` at 262,144 candidates (BERT-base bf16,
+   max_len 64, emb-batch 12,288: K2 on 6,144-row chunks at seg 64): encode
+   and rank seconds, entities/s, mrr_filt; `w5m_scale_check --n 1000000`:
+   the streamed rank pass's seconds and peak memory. (d) `umls_smoke`: its
+   wall seconds beside the reference's "< 60 s on GPU", and test MRR.
 7. Time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function, at the main path's shapes
    (K3's backward: the kernel with its index bookkeeping against the plain
@@ -115,11 +134,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the sum of the counts read after phases 4-5 (inference), after phase 6
    (train) and after phase 8 (word models), each path driven with every
    count (K3's forward and backward each have one) set to 0 just before it,
-   plus phase 9's and phase 10's.
+   plus phase 9's, phase 10's and phase 11's.
    K1's record also counts its launches by variant and width (every
    main-path launch must take the "tma" variant, at d 128, 300 and 768),
    reads the SM clock right after its timing with the kernel running, and
-   times the retained "scalar" variant beside it at each width.
+   times the retained "scalar" variant beside it at each width. K2's record
+   counts its launches by segment length (both 32 and 64 must occur) and
+   times it again at the Wikidata5M phase-1 chunk (6,144 rows, seg 64)
+   under `at_seg64`.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -147,7 +169,7 @@ from blp_tpu_torch import (evaluation, native, profiling, retrieval, serve,
                            train, training)
 from blp_tpu_torch import checkpoint as ckpt
 from blp_tpu_torch.checkpoint import tree_leaves as _leaves
-from blp_tpu_torch.config import ExperimentConfig
+from blp_tpu_torch.config import ExperimentConfig, parse_overrides
 from blp_tpu_torch.data import prefetch, sampling
 from blp_tpu_torch.data.datasets import GraphData, TextGraphData
 from blp_tpu_torch.data.filtering import FilterIndex
@@ -172,6 +194,10 @@ K1_Q, K1_D = 128, 128            # 2 x eval batch 64, TransE dim 128
 W5M_ENTITIES = 4_800_000
 K2_SHAPE = (1024, 12, 128, 64)   # packed rows, heads, Sp, head dim
 SEG = 32                         # max_len: segment length of a packed row
+# The Wikidata5M keys (max_len 64, emb_batch_size 12,288): a phase-1 chunk
+# is 6,144 packed rows of two 64-token segments.
+W5M_SEG, W5M_K2_ROWS = 64, 6144
+K2_SEGS = (SEG, W5M_SEG)
 K3_BATCHES = (64, 1024)          # flagship and Wikidata5M train batch sizes
 K3_K, K3_D = 64, 128             # negatives per edge, entity width
 # Entity widths of the word models' TransE path: the BOW models embed at the
@@ -339,19 +365,19 @@ def check_k1() -> None:
                 f"geq={int(got[1].sum())})")
 
 
-def k2_inputs(b: int, seed: int):
+def k2_inputs(b: int, seed: int, seg: int = SEG):
     _, nh, sp, hd = K2_SHAPE
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn((b, nh, sp, hd), generator=g, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
-    lens = torch.randint(1, SEG + 1, (b, sp // SEG), generator=g, device="cuda")
+    lens = torch.randint(1, seg + 1, (b, sp // seg), generator=g, device="cuda")
     # As in a padded final batch: about 1 row in 8 has its last one or two
     # segments empty (no real key), which the kernel runs against the whole
     # row.
     tail = torch.randint(0, 16, (b,), generator=g, device="cuda")
     lens[tail == 0, -2:] = 0
     lens[tail == 1, -1:] = 0
-    mask = (torch.arange(SEG, device="cuda")[None, None] < lens[:, :, None])
+    mask = (torch.arange(seg, device="cuda")[None, None] < lens[:, :, None])
     return q, k, v, mask.reshape(b, sp).float()
 
 
@@ -364,19 +390,23 @@ def over_one_ulp(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def check_k2() -> None:
-    q, k, v, mask = k2_inputs(64, seed=2)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    got = packed_attention.block_diag_attention(q, k, v, mask, seg=SEG, scale=scale)
-    want = packed_attention.block_diag_attention_plain(q, k, v, mask, seg=SEG,
-                                                       scale=scale)
-    err = (got.float() - want.float()).abs().max().item()
-    require(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2),
-            f"K2 differs from the plain version (max abs err {err})")
-    empty = int((mask.reshape(64, -1, SEG).amax(-1) == 0).sum())
-    log(f"K2 check: B=64 nh=12 Sp=128 hd=64 seg={SEG}, {empty} segments with "
-        f"no real key: max abs err {err:.3g} (tolerance 2e-2), "
-        f"{100 * over_one_ulp(got, want):.4f}% of outputs more than 1 bf16 "
-        f"ulp from the plain version")
+    """At both segment lengths of the main path: max_len 32 (4 segments to a
+    row) and the Wikidata5M keys' max_len 64 (2 segments)."""
+    for seg in K2_SEGS:
+        q, k, v, mask = k2_inputs(64, seed=2, seg=seg)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        got = packed_attention.block_diag_attention(q, k, v, mask, seg=seg,
+                                                    scale=scale)
+        want = packed_attention.block_diag_attention_plain(q, k, v, mask,
+                                                           seg=seg, scale=scale)
+        err = (got.float() - want.float()).abs().max().item()
+        require(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2),
+                f"K2 differs from the plain version at seg {seg} (max abs err {err})")
+        empty = int((mask.reshape(64, -1, seg).amax(-1) == 0).sum())
+        log(f"K2 check: B=64 nh=12 Sp=128 hd=64 seg={seg}, {empty} segments "
+            f"with no real key: max abs err {err:.3g} (tolerance 2e-2), "
+            f"{100 * over_one_ulp(got, want):.4f}% of outputs more than 1 bf16 "
+            f"ulp from the plain version")
 
 
 def k3_inputs(b: int, seed: int, k: int = K3_K, adversarial: bool = False,
@@ -1325,7 +1355,8 @@ def _mesh_rank(rank: int, n_ranks: int, rank_device: str, store: str,
         torch.cuda.empty_cache()
     res["launches"] = {"K1": transe_rank.launches, "K2": packed_attention.launches,
                        "K3": sddmm.launches, "K3 backward": sddmm.backward_launches,
-                       "K1 by variant": dict(transe_rank.launches_by_variant)}
+                       "K1 by variant": dict(transe_rank.launches_by_variant),
+                       "K2 by seg": dict(packed_attention.launches_by_seg)}
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     with open(out_path % rank, "wb") as f:
@@ -1397,27 +1428,32 @@ def mesh_cli(data_dir: str, n_ranks: int = RANKS,
                                        one["test_mrr_filt"]]}
 
 
-def mesh_phase(data_dir: str, cfg, read_counts) -> tuple[dict, dict, dict]:
-    """Phase 9. Returns its stats, the kernel launches of its paths (this
-    process's remat steps and the ranks' passes and steps; the one-process
-    passes the ranks are held to are not counted), and the ranks' K1
-    launches by (variant, d)."""
+BY_KEYS = ("K1 by variant", "K2 by seg")   # launch counts split by shape
+
+
+def mesh_phase(data_dir: str, cfg, read_counts) -> tuple[dict, dict]:
+    """Phase 9. Returns its stats and the kernel launches of its paths, as
+    read_counts gives them: this process's remat steps and its resume of the
+    distributed CLI run, and the ranks' passes and steps. The one-process
+    passes the ranks are held to, and the CLI's own ranks, are not counted."""
     stats = remat_policies(data_dir)
-    launches = collections.Counter({k: v for k, v in read_counts().items()
-                                    if k != "K1 by variant"})
+    here = read_counts()
     torch.cuda.empty_cache()
-    rank_stats, rank_launches, by_variant = mesh_ranks(data_dir, cfg)
+    rank_stats, rank_launches = mesh_ranks(data_dir, cfg)
     stats.update(rank_stats)
-    launches.update(rank_launches)
+    before = read_counts()
     stats.update(mesh_cli(data_dir))
-    return stats, dict(launches), by_variant
+    after = read_counts()
+    return stats, {k: here[k] + rank_launches[k] + (after[k] - before[k])
+                   for k in here}
 
 
 def mesh_ranks(data_dir: str, cfg, n_ranks: int = RANKS,
-               rank_device: str = RANK_DEVICE) -> tuple[dict, dict, dict]:
+               rank_device: str = RANK_DEVICE) -> tuple[dict, dict]:
     """(b) and (c) of phase 9 over n_ranks ranks on rank_device, held to
-    this process's one-device passes. Returns the stats, the ranks' kernel
-    launches summed, and their K1 launches by (variant, d)."""
+    this process's one-device passes. Returns the stats and the ranks'
+    kernel launches summed, K1's also by (variant, d) and K2's by segment
+    length."""
     import pickle
 
     # The one-device step the ranks' steps are held to (fp32, dropout on).
@@ -1550,13 +1586,15 @@ def mesh_ranks(data_dir: str, cfg, n_ranks: int = RANKS,
             f"{st['grad_at_beyond']:.3g}; ms per step by rank "
             f"{[[round(t, 1) for t in ms] for ms in steps[name]['ms']]}")
     launches = collections.Counter()
+    by_seg = collections.Counter()
     for r in ranks:
         launches.update({k: v for k, v in r["launches"].items()
-                         if k != "K1 by variant"})
+                         if k not in BY_KEYS})
+        by_seg.update(r["launches"]["K2 by seg"])
     return ({"mesh_w5m": w, "mesh_w5m_one_ms": one_s * 1e3 / W5M_BATCHES,
              "mesh_encode_diff": diff, "mesh_steps": steps,
              "mesh_ref_loss": ref_loss, "mesh_ranks_s": ranks_s},
-            launches, by_variant)
+            {**launches, "K1 by variant": by_variant, "K2 by seg": by_seg})
 
 
 # -- phase 10: the modules that complete the port --------------------------------
@@ -1973,6 +2011,207 @@ def completion_phase(data_dir: str, card: str, read_counts,
     return stats
 
 
+# -- phase 11: the Wikidata5M mode ----------------------------------------------
+
+W5M_SCRIPT = os.path.join(ROOT, "scripts", "blp-transe-wikidata5m.sh")
+# The graph of (a) and (b): 3% of its entities held out (as the rehearsal's
+# graph), 822 relations (Wikidata5M's); 22 train steps of 1,024, valid and
+# test splits of several hundred triples each.
+W5M_GRAPH = dict(num_entities=20_000, num_relations=822, num_triples=24_000,
+                 inductive_frac=0.03, seed=11)
+W5M_E2E_N = 262_144              # candidates of (c)'s evaluation
+W5M_SCALE_N = 1_000_000          # candidates of (c)'s streamed rank pass
+FINAL_KEYS = ("valid_mrr", "valid_mrr_filt", "test_mrr", "test_mrr_filt")
+
+
+def script_keys(path: str) -> list[str]:
+    """The `key=value` words of a launcher's command, as the shell splits
+    them."""
+    import shlex
+
+    text = open(path).read()
+    words = shlex.split(text[text.index("python -m "):].replace("\\\n", " "))
+    require(words[3:5] == ["link_prediction", "with"],
+            f"{path} is not a link_prediction launcher")
+    return words[5:]
+
+
+@contextlib.contextmanager
+def timed_evals(records: list):
+    """Time each evaluation.eval_link_prediction call (the card synchronised
+    before and after): (triples, candidates, filtered, seconds) each."""
+    real = evaluation.eval_link_prediction
+
+    def timed(params, cfg, triples, text, entities, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(params, cfg, triples, text, entities, **kw)
+        torch.cuda.synchronize()
+        records.append((len(triples), len(entities),
+                        kw.get("filter_index") is not None,
+                        time.perf_counter() - t0))
+        return res
+
+    evaluation.eval_link_prediction = timed
+    try:
+        yield
+    finally:
+        evaluation.eval_link_prediction = real
+
+
+def _final_metrics(out_dir: str, run_id: str, max_epochs: int) -> dict:
+    with open(os.path.join(out_dir, f"metrics-{run_id}.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    final = {k: v for r in rows if r["step"] == max_epochs + 1
+             for k, v in r.items() if k in FINAL_KEYS}
+    require(sorted(final) == sorted(FINAL_KEYS),
+            f"run {run_id} logged no final evaluation: {sorted(final)}")
+    require(not [k for r in rows for k in r if k.startswith("train_mrr")],
+            f"run {run_id} ran the train-sample evaluation")
+    return {"final": final, "rows": rows}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    out = {k: after[k] - before[k] for k in ("K1", "K2", "K3", "K3 backward")}
+    out["K2 by seg"] = dict(after["K2 by seg"] - before["K2 by seg"])
+    return out
+
+
+def _k2_chunks(n: int, emb_batch: int) -> int:
+    """Phase-1 chunks build_entity_table encodes n entities in."""
+    chunk = min(-(-emb_batch // 256) * 256, -(-max(n, 1) // 256) * 256)
+    return -(-n // chunk)
+
+
+def w5m_cli(read_counts) -> dict:
+    """(a) one epoch of `link_prediction` with every key of
+    scripts/blp-transe-wikidata5m.sh, and (b) its -pretrained keys on (a)'s
+    model file, whose valid and test metrics must equal (a)'s final
+    evaluation."""
+    data_dir = write_synth_dataset(os.path.join(WORK_DIR, "w5m"), **W5M_GRAPH)
+    out_dir = os.path.join(WORK_DIR, "w5m_run")
+    keys = script_keys(W5M_SCRIPT)
+    base = ["link_prediction", "with", *keys, f"data_dir={WORK_DIR}",
+            "dataset=w5m", f"out_dir={out_dir}", "device=cuda"]
+    cfg = parse_overrides(base[2:])
+    require(cfg.large_dataset and cfg.max_len == W5M_SEG
+            and cfg.batch_size == 1024 and cfg.emb_batch_size == 12288
+            and cfg.remat == 8 and cfg.bf16, f"unexpected W5M keys {keys}")
+    steps = GraphData.load(os.path.join(data_dir, "ind-train.tsv"),
+                           write_maps=True).num_triples // cfg.batch_size
+    require(steps >= 16, f"(a)'s epoch has {steps} steps, fewer than 16")
+
+    evals: list = []
+    before = read_counts()
+    with timed_evals(evals):
+        res, cli_s = run_cli(base + ["run_id=w5m", "max_epochs=1"])
+    got = _delta(before, read_counts())
+    a = _final_metrics(out_dir, "w5m", 1)
+    tput = next(r["triples_per_sec"] for r in a["rows"] if "triples_per_sec" in r)
+    step_s = cfg.batch_size / tput
+    ents = [n for _, n, _, _ in evals]
+    want_k1 = sum(-(-t // cfg.eval_batch_size) for t, _, _, _ in evals)
+    want_k2 = 12 * sum(_k2_chunks(n, cfg.emb_batch_size) for n in ents)
+    require(len(evals) == 3 and [f for _, _, f, _ in evals] == [False, True, True],
+            f"(a) ran evaluations {evals}, not valid then filtered valid and test")
+    require(got["K3"] == got["K3 backward"] == steps,
+            f"(a) launched K3 {got['K3']} / {got['K3 backward']} times in {steps} steps")
+    require(got["K2 by seg"] == {W5M_SEG: want_k2},
+            f"(a) launched K2 {got['K2 by seg']} times, not {want_k2} at seg 64")
+    require(got["K1"] == want_k1, f"(a) launched K1 {got['K1']} times, not "
+            f"one a batch ({want_k1})")
+    log(f"(a) link_prediction with the keys of {os.path.relpath(W5M_SCRIPT, ROOT)} "
+        f"(BERT-base bf16, remat=8, max_len 64, B 1,024, K 64, lr 5e-5 with "
+        f"warmup, emb_batch_size 12,288, large_dataset=True; max_epochs=1) on "
+        f"a {W5M_GRAPH['num_entities']:,}-entity graph: {cli_s:.1f} s; "
+        f"{steps} steps at {step_s * 1e3:.1f} ms a step ({tput:,.0f} triples/s); "
+        f"evaluations (triples, candidates, filtered, s) "
+        f"{[(t, n, f, round(x, 2)) for t, n, f, x in evals]}; final "
+        f"{ {k: round(v, 6) for k, v in a['final'].items()} }; launches: K3 "
+        f"{got['K3']} forward and {got['K3 backward']} backward (one a step), "
+        f"K2 {got['K2 by seg']} by segment length (12 layers x "
+        f"{want_k2 // 12} encodes), K1 {got['K1']} (one a batch of 64)")
+
+    cache = [f for f in os.listdir(data_dir) if f.startswith("text_64_")]
+    require(len(cache) == 1, f"(a) left text caches {cache}")
+    cache_path = os.path.join(data_dir, cache[0])
+    stamp = os.stat(cache_path).st_mtime_ns
+    before = read_counts()
+    res_b, cli_b = run_cli(base + ["run_id=w5m-pretrained", "max_epochs=0",
+                                   f"checkpoint={res['checkpoint']}",
+                                   "use_cached_text=True"])
+    got_b = _delta(before, read_counts())
+    b = _final_metrics(out_dir, "w5m-pretrained", 0)
+    require(b["final"] == a["final"], f"(b)'s metrics {b['final']} differ from "
+            f"(a)'s final evaluation {a['final']}")
+    require(os.stat(cache_path).st_mtime_ns == stamp, "(b) rewrote the text cache")
+    log(f"(b) the -pretrained keys (max_epochs=0 checkpoint=<(a)'s model file> "
+        f"use_cached_text=True): {cli_b:.1f} s; valid and test MRR equal to "
+        f"(a)'s final evaluation; the text cache {cache[0]} read, not rewritten; "
+        f"launches {got_b}")
+    return {"w5m_cli_s": cli_s, "w5m_step_ms": step_s * 1e3, "w5m_steps": steps,
+            "w5m_eval_s": [x for *_, x in evals], "w5m_final": a["final"],
+            "w5m_pretrained_s": cli_b, "w5m_launches": got,
+            "w5m_pretrained_launches": got_b}
+
+
+def w5m_tools(read_counts) -> dict:
+    """(c) the ported w5m_e2e_eval at 262,144 candidates (BERT-base bf16,
+    K2 at seg 64 in 6,144-row chunks) and w5m_scale_check at 1M; (d) the
+    ported umls_smoke."""
+    from blp_tpu_torch.tools import umls_smoke, w5m_e2e_eval, w5m_scale_check
+
+    def quiet(fn, argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(argv)
+
+    before = read_counts()
+    e2e = quiet(w5m_e2e_eval.main, ["--n", str(W5M_E2E_N), "--max-len", "64",
+                                    "--emb-batch", "12288"])
+    got = _delta(before, read_counts())
+    want_k2 = 12 * _k2_chunks(W5M_E2E_N, 12288)
+    require(got["K2 by seg"] == {W5M_SEG: want_k2},
+            f"(c) launched K2 {got['K2 by seg']} times, not {want_k2} at seg 64")
+    require(got["K1"] == -(-e2e["n_triples"] // 64), f"(c) launched K1 {got['K1']} times")
+    require(0 < e2e["mrr_filt"] < 1, f"(c) mrr_filt {e2e['mrr_filt']}")
+    log(f"(c) w5m_e2e_eval --n {W5M_E2E_N:,} --max-len 64 --emb-batch 12288 "
+        f"(K2 on the card): encode {e2e['encode_seconds']} s "
+        f"({e2e['entities_per_s']:,.0f} entities/s), rank "
+        f"{e2e['rank_seconds']} s for {e2e['n_triples']:,} triples, mrr_filt "
+        f"{e2e['mrr_filt']:.6f}, peak {e2e.get('peak_mem_gib')} GiB; launches {got}")
+    torch.cuda.empty_cache()
+    scale = quiet(w5m_scale_check.main, ["--n", str(W5M_SCALE_N)])
+    log(f"(c) w5m_scale_check --n {W5M_SCALE_N:,}: rank pass "
+        f"{scale['rank_pass_s']} s ({scale['cand_scores_per_sec']} M scores/s, "
+        f"B {scale['batch']}, tile {scale['tile']}), peak {scale.get('peak_mem_gib')} "
+        f"GiB (table {scale['table_gb']} GiB)")
+    torch.cuda.empty_cache()
+
+    before = read_counts()
+    umls = quiet(umls_smoke.main, ["--out", os.path.join(WORK_DIR, "umls")])
+    got_u = _delta(before, read_counts())
+    require(0 < umls["test_mrr_filt"] < 1 and got_u["K1"] > 0,
+            f"(d) UMLS smoke {umls}, launches {got_u}")
+    log(f"(d) umls_smoke (bert-bow, TransE, 5 epochs, 135 entities): "
+        f"{umls['value']} s wall against the reference's claim of < 60 s on "
+        f"an unspecified GPU; test MRR filtered {umls['test_mrr_filt']:.6f}; "
+        f"launches {got_u}")
+    return {"w5m_e2e": e2e, "w5m_e2e_launches": got, "w5m_scale": scale,
+            "umls_s": umls["value"], "umls_test_mrr_filt": umls["test_mrr_filt"]}
+
+
+def w5m_phase(read_counts) -> dict:
+    """Phase 11, (a)-(d); every count set to 0 just before it."""
+    t0 = time.perf_counter()
+    stats = w5m_cli(read_counts)
+    torch.cuda.empty_cache()
+    stats.update(w5m_tools(read_counts))
+    torch.cuda.empty_cache()
+    stats["phase11_s"] = time.perf_counter() - t0
+    log(f"phase 11: {stats['phase11_s']:.1f} s")
+    return stats
+
+
 # -- phase 7: timings at the main path's shapes ----------------------------------
 
 def sm_clock_running(fn, ms: float) -> str:
@@ -2038,38 +2277,58 @@ def time_k1(launches: int, by_variant: dict) -> dict:
             "library_ms": None, **subs}
 
 
-def time_k2(launches: int) -> dict:
-    b, nh, sp, hd = K2_SHAPE
-    q, k, v, mask = k2_inputs(b, seed=4)
+def _time_k2_at(b: int, seg: int) -> dict:
+    """K2 at b packed rows of Sp / seg segments (about 1 row in 8 ending in
+    empty segments): max error and the share of outputs more than one bf16
+    ulp from the plain version, kernel ms (CUDA events, 20 calls), plain ms,
+    SDPA ms (additive bias, same inputs) and the bound: q, k, v and the
+    output in bf16 over the memory rate, or the full Sp x Sp products over
+    the bf16 tensor rate, whichever is larger."""
+    _, nh, sp, hd = K2_SHAPE
+    q, k, v, mask = k2_inputs(b, seed=4, seg=seg)
     scale = 1.0 / math.sqrt(hd)
-    got = packed_attention.block_diag_attention(q, k, v, mask, seg=SEG, scale=scale)
-    want = packed_attention.block_diag_attention_plain(q, k, v, mask, seg=SEG,
+    got = packed_attention.block_diag_attention(q, k, v, mask, seg=seg, scale=scale)
+    want = packed_attention.block_diag_attention_plain(q, k, v, mask, seg=seg,
                                                        scale=scale)
     err = (got.float() - want.float()).abs().max().item()
     require(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2),
-            f"K2 error {err} at the main-path shape")
+            f"K2 error {err} at {b} rows, seg {seg}")
     ulp_share = over_one_ulp(got, want)
     del got, want
+    torch.cuda.empty_cache()
     ms = cuda_ms(lambda: packed_attention.block_diag_attention(
-        q, k, v, mask, seg=SEG, scale=scale), reps=20, warmup=3)
+        q, k, v, mask, seg=seg, scale=scale), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: packed_attention.block_diag_attention_plain(
-        q, k, v, mask, seg=SEG, scale=scale), reps=3)
-    bias = packed_attention.block_bias(mask, SEG).to(torch.bfloat16)
+        q, k, v, mask, seg=seg, scale=scale), reps=3)
+    torch.cuda.empty_cache()
+    bias = packed_attention.block_bias(mask, seg).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=bias, scale=scale),
                          reps=20, warmup=3)
     nbytes = 2.0 * 4 * b * nh * sp * hd + 4.0 * b * sp
     flops = 2.0 * 2 * b * nh * sp * sp * hd
     t_ops, t_bytes = flops / BF16_TENSOR_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    del q, k, v, mask, bias
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "over_1ulp_share": ulp_share,
+            "shape": f"B={b} nh={nh} Sp={sp} hd={hd} seg={seg} bf16, about "
+                     f"1 row in 8 with empty tail segments"}
+
+
+def time_k2(launches: int, by_seg: dict) -> dict:
+    """K2 at the main path's table-build shape (the record's numbers) and at
+    the Wikidata5M phase-1 chunk (under `at_seg64`). `by_seg`: the main
+    path's launches by segment length."""
+    rec = _time_k2_at(K2_SHAPE[0], SEG)
     return {"name": "packed_attention (K2)", "route": "cuda",
             "source": "blp_tpu_torch/csrc/packed_attention.cu",
             "replaces": "blp_tpu/ops/pallas_attention.py:56",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms, "over_1ulp_share": ulp_share,
-            "shape": f"B={b} nh={nh} Sp={sp} hd={hd} seg={SEG} bf16, about "
-                     f"1 row in 8 with empty tail segments"}
+            "launches": launches, "launches_by_seg": by_seg, **rec,
+            "at_seg64": {**_time_k2_at(W5M_K2_ROWS, W5M_SEG),
+                         "launches": by_seg.get(W5M_SEG, 0)}}
 
 
 def _k3_plain_vjp(ent, rel, neg, g_pos, g_neg, rel_model):
@@ -2216,11 +2475,13 @@ def main() -> int:
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         transe_rank.launches_by_variant.clear()
+        packed_attention.launches_by_seg.clear()
 
     def read_counts() -> dict:
         counts = {name: getattr(mod, attr)
                   for name, (mod, attr) in counters.items()}
         counts["K1 by variant"] = collections.Counter(transe_rank.launches_by_variant)
+        counts["K2 by seg"] = collections.Counter(packed_attention.launches_by_seg)
         return counts
 
     reset_counts()
@@ -2246,7 +2507,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     reset_counts()
-    mesh_stats, mesh_launches, mesh_k1 = mesh_phase(data_dir, cfg, read_counts)
+    mesh_stats, mesh_launches = mesh_phase(data_dir, cfg, read_counts)
     log(f"main-path launches, multi-device paths (phase 9): {mesh_launches}")
     require(all(mesh_launches.get(k, 0) > 0 for k in counters),
             "a kernel of the multi-device paths was never launched")
@@ -2258,27 +2519,41 @@ def main() -> int:
     log(f"main-path launches, the completing modules (phase 10): {done_launches}")
     require(all(done_launches[k] > 0 for k in counters),
             "a kernel of phase 10's paths was never launched")
-    launches = {k: infer_launches[k] + train_launches[k] + word_launches[k]
-                + mesh_launches[k] + done_launches[k] for k in counters}
-    k1_counts = sum((p["K1 by variant"] for p in (infer_launches, train_launches,
-                                                  word_launches, done_launches)),
-                    collections.Counter(mesh_k1))
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    w5m_stats = w5m_phase(read_counts)
+    w5m_launches = read_counts()
+    log(f"main-path launches, the Wikidata5M mode (phase 11): {w5m_launches}")
+    require(all(w5m_launches[k] > 0 for k in counters)
+            and w5m_launches["K2 by seg"][W5M_SEG] > 0,
+            "a kernel of phase 11's paths was never launched")
+    phases = (infer_launches, train_launches, word_launches, mesh_launches,
+              done_launches, w5m_launches)
+    launches = {k: sum(p[k] for p in phases) for k in counters}
+    k1_counts = sum((p["K1 by variant"] for p in phases), collections.Counter())
     k1_by = {v: {d: c for (w, d), c in sorted(k1_counts.items()) if w == v}
              for v in transe_rank.VARIANTS}   # {variant: {d: launches}}
-    log(f"main-path launches: {launches}; K1 by variant and width: {k1_by}")
+    k2_by = dict(sorted(sum((p["K2 by seg"] for p in phases),
+                            collections.Counter()).items()))
+    log(f"main-path launches: {launches}; K1 by variant and width: {k1_by}; "
+        f"K2 by segment length: {k2_by}")
     require(all(n > 0 for n in launches.values()),
             "a kernel of the main path was never launched")
     require(all(k1_by["tma"].get(d, 0) > 0 for d in (K1_D, *WORD_DIMS))
             and not k1_by["scalar"],
             "a main-path K1 launch at d 128, 300 or 768 did not take the tma variant")
+    require(sum(k2_by.values()) == launches["K2"] and set(k2_by) == set(K2_SEGS),
+            f"K2's launches by segment length {k2_by} do not cover seg 32 and 64")
     torch.cuda.empty_cache()
 
-    kernels = [time_k1(launches["K1"], k1_by), time_k2(launches["K2"]),
+    kernels = [time_k1(launches["K1"], k1_by), time_k2(launches["K2"], k2_by),
                *time_k3(launches["K3"], launches["K3 backward"])]
     for kr in kernels:
         for rec in (kr, *(v for k, v in kr.items() if k.startswith("at_"))):
             log(f"{kr['name']}: {rec['ms']:.4f} ms (plain "
-                f"{rec['plain_ms']:.4f} ms, library {kr['library_ms']}, "
+                f"{rec['plain_ms']:.4f} ms, library "
+                f"{rec.get('library_ms', kr['library_ms'])}, "
                 f"bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}, "
                 f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it) at "
                 f"{rec['shape']}")
@@ -2295,7 +2570,8 @@ def main() -> int:
                 f"the host's launch path {kr['call_ms']:.4f} ms (B=64), "
                 f"{kr['at_b1024']['call_ms']:.4f} ms (B=1024)")
     log("summary: " + json.dumps({**serve_stats, **eval_stats, **train_stats,
-                                  **word_stats, **mesh_stats, **done_stats},
+                                  **word_stats, **mesh_stats, **done_stats,
+                                  **w5m_stats},
                                  default=str))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(card)   # name, power limit: nvidia-smi's own line

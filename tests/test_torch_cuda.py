@@ -176,10 +176,16 @@ def _k2_inputs(b, nh, nseg, seg, hd, seed):
     (23, 12, 4, 32, 64),    # 276 pairs: not a multiple of the grid
     (1, 2, 6, 32, 64),      # Sp 192
     (2, 4, 6, 32, 64),
+    (2, 3, 3, 32, 64),      # Sp 96: the whole-row range is three chunks
     (2, 2, 8, 3, 64),       # seg 3: a 16-row tile spans six segments
     (2, 2, 4, 32, 128),     # hd 128 at Sp 128: two blocks per SM
     (1, 2, 16, 32, 64),     # Sp 512, BERT's positions
     (1, 2, 37, 16, 64),     # Sp 592, the longest row a block holds at hd 64
+    (4, 12, 2, 64, 64),     # the Wikidata5M keys' packed row: max_len 64, pack 2
+    (3, 2, 2, 64, 16),
+    (2, 2, 1, 64, 64),      # seg 64 unpacked
+    (2, 3, 3, 64, 64),      # Sp 192 in 64-token segments
+    (5, 2, 2, 64, 128),
 ])
 def test_k2_kernel_matches_plain(b, nh, nseg, seg, hd):
     q, k, v, mask = _k2_inputs(b, nh, nseg, seg, hd, seed=b * nh + hd)
@@ -212,6 +218,49 @@ def test_k2_empty_segments_at_the_main_path_shape():
         q.cuda(), k.cuda(), v.cuda(), mask.cuda(), seg=32, scale=0.125)
     torch.testing.assert_close(got.float().cpu(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+def test_k2_seg64_rows_ending_in_empty_segments():
+    """At seg 64 a warp's 16 rows lie in one segment whose 64 keys run in two
+    32-key chunks; rows whose segment has no real key (a padded final
+    batch's empty tail, an empty first segment, a fully masked row) run
+    against all 128 keys."""
+    q, k, v, mask = _k2_inputs(16, 12, 2, 64, 64, seed=64)
+    mask[0] = 0.0
+    mask[3, 64:] = 0.0
+    mask[7, 64:] = 0.0
+    mask[11, :64] = 0.0
+    mask[15, 1:64] = 0.0    # a segment with one real key
+    want = packed_attention.block_diag_attention(q, k, v, mask, seg=64,
+                                                 scale=0.125)
+    got = packed_attention.block_diag_attention(
+        q.cuda(), k.cuda(), v.cuda(), mask.cuda(), seg=64, scale=0.125)
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_k2_seg64_at_the_w5m_phase1_chunk():
+    """The Wikidata5M phase-1 chunk: emb_batch_size 12,288 at max_len 64 is
+    6,144 packed rows of 2 segments (12 heads, hd 64), about 1 row in 8
+    ending in an empty segment; held to the plain version on the card."""
+    b, nh, sp, hd = 6144, 12, 128, 64
+    g = torch.Generator(device="cuda").manual_seed(6144)
+    q, k, v = (torch.randn((b, nh, sp, hd), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    lens = torch.randint(1, 65, (b, 2), generator=g, device="cuda")
+    lens[torch.randint(0, 8, (b,), generator=g, device="cuda") == 0, 1] = 0
+    mask = (torch.arange(64, device="cuda")[None, None] < lens[:, :, None])
+    mask = mask.reshape(b, sp).float()
+    before = packed_attention.launches
+    got = packed_attention.block_diag_attention(q, k, v, mask, seg=64,
+                                                scale=0.125)
+    assert packed_attention.launches == before + 1
+    for lo in range(0, b, 1024):   # the plain version a slice at a time
+        sl = slice(lo, lo + 1024)
+        want = packed_attention.block_diag_attention_plain(
+            q[sl], k[sl], v[sl], mask[sl], seg=64, scale=0.125)
+        torch.testing.assert_close(got[sl].float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
 
 
 def test_k2_refuses_misaligned_inputs():

@@ -4,6 +4,7 @@ and load nothing of blp_tpu; and an entry point
 called without `device` runs on CUDA or raises — never silently on the
 CPU."""
 
+import inspect
 import json
 import os
 import subprocess
@@ -18,6 +19,9 @@ from blp_tpu_torch import (evaluation, linear_model, profiling, retrieval,
 from blp_tpu_torch.config import ExperimentConfig
 from blp_tpu_torch.data import sampling
 from blp_tpu_torch.models import bert, blp
+from blp_tpu_torch.parallel import mesh as mesh_lib
+from blp_tpu_torch.parallel import pipeline
+from blp_tpu_torch.utils import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,6 +49,10 @@ PARALLEL = {f"blp_tpu_torch.parallel.{m}" for m in
 COMPLETING = {"blp_tpu_torch.profiling", "blp_tpu_torch.native",
               "blp_tpu_torch.data.splits",
               "blp_tpu_torch.tools.convert_reference_checkpoint"}
+#: The Wikidata5M and UMLS tools and the launcher generator.
+W5M_TOOLS = {f"blp_tpu_torch.tools.{m}" for m in
+             ("w5m_e2e_eval", "w5m_scale_check", "w5m_mode_rehearsal",
+              "umls_smoke", "gen_scripts")}
 
 
 def test_port_imports_without_jax_or_blp_tpu():
@@ -56,6 +64,7 @@ def test_port_imports_without_jax_or_blp_tpu():
     assert len(found["names"]) >= 45
     assert PARALLEL <= set(found["names"])
     assert COMPLETING <= set(found["names"])
+    assert W5M_TOOLS <= set(found["names"])
     assert found["leaked"] == []
 
 
@@ -99,3 +108,19 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         pytest.skip("this machine has CUDA: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
+
+
+@pytest.mark.parametrize("fn", [mesh_lib.make_mesh, pipeline.make_pipeline_mesh,
+                                pipeline.make_pipeline_train_step])
+def test_parallel_mesh_functions_default_to_cuda(fn):
+    """The mesh and pipeline functions take device=None, which
+    resolve_device turns into cuda; without a card a mesh built with no
+    device raises rather than running on the CPU."""
+    assert inspect.signature(fn).parameters["device"].default is None
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(inspect.signature(fn).parameters["device"].default)
+    if fn is not pipeline.make_pipeline_train_step:   # that one needs a mesh
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(1, 1)   # a one-rank mesh in this one-process world

@@ -114,3 +114,26 @@ def test_indivisible_segment_raises():
     with pytest.raises(ValueError, match="not divisible"):
         packed_attention.block_diag_attention(q, q, q, torch.ones((2, 24)),
                                               seg=7, scale=1.0)
+
+
+@pytest.mark.parametrize("nh,hd", [(2, 16), (12, 64)])
+def test_seg64_with_empty_segments_matches_pallas_interpret(nh, hd):
+    """The Wikidata5M keys' packing (max_len 64: two segments to a 128-token
+    row). Row 0 ends in an empty segment, row 2 starts with one and row 3
+    has none real: those query rows soften over the whole row, as in the TPU
+    kernel. Tolerance 2e-2, as above."""
+    q, k, v, key_mask = _inputs(nh, hd, 2, 64, B=4)
+    key_mask[0, 64:] = 0.0
+    key_mask[2, :64] = 0.0
+    key_mask[3] = 0.0
+    scale = 1.0 / math.sqrt(hd)
+    want = pallas_attention.block_diag_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(key_mask),
+        seg=64, scale=scale, interpret=True)
+    got = packed_attention.block_diag_attention(
+        _bf16_torch(q), _bf16_torch(k), _bf16_torch(v),
+        torch.from_numpy(key_mask), seg=64, scale=scale)
+    assert tuple(got.shape) == (4, 128, nh * hd)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-2)
