@@ -86,6 +86,13 @@ def _offset(fixed_emb: torch.Tensor, rel_emb: torch.Tensor, corrupt: str):
     return -(rel_emb + fixed_emb)        # score(c) = -sum|c - (h + r)|
 
 
+def pivot_dists(own_emb, fixed_emb, rel_emb, corrupt: str) -> torch.Tensor:
+    """The (B, 1) order-matched pivot distances of one direction: each
+    query's own (true) candidate row against its offset."""
+    return _seq_abs_scores(own_emb[:, None, :],
+                           _offset(fixed_emb, rel_emb, corrupt))
+
+
 def bidir_pivot_dists(head_emb, tail_emb, rel_emb) -> torch.Tensor:
     """The (2B, 1) order-matched pivot distances of the bidirectional stream:
     head-corruption rows first, then tail-corruption."""
@@ -179,19 +186,24 @@ def raw_counts(table, u, r, true_pos, num_valid: int) -> torch.Tensor:
 
 
 def transe_tiled_rank_counts(table, fixed_emb, rel_emb, true_scores, true_pos,
-                             filter_pos, num_valid, *, corrupt: str) -> dict:
+                             filter_pos, num_valid, *, corrupt: str,
+                             pivot=None) -> dict:
     """One-direction TransE rank counts; same return dict as
     ops.ranking.tiled_rank_counts (gt, geq, fgt, fgeq; each (B,) int32).
 
     The pivot is recomputed order-matched to the stream rather than taken
     from `true_scores` (kept for the signature), so entities whose distance
     equals the true entity's compare equal (a tie) and not greater.
+    pivot: optionally the (B, 1) order-matched pivots (`pivot_dists`), for a
+    table that does not hold the true rows (a shard); computed here from
+    table[true_pos] when omitted.
     """
     del true_scores
     b = fixed_emb.shape[0]
     u = _offset(fixed_emb, rel_emb, corrupt)
     tp = true_pos.reshape(b).long()
-    r = _seq_abs_scores(table[tp][:, None, :], u)
+    r = (pivot_dists(table[tp], fixed_emb, rel_emb, corrupt) if pivot is None
+         else pivot.reshape(b, 1))
     counts = raw_counts(table, u, r, tp, int(num_valid))
     fgt, fgeq = _filter_counts(table, u, r, filter_pos)
     return {"gt": counts[0], "geq": counts[1], "fgt": fgt, "fgeq": fgeq}

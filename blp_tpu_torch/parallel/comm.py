@@ -121,6 +121,12 @@ def _via_host(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def barrier() -> None:
+    """Wait for every rank of the world (a no-op in a world of one)."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def all_reduce(t: torch.Tensor, axis: Axis | None = None) -> torch.Tensor:
     """Sum `t` over the axis (every rank when None), in place; returns t."""
     group = None if axis is None else axis.group

@@ -89,6 +89,35 @@ class Shard:
         return int(np.clip(n - self.offset, 0, self.rows))
 
 
+def rank_counts(shard: Shard, table_l, fixed_emb, rel_emb, true_pos,
+                filter_pos, n: int, *, rel_model: str, corrupt: str,
+                tile: int) -> dict:
+    """One-direction raw and filtered counts {gt, geq, fgt, fgeq} of a batch
+    over the sharded table, summed over the world (the self-tie not yet
+    added): the counterpart of the TPU package's `make_sharded_rank_counts`.
+    Positions are global; the true rows are gathered bit for bit from the
+    ranks that own them, and each rank counts its block as
+    `rank_counts_bidir` does (TransE through K1)."""
+    true_emb = shard.rows_of(table_l, true_pos)
+    lt, lf = shard.localize(true_pos), shard.localize(filter_pos)
+    nv = shard.num_valid(n)
+    if rel_model == "transe":
+        pivot = transe_rank.pivot_dists(true_emb, fixed_emb, rel_emb, corrupt)
+        c = transe_rank.transe_tiled_rank_counts(
+            table_l, fixed_emb, rel_emb, None, lt, lf, nv, corrupt=corrupt,
+            pivot=pivot)
+    else:
+        true_scores = ranking.score_pairs(true_emb, fixed_emb, rel_emb,
+                                          rel_model=rel_model,
+                                          corrupt=corrupt)[:, None]
+        c = ranking.tiled_rank_counts(
+            table_l, fixed_emb, rel_emb, true_scores, lt, lf, nv,
+            rel_model=rel_model, corrupt=corrupt, tile=tile)
+    keys = ("gt", "geq", "fgt", "fgeq")
+    summed = comm.all_reduce(torch.stack([c[k] for k in keys]))
+    return dict(zip(keys, summed))
+
+
 def rank_counts_bidir(shard: Shard, table_l, head_pos, tail_pos, rel_emb,
                       heads_filter, tails_filter, n: int, *, rel_model: str,
                       tile: int) -> dict:

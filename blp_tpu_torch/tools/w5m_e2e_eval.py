@@ -16,7 +16,7 @@ On the card the BERT-base encoder runs its attention through K2 (the
 packed attention kernel); on the CPU, through the plain attention. The
 synthetic inputs come from numpy (seed 0) and equal the TPU tool's bit for
 bit; the random weights come from a torch generator (seed 0). Prints one
-JSON line; on the card it adds the peak device memory and the card's name.
+JSON line; on the card it adds the card's name, power limit and peak memory.
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ def main(argv: list[str] | None = None, params: dict | None = None) -> dict:
     from blp_tpu_torch import evaluation
     from blp_tpu_torch.data.filtering import FilterIndex
     from blp_tpu_torch.models import bert, blp
-    from blp_tpu_torch.utils import get_logger, resolve_device
+    from blp_tpu_torch.utils import card_stats, get_logger, resolve_device
 
     log = get_logger()
     device = resolve_device("cpu" if args.cpu else None)
@@ -145,9 +145,7 @@ def main(argv: list[str] | None = None, params: dict | None = None) -> dict:
         "max_len": args.max_len,
         "fused_attention": cfg.encoder.fused_attention,
     }
-    if device.type == "cuda":
-        out["peak_mem_gib"] = round(torch.cuda.max_memory_allocated(device) / 2**30, 2)
-        out["device"] = torch.cuda.get_device_name(device)
+    out.update(card_stats(device))
     print(json.dumps(out), flush=True)
     return out
 

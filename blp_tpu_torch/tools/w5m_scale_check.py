@@ -12,7 +12,7 @@ whatever the candidate count, and reports the rank pass's time. With
     python -m blp_tpu_torch.tools.w5m_scale_check --n 20000 --tile 4096 --cpu
 
 The inputs come from numpy (seed 0), as the TPU tool's. Prints one JSON
-line; on the card it adds the peak device memory and the card's name.
+line; on the card it adds the card's name, power limit and peak memory.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ def main(argv: list[str] | None = None) -> dict:
     import torch
 
     from blp_tpu_torch.ops import ranking
-    from blp_tpu_torch.utils import resolve_device
+    from blp_tpu_torch.utils import card_stats, resolve_device
 
     device = resolve_device("cpu" if args.cpu else None)
     N, d, B, tile = args.n, args.d, args.batch, args.tile
@@ -147,9 +147,7 @@ def main(argv: list[str] | None = None) -> dict:
             "fused_speedup": round(dt_two / dt_fused, 2),
         })
 
-    if device.type == "cuda":
-        out["peak_mem_gib"] = round(torch.cuda.max_memory_allocated(device) / 2**30, 2)
-        out["device"] = torch.cuda.get_device_name(device)
+    out.update(card_stats(device))
     print(json.dumps(out), flush=True)
     return out
 

@@ -19,6 +19,24 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def card_stats(device) -> dict:
+    """What a measuring tool records of the card it ran on: its name, its
+    power limit as nvidia-smi prints it, and the peak device memory since the
+    last reset (`max_memory_allocated`, GiB). Empty on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {}
+    import subprocess
+
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    limit = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    return {"device": torch.cuda.get_device_name(dev), "power_limit": limit,
+            "peak_mem_gib": round(torch.cuda.max_memory_allocated(dev) / 2**30, 2)}
+
+
 _MASK64 = (1 << 64) - 1
 
 

@@ -125,6 +125,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and rank seconds, entities/s, mrr_filt; `w5m_scale_check --n 1000000`:
    the streamed rank pass's seconds and peak memory. (d) `umls_smoke`: its
    wall seconds beside the reference's "< 60 s on GPU", and test MRR.
+12. The measurement entry points (after phase 11, before the timings of
+   phase 7), with every count set to 0 again just before it; none of them
+   launches K2 or K3 (their TPU counterparts leave both off). (a)
+   `blp_tpu_torch.tools.rank_bench` at its default (4.8M x 128, B 64, 64
+   filter columns): the plain stream's and K1's ms a both-direction call,
+   the count entries more than 1 apart, none beyond the fp32 rounding band
+   of its pivot, K1 launched 6 times; (b) `serving_bench` at
+   1M candidates, batches 1, 8 and 64: p50, p95 and queries/s, and the
+   answers of a server built as the tool builds it: ids in range, scores
+   finite and sorted; (c) `measure_reference_baseline` (the reference's
+   BERT-base step rebuilt from torch.nn, fp32, B 16) into the work
+   directory; (d) the flagship bench step (BERT-base bf16, B 128, L 32, K
+   64) through `bench.measure` with 2 windows of 20 steps, `vs_baseline`
+   against (c)'s file, which must be positive; (e) `family_bench` for every
+   family at 2 steps a window, each rate positive and finite, except
+   blp-w5m, which may run out of memory (the TPU bench's remat=4 at B
+   1,024, L 64 needs more than the card's 80 GB in the port); (f) `python
+   -m torch.distributed.run --nproc-per-node 2 -m
+   blp_tpu_torch.tools.scaling_bench --device cuda:0`: the train and
+   eval_rank rows at (1, 1) and (2, 1) (2 gloo ranks on the card: overhead,
+   not scaling).
 7. Time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function, at the main path's shapes
    (K3's backward: the kernel with its index bookkeeping against the plain
@@ -134,7 +155,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the sum of the counts read after phases 4-5 (inference), after phase 6
    (train) and after phase 8 (word models), each path driven with every
    count (K3's forward and backward each have one) set to 0 just before it,
-   plus phase 9's, phase 10's and phase 11's.
+   plus phase 9's, phase 10's, phase 11's and phase 12's.
    K1's record also counts its launches by variant and width (every
    main-path launch must take the "tma" variant, at d 128, 300 and 768),
    reads the SM clock right after its timing with the kernel running, and
@@ -2155,19 +2176,21 @@ def w5m_cli(read_counts) -> dict:
             "w5m_pretrained_launches": got_b}
 
 
+def _quiet(fn, argv):
+    """fn(argv) with its standard output dropped (a tool's printed lines)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(argv)
+
+
 def w5m_tools(read_counts) -> dict:
     """(c) the ported w5m_e2e_eval at 262,144 candidates (BERT-base bf16,
     K2 at seg 64 in 6,144-row chunks) and w5m_scale_check at 1M; (d) the
     ported umls_smoke."""
     from blp_tpu_torch.tools import umls_smoke, w5m_e2e_eval, w5m_scale_check
 
-    def quiet(fn, argv):
-        with contextlib.redirect_stdout(io.StringIO()):
-            return fn(argv)
-
     before = read_counts()
-    e2e = quiet(w5m_e2e_eval.main, ["--n", str(W5M_E2E_N), "--max-len", "64",
-                                    "--emb-batch", "12288"])
+    e2e = _quiet(w5m_e2e_eval.main, ["--n", str(W5M_E2E_N), "--max-len", "64",
+                                     "--emb-batch", "12288"])
     got = _delta(before, read_counts())
     want_k2 = 12 * _k2_chunks(W5M_E2E_N, 12288)
     require(got["K2 by seg"] == {W5M_SEG: want_k2},
@@ -2180,7 +2203,7 @@ def w5m_tools(read_counts) -> dict:
         f"{e2e['rank_seconds']} s for {e2e['n_triples']:,} triples, mrr_filt "
         f"{e2e['mrr_filt']:.6f}, peak {e2e.get('peak_mem_gib')} GiB; launches {got}")
     torch.cuda.empty_cache()
-    scale = quiet(w5m_scale_check.main, ["--n", str(W5M_SCALE_N)])
+    scale = _quiet(w5m_scale_check.main, ["--n", str(W5M_SCALE_N)])
     log(f"(c) w5m_scale_check --n {W5M_SCALE_N:,}: rank pass "
         f"{scale['rank_pass_s']} s ({scale['cand_scores_per_sec']} M scores/s, "
         f"B {scale['batch']}, tile {scale['tile']}), peak {scale.get('peak_mem_gib')} "
@@ -2188,7 +2211,7 @@ def w5m_tools(read_counts) -> dict:
     torch.cuda.empty_cache()
 
     before = read_counts()
-    umls = quiet(umls_smoke.main, ["--out", os.path.join(WORK_DIR, "umls")])
+    umls = _quiet(umls_smoke.main, ["--out", os.path.join(WORK_DIR, "umls")])
     got_u = _delta(before, read_counts())
     require(0 < umls["test_mrr_filt"] < 1 and got_u["K1"] > 0,
             f"(d) UMLS smoke {umls}, launches {got_u}")
@@ -2209,6 +2232,133 @@ def w5m_phase(read_counts) -> dict:
     torch.cuda.empty_cache()
     stats["phase11_s"] = time.perf_counter() - t0
     log(f"phase 11: {stats['phase11_s']:.1f} s")
+    return stats
+
+
+# -- phase 12: the measurement entry points ----------------------------------
+
+SERVE_N = 1_000_000               # candidates of (b), the tool's default
+BENCH_WINDOWS = 2                 # (d): windows of 20 flagship steps
+FAMILY_REPS = 2                   # (e): steps a window
+FAMILY_OOM = {"blp-w5m"}          # (e): families known not to fit the card
+
+
+def bench_tools(read_counts) -> dict:
+    """(a) rank_bench at its default (4.8M x 128, B 64); (b) serving_bench at
+    1M candidates and its answers' ids and scores; (c)
+    measure_reference_baseline into WORK_DIR; (d) the flagship bench step
+    through bench.measure, against (c)'s file; (e) family_bench for every
+    family."""
+    from blp_tpu_torch import bench
+    from blp_tpu_torch.tools import (family_bench, measure_reference_baseline,
+                                     rank_bench, serving_bench)
+
+    before = read_counts()
+    rank = _quiet(rank_bench.main, [])
+    got = _delta(before, read_counts())
+    require(rank["beyond_rounding_band"] == 0 and got["K1"] == 6,
+            f"(a) rank_bench: {rank}, launches {got}")
+    log(f"(a) rank_bench (N {rank['n']:,}, B {rank['b']}, d {rank['d']}): plain "
+        f"stream {rank['plain_ms']} ms, K1 {rank['k1_ms']} ms a both-direction "
+        f"call ({rank['speedup']}x); {rank['mismatches']} of {8 * rank['b']} "
+        f"count entries more than 1 apart, largest difference "
+        f"{rank['max_count_diff']}, none beyond the fp32 rounding band of the "
+        f"pivot; peak {rank['peak_mem_gib']} GiB; launches {got}")
+    torch.cuda.empty_cache()
+
+    rows = _quiet(serving_bench.main, ["--n", str(SERVE_N)])
+    args = serving_bench.parse_args(["--n", str(SERVE_N)])
+    srv = serving_bench.make_server(args, None, DEVICE)
+    table, queries = serving_bench.draw_inputs(args.n, args.d, args.batches)
+    srv.set_candidates(table, np.arange(args.n))
+    for b, emb, rels in queries:
+        scores, ids = srv.predict_tails(head_emb=emb, rels=rels, k=args.k)
+        require(ids.shape == (b, args.k) and bool(((ids >= 0) & (ids < args.n)).all())
+                and bool(np.isfinite(scores).all())
+                and bool((np.diff(scores, axis=1) <= 0).all()),
+                f"(b) batch {b}: ids {ids[:1]}, scores {scores[:1]}")
+    del srv, table
+    log(f"(b) serving_bench --n {SERVE_N:,} (valid ids, finite sorted scores): "
+        + "; ".join(f"batch {r['batch']} p50 {r['p50']} ms p95 {r['p95']} ms "
+                    f"{r['qps']} q/s" for r in rows))
+    torch.cuda.empty_cache()
+
+    path = os.path.join(WORK_DIR, "bench_baseline_torch.json")
+    base = _quiet(measure_reference_baseline.main, ["--out", path])
+    log(f"(c) measure_reference_baseline: {base['value']:.2f} triples/s "
+        f"({base['sec_per_step'] * 1e3:.1f} ms a step, B 16, L 32, K 16, fp32) "
+        f"on {base['hardware']}; peak {base['peak_mem_gib']} GiB")
+    torch.cuda.empty_cache()
+
+    (B, L, K), (steps, warmup, _) = bench.FLAGSHIP["shape"], bench.FLAGSHIP["timing"]
+    times = bench.measure(B, L, K, steps, warmup, BENCH_WINDOWS,
+                          bench.model_config(bench.FLAGSHIP), DEVICE)
+    flag = bench.report(B, times, w5m=False, baseline=path)
+    require(flag["vs_baseline"] > 0, f"(d) bench: {flag}")
+    log(f"(d) bench flagship (B {B}, L {L}, K {K}): windows "
+        f"{[round(t * 1e3, 1) for t in times]} ms a step, {flag['value']} "
+        f"triples/s, vs_baseline {flag['vs_baseline']}")
+    torch.cuda.empty_cache()
+
+    family = []
+    for model in family_bench.FAMILIES:
+        try:
+            row = family_bench.bench_family(model, reps=FAMILY_REPS)
+        except torch.OutOfMemoryError as e:
+            # The W5M point at the TPU bench's remat=4 does not fit the card
+            # (PERF.md, ROADMAP.md); every other family must run.
+            require(model in FAMILY_OOM, f"(e) {model}: {e}")
+            row = {"model": model, "out_of_memory_at_gib": round(
+                torch.cuda.max_memory_allocated() / 2**30, 2)}
+        else:
+            require(0 < row["triples_per_sec"] < float("inf"), f"(e) {row}")
+        family.append(row)
+        torch.cuda.empty_cache()
+    log("(e) family_bench --reps 2: " + "; ".join(
+        f"{r['model']} out of memory after {r['out_of_memory_at_gib']} GiB"
+        if "out_of_memory_at_gib" in r
+        else f"{r['model']} B {r['batch']} {r['ms_per_step']} ms "
+             f"{r['triples_per_sec']:,.0f} t/s peak {r['peak_mem_gib']} GiB"
+        for r in family))
+    return {"rank_bench": rank, "rank_bench_launches": got, "serving": rows,
+            "reference_baseline": base, "bench_flagship": {**flag, "windows_s": times},
+            "family": family}
+
+
+def scaling_cli(n_ranks: int = RANKS, rank_device: str = RANK_DEVICE) -> dict:
+    """(f) scaling_bench under torch.distributed.run, n_ranks gloo ranks on
+    rank_device."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n_ranks}", "-m", "blp_tpu_torch.tools.scaling_bench",
+           "--device", rank_device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT)
+    run_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"scaling_bench exited {proc.returncode}: "
+            f"{proc.stderr[-3000:]}")
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    require([(r["bench"], r["mesh"]) for r in rows] == [
+        ("train", [1, 1]), ("train", [n_ranks, 1]),
+        ("eval_rank", [1, 1]), ("eval_rank", [n_ranks, 1])]
+        and all("virtual_mesh_overhead_vs_1dev" in r for r in rows),
+        f"scaling_bench rows {rows}")
+    log(f"(f) scaling_bench, {n_ranks} ranks on {_placement(rank_device)} "
+        f"({run_s:.1f} s, launcher included): " + "; ".join(
+            f"{r['bench']} {r['mesh']} "
+            f"{r.get('edges_per_sec', r.get('cand_scores_per_sec')):,.1f}/s "
+            f"(x{r['virtual_mesh_overhead_vs_1dev']})" for r in rows))
+    return {"scaling_rows": rows, "scaling_s": run_s}
+
+
+def bench_phase(read_counts) -> dict:
+    """Phase 12, (a)-(f); every count set to 0 just before it."""
+    t0 = time.perf_counter()
+    stats = bench_tools(read_counts)
+    torch.cuda.empty_cache()
+    stats.update(scaling_cli())
+    stats["phase12_s"] = time.perf_counter() - t0
+    log(f"phase 12: {stats['phase12_s']:.1f} s")
     return stats
 
 
@@ -2528,8 +2678,17 @@ def main() -> int:
     require(all(w5m_launches[k] > 0 for k in counters)
             and w5m_launches["K2 by seg"][W5M_SEG] > 0,
             "a kernel of phase 11's paths was never launched")
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    bench_stats = bench_phase(read_counts)
+    bench_launches = read_counts()
+    log(f"main-path launches, the measurement entry points (phase 12): "
+        f"{bench_launches}")
+    require(bench_launches["K1"] > 0,
+            "K1 was never launched by phase 12's entry points")
     phases = (infer_launches, train_launches, word_launches, mesh_launches,
-              done_launches, w5m_launches)
+              done_launches, w5m_launches, bench_launches)
     launches = {k: sum(p[k] for p in phases) for k in counters}
     k1_counts = sum((p["K1 by variant"] for p in phases), collections.Counter())
     k1_by = {v: {d: c for (w, d), c in sorted(k1_counts.items()) if w == v}
@@ -2571,7 +2730,7 @@ def main() -> int:
                 f"{kr['at_b1024']['call_ms']:.4f} ms (B=1024)")
     log("summary: " + json.dumps({**serve_stats, **eval_stats, **train_stats,
                                   **word_stats, **mesh_stats, **done_stats,
-                                  **w5m_stats},
+                                  **w5m_stats, **bench_stats},
                                  default=str))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(card)   # name, power limit: nvidia-smi's own line

@@ -768,3 +768,36 @@ def test_device_memory_stats_reads_the_allocator():
     assert 0 < s0["free_bytes"] <= s0["total_bytes"]
     (one,) = profiling.device_memory_stats("cuda:0")
     assert one["device"] == "cuda:0" and set(one) == set(s0)
+
+
+def test_rank_bench_on_the_card_counts_as_the_plain_stream():
+    """The rank_bench tool at 262,144 candidates (B 64, d 128): K1's counts
+    and the plain stream's differ nowhere by more than the candidates
+    within the fp32 rounding band of the pivot (the two add in other
+    orders, so near-ties may land on either side)."""
+    from blp_tpu_torch.tools import rank_bench
+
+    before = transe_rank.launches
+    res = rank_bench.main(["--n", "262144", "--reps", "1"])
+    assert res["beyond_rounding_band"] == 0 and res["n"] == 262144
+    assert transe_rank.launches - before == 2
+    assert res["device"] == torch.cuda.get_device_name(0)
+
+
+def test_serving_bench_top10_on_the_card_equals_the_cpu():
+    """The serving_bench tool's server at 100,000 candidates: the same top-10
+    ids on the card as on the CPU, scores within 1e-4, for batches 1, 8 and
+    64."""
+    from blp_tpu_torch.tools import serving_bench
+
+    args = serving_bench.parse_args(["--n", "100000"])
+    table, queries = serving_bench.draw_inputs(args.n, args.d, args.batches)
+    answers = []
+    for device in ("cuda", "cpu"):
+        srv = serving_bench.make_server(args, None, device)
+        srv.set_candidates(table, np.arange(args.n))
+        answers.append([srv.predict_tails(head_emb=emb, rels=rels, k=args.k)
+                        for _, emb, rels in queries])
+    for (s_gpu, i_gpu), (s_cpu, i_cpu) in zip(*answers):
+        np.testing.assert_array_equal(i_gpu, i_cpu)
+        np.testing.assert_allclose(s_gpu, s_cpu, rtol=1e-4, atol=1e-4)

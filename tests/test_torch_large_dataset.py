@@ -28,6 +28,7 @@ import shutil
 import jax
 import numpy as np
 import pytest
+import torch
 
 import blp_tpu.native as j_native
 from blp_tpu import checkpoint as j_ckpt
@@ -45,6 +46,18 @@ from blp_tpu_torch.data import tokenizers as t_tokenizers
 from blp_tpu_torch.data.datasets import GraphData, TextGraphData
 from blp_tpu_torch.data.filtering import FilterIndex
 from blp_tpu_torch.data.synth import write_synth_dataset
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: torch's intra-op threads, one per
+    core in each of several test workers on one machine, oversubscribe its
+    cores and slow this module's runs several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ARGS = dict(model="blp", rel_model="transe", encoder_name="tiny", dim=16,
             max_len=16, num_negatives=8, batch_size=64, emb_batch_size=64,

@@ -19,6 +19,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 from sklearn.linear_model import LogisticRegression as SkLogisticRegression
 from sklearn.metrics import accuracy_score, balanced_accuracy_score
 
@@ -26,6 +27,17 @@ from blp_tpu import train as j_train
 from blp_tpu.config import ExperimentConfig as JConfig
 from blp_tpu_torch import linear_model, train as t_train
 from blp_tpu_torch.data.synth import write_synth_dataset, write_tiny_glove
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: torch's intra-op threads, one per
+    core in each of several test workers on one machine, oversubscribe its
+    cores and slow the fits here by over an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _blobs(n_classes, n, d, seed):

@@ -17,6 +17,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from blp_tpu.config import parse_overrides as j_parse_overrides
 from blp_tpu.data.synth import write_synth_dataset as j_write_synth_dataset
@@ -29,6 +30,17 @@ from blp_tpu_torch.tools import (gen_scripts, umls_smoke, w5m_e2e_eval,
                                  w5m_mode_rehearsal, w5m_scale_check)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: torch's intra-op threads, one per
+    core in each of several test workers on one machine, oversubscribe its
+    cores and slow this module's runs several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_tool(name: str):

@@ -224,3 +224,29 @@ def link_prediction_runs(rank: int, configs: list, raising=()) -> list:
         else:
             out.append({"error": None})
     return out
+
+
+# -- eval_parallel.rank_counts and tools/scaling_bench.py ---------------------
+
+def sharded_counts_and_scaling(rank: int, cases: list, scaling_argv: list,
+                               eval_n: int) -> dict:
+    """eval_parallel.rank_counts for each case over a (world, 1) mesh (the
+    case's whole numpy table on every rank, each rank counting its block),
+    then scaling_bench.main(scaling_argv, eval_n=eval_n) in the same world:
+    the counts as numpy, and the rows (rank 0's; [] on the others)."""
+    from blp_tpu_torch.parallel import eval_parallel
+    from blp_tpu_torch.tools import scaling_bench
+
+    mesh = mesh_lib.make_mesh(comm.world_size(), 1, device="cpu")
+    counts = []
+    for case in cases:
+        shard = eval_parallel.Shard.of(mesh, len(case["table"]))
+        block = torch.from_numpy(case["table"][shard.offset:shard.offset + shard.rows])
+        c = eval_parallel.rank_counts(
+            shard, block, *(torch.from_numpy(case[k]) for k in
+                            ("fixed", "rel", "true_pos", "filter_pos")),
+            case["n"], rel_model=case["rel_model"], corrupt=case["corrupt"],
+            tile=case["tile"])
+        counts.append({k: v.numpy() for k, v in c.items()})
+    return {"counts": counts,
+            "rows": scaling_bench.main(scaling_argv, eval_n=eval_n)}
