@@ -23,9 +23,10 @@ bench_baseline_torch.json's value (the reference's step on the card,
 tools/measure_reference_baseline.py) where that file exists, else 0.0, and
 is 0.0 at --w5m, as in the TPU bench.
 
-This entry point launches no hand-written kernel: like the TPU bench it
-keeps `sddmm_pallas` (K3) and `fused_attention` (K2) off, and it does not
-rank.
+Like the TPU bench, this entry point keeps `sddmm_pallas` (K3) and
+`fused_attention` (K2) off and does not rank; on the card its BERT layers
+run F1 and F2 (ops/fused_layer.py), the kernels of the chains XLA fuses in
+the TPU package.
 """
 
 from __future__ import annotations

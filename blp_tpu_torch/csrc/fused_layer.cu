@@ -1,0 +1,585 @@
+// F1 and F2: the BERT layer's elementwise chains, forward and backward.
+//
+// No Pallas kernel replaced: in the JAX package XLA fuses these chains of
+// blp_tpu/models/bert.py, the bias add of `_dense` (:282) with `poly_gelu`
+// (:305) or jax.nn.gelu, and the residual add with `_layer_norm` (:270).
+// ops/fused_layer.py holds their plain versions and the autograd wiring.
+//
+//   F1  y = act(round_out(h + b))           act: none, erf (F.gelu), poly
+//       dh = round_h(round_out(g * act'(pre))), db = sum over rows of the same
+//   F2  s = round(x + r), y = (s - mean) * rstd * scale + bias (f32 stats)
+//       ds = rstd * (g*scale - mean(g*scale) - xhat * mean(g*scale*xhat)),
+//       dscale = sum over rows of g * xhat, dbias = sum over rows of g
+//
+// What bounds them on an H100: bytes. F1 moves 4 bytes an element forward
+// (bf16 in and out) and 6 backward (g and h in, dh out; for "none" with h
+// in g's dtype only g is read, as dh is g); F2 8 forward (x, r
+// in; y, s out) and 6 backward (g, s in; ds out), against at most ~60 fp32
+// operations an element (poly-GeLU's backward): at 3.35 TB/s and 67 TFLOP/s
+// every kernel is memory-bound. The design therefore reads each input once
+// and writes each output once, in 16-byte vectors of 8 elements (two for
+// f32), and keeps every intermediate of the chain in registers: where the
+// op-by-op chain wrote and re-read an f32 tensor at each step.
+//
+// F1's forward is a grid-stride loop over vectors; F2's forward holds a
+// row in a warp's registers (w <= 4,096). F1's backward and F2's
+// reduce db, dscale and dbias without atomics: a block owns a chunk of rows
+// (the wrapper's `chunk`, a function of the row count) and writes one
+// partial row per chunk, adding its rows in order; `column_sum` then adds
+// the partials of each column in a fixed tree (32 strided streams, then the
+// 32 stream sums in order). So a call gives the same bits every time.
+//
+// Rounding: F1's poly activation and its derivative round every product and
+// sum on its own (no FMA), in the order of the plain `poly_gelu` and of the
+// VJP autograd takes of it, so they give the plain version's bits; erf
+// follows torch's CUDA gelu kernels. F2's row sums run in another order than
+// torch's, so F2 agrees with its plain version to f32 rounding.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kVec = 8;   // elements a thread moves per step
+enum Act { kNone = 0, kErf = 1, kPoly = 2 };
+enum DType { kF32 = 0, kBF16 = 1 };
+
+// ops/fused_layer.py _POLY_GELU_C, rounded to float as torch rounds them.
+__constant__ float kPolyC[7] = {
+    0.3985269463542832f, -0.06538842792339565f, 0.009112993720802636f,
+    -0.0008789911715555882f, 5.4191581420189626e-05f,
+    -1.8919542111355878e-06f, 2.816234526830968e-08f};
+
+__device__ __forceinline__ void load8(const float* p, float v[kVec]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const bf16* p, float v[kVec]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int i = 0; i < kVec / 2; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float v[kVec]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float v[kVec]) {
+  uint4 a;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&a);
+#pragma unroll
+  for (int i = 0; i < kVec / 2; ++i)
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = a;
+}
+
+// x rounded to T and back (round to nearest even, as torch's casts).
+template <typename T> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <> __device__ __forceinline__ float round_to<bf16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+constexpr float kSqrt1_2 = 0.7071067811865476f;     // M_SQRT1_2
+constexpr float kInvSqrt2Pi = 0.3989422804014327f;  // M_2_SQRTPI * M_SQRT1_2 / 2
+
+// The polynomial of poly_gelu: p[k] for k = 6..0 (p[6] the top coefficient).
+__device__ __forceinline__ void poly_terms(float u, float p[7]) {
+  p[6] = kPolyC[6];
+#pragma unroll
+  for (int k = 5; k >= 0; --k) p[k] = __fadd_rn(__fmul_rn(p[k + 1], u), kPolyC[k]);
+}
+
+template <int ACT> __device__ __forceinline__ float act_fwd(float x) {
+  if (ACT == kErf)   // torch's GeluCUDAKernelImpl, erf form
+    return x * 0.5f * (1.0f + erff(x * kSqrt1_2));
+  if (ACT == kPoly) {
+    const float xc = clampf(x, -4.0f, 4.0f);
+    float p[7];
+    poly_terms(__fmul_rn(xc, xc), p);
+    const float phi = clampf(__fadd_rn(__fmul_rn(xc, p[0]), 0.5f), 0.0f, 1.0f);
+    return __fmul_rn(x, phi);
+  }
+  return x;
+}
+
+// g * act'(x), before the round to the pre-activation's dtype.
+template <int ACT> __device__ __forceinline__ float act_bwd(float x, float g) {
+  if (ACT == kErf) {  // torch's GeluBackwardCUDAKernelImpl, erf form
+    const float cdf = 0.5f * (1.0f + erff(x * kSqrt1_2));
+    const float pdf = expf(-0.5f * x * x) * kInvSqrt2Pi;
+    return g * (cdf + x * pdf);
+  }
+  if (ACT == kPoly) {
+    // autograd's VJP of poly_gelu, node by node: y = x * phi, phi =
+    // clamp(z, 0, 1), z = xc * p0 + 0.5, p_k = p_{k+1} * u + c_k, u = xc * xc,
+    // xc = clamp(x, -4, 4); gradients reaching one tensor are added in the
+    // order autograd's engine adds them.
+    const float xc = clampf(x, -4.0f, 4.0f);
+    const float u = __fmul_rn(xc, xc);
+    float p[7];
+    poly_terms(u, p);
+    const float z = __fadd_rn(__fmul_rn(xc, p[0]), 0.5f);
+    const float phi = clampf(z, 0.0f, 1.0f);
+    const float gx_direct = __fmul_rn(g, phi);
+    const float gz = (z >= 0.0f && z <= 1.0f) ? __fmul_rn(g, x) : 0.0f;
+    const float gxc_m = __fmul_rn(gz, p[0]);
+    float gp = __fmul_rn(gz, xc);            // d/dp0
+    float gu = __fmul_rn(gp, p[1]);          // t0 = p1 * u
+    gp = __fmul_rn(gp, u);                   // d/dp1
+#pragma unroll
+    for (int k = 1; k <= 5; ++k) {
+      gu = __fadd_rn(gu, __fmul_rn(gp, p[k + 1]));
+      if (k < 5) gp = __fmul_rn(gp, u);
+    }
+    const float gxc_u = __fmul_rn(gu, xc);
+    const float gxc = __fadd_rn(__fadd_rn(gxc_m, gxc_u), gxc_u);
+    const float gx_clamp = (x >= -4.0f && x <= 4.0f) ? gxc : 0.0f;
+    return __fadd_rn(gx_direct, gx_clamp);
+  }
+  return g;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---- F1 ----------------------------------------------------------------------
+
+template <typename TH, typename TO, int ACT>
+__global__ void __launch_bounds__(256)
+bias_act_fwd(const TH* __restrict__ h, const float* __restrict__ b,
+             TO* __restrict__ y, long long n_vec, int w_vec) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_vec; i += stride) {
+    float v[kVec];
+    load8(h + i * kVec, v);
+    if (b != nullptr) {
+      float bb[kVec];
+      load8(b + (i % w_vec) * kVec, bb);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) v[k] = __fadd_rn(v[k], bb[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[k] = act_fwd<ACT>(round_to<TO>(v[k]));
+    store8(y + i * kVec, v);
+  }
+}
+
+// Block (cv tile, row chunk): thread cv walks the chunk's rows in order,
+// writes dh (unless dh is null: "none" with h in g's dtype, where dh is g
+// itself) and adds the rounded d/dpre into its chunk's partial of db.
+template <typename TH, typename TO, int ACT>
+__global__ void __launch_bounds__(128)
+bias_act_bwd(const TO* __restrict__ g, const TH* __restrict__ h,
+             const float* __restrict__ b, TH* __restrict__ dh,
+             float* __restrict__ partial, long long rows, int w_vec, int chunk) {
+  const int cv = blockIdx.x * blockDim.x + threadIdx.x;
+  if (cv >= w_vec) return;
+  const long long r0 = (long long)blockIdx.y * chunk;
+  const long long r1 = r0 + chunk < rows ? r0 + chunk : rows;
+  float bb[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) bb[k] = 0.0f;
+  if (ACT != kNone && b != nullptr) load8(b + cv * kVec, bb);
+  float acc[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) acc[k] = 0.0f;
+#pragma unroll 4
+  for (long long r = r0; r < r1; ++r) {
+    const long long off = (r * w_vec + cv) * kVec;
+    float d[kVec];
+    load8(g + off, d);
+    if (ACT != kNone) {
+      float x[kVec];
+      load8(h + off, x);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float pre = round_to<TO>(b != nullptr ? __fadd_rn(x[k], bb[k]) : x[k]);
+        d[k] = round_to<TO>(act_bwd<ACT>(pre, d[k]));
+      }
+    }
+    if (dh != nullptr) store8(dh + off, d);
+    if (partial != nullptr) {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) acc[k] = __fadd_rn(acc[k], d[k]);
+    }
+  }
+  if (partial != nullptr)
+    store8(partial + (long long)blockIdx.y * w_vec * kVec + cv * kVec, acc);
+}
+
+// out[c] = sum over k < n of partial[k, c], in a fixed order: thread (x, y)
+// adds rows y, y + 32, ... of column c = 32 * blockIdx.x + x, then row y = 0
+// adds the 32 stream sums in order.
+__global__ void __launch_bounds__(1024)
+column_sum(const float* __restrict__ partial, int n, int w, float* __restrict__ out) {
+  __shared__ float streams[32][33];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.0f;
+  if (col < w)
+    for (int k = threadIdx.y; k < n; k += 32)
+      acc = __fadd_rn(acc, partial[(long long)k * w + col]);
+  streams[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < w) {
+    float t = 0.0f;
+    for (int j = 0; j < 32; ++j) t = __fadd_rn(t, streams[j][threadIdx.x]);
+    out[col] = t;
+  }
+}
+
+// ---- F2 ----------------------------------------------------------------------
+
+// s = round(x + r) at row offset `off` (x alone when r is null).
+template <typename TX>
+__device__ __forceinline__ void row_sum8(const TX* x, const TX* r, long long off,
+                                         float v[kVec]) {
+  load8(x + off, v);
+  if (r != nullptr) {
+    float rv[kVec];
+    load8(r + off, rv);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[k] = round_to<TX>(__fadd_rn(v[k], rv[k]));
+  }
+}
+
+// A warp a row, the row held in registers: lane l owns vectors l, l + 32,
+// ... (at most NV, so w <= 256 * NV), loaded once, each rounded sum
+// written to s; then the mean, the variance about it and the normalized
+// row from those registers. Sums run in the order of the vectors.
+template <typename TX, typename TO, int NV>
+__global__ void __launch_bounds__(256)
+add_ln_fwd(const TX* __restrict__ x, const TX* __restrict__ r,
+           const float* __restrict__ scale, const float* __restrict__ bias,
+           TO* __restrict__ y, TX* __restrict__ s, float* __restrict__ mean,
+           float* __restrict__ rstd, long long rows, int w, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int w_vec = w / kVec;
+  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
+  for (long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       row < rows; row += warps) {
+    const long long base = row * w;
+    float v[NV][kVec];
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int cv = lane + 32 * j;
+      if (cv < w_vec) {
+        row_sum8(x, r, base + cv * kVec, v[j]);
+        if (r != nullptr) store8(s + base + cv * kVec, v[j]);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) sum += v[j][k];
+      }
+    }
+    const float mu = warp_sum(sum) / (float)w;
+    float sq = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if (lane + 32 * j < w_vec) {
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          const float d = v[j][k] - mu;
+          sq += d * d;
+        }
+      }
+    }
+    const float rs = 1.0f / sqrtf(warp_sum(sq) / (float)w + eps);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int cv = lane + 32 * j;
+      if (cv < w_vec) {
+        float sc[kVec], bi[kVec];
+        load8(scale + cv * kVec, sc);
+        load8(bias + cv * kVec, bi);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k)
+          v[j][k] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[j][k], mu), rs), sc[k]), bi[k]);
+        store8(y + base + cv * kVec, v[j]);
+      }
+    }
+    if (lane == 0) {
+      mean[row] = mu;
+      rstd[row] = rs;
+    }
+  }
+}
+
+// Block = one chunk of rows. First a warp a row: ds. Then a thread per
+// column vector walks the chunk's rows in order into the chunk's partials
+// of dscale (columns [0, w)) and dbias (columns [w, 2w)).
+template <typename TS, typename TG>
+__global__ void __launch_bounds__(256)
+add_ln_bwd(const TG* __restrict__ g, const TS* __restrict__ s,
+           const float* __restrict__ mean, const float* __restrict__ rstd,
+           const float* __restrict__ scale, TS* __restrict__ ds,
+           float* __restrict__ partial, long long rows, int w, int chunk) {
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const int w_vec = w / kVec;
+  const long long r0 = (long long)blockIdx.x * chunk;
+  const long long r1 = r0 + chunk < rows ? r0 + chunk : rows;
+  for (long long row = r0 + (threadIdx.x >> 5); row < r1; row += nw) {
+    const long long base = row * w;
+    const float mu = mean[row], rs = rstd[row];
+    float gv[kVec], sv[kVec], sc[kVec];
+    float c1 = 0.0f, c2 = 0.0f;
+    for (int cv = lane; cv < w_vec; cv += 32) {
+      load8(g + base + cv * kVec, gv);
+      load8(s + base + cv * kVec, sv);
+      load8(scale + cv * kVec, sc);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float gs = gv[k] * sc[k];
+        c1 += gs;
+        c2 += gs * ((sv[k] - mu) * rs);
+      }
+    }
+    c1 = warp_sum(c1) / (float)w;
+    c2 = warp_sum(c2) / (float)w;
+    for (int cv = lane; cv < w_vec; cv += 32) {
+      load8(g + base + cv * kVec, gv);
+      load8(s + base + cv * kVec, sv);
+      load8(scale + cv * kVec, sc);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        gv[k] = rs * (gv[k] * sc[k] - c1 - ((sv[k] - mu) * rs) * c2);
+      store8(ds + base + cv * kVec, gv);
+    }
+  }
+  for (int cv = threadIdx.x; cv < w_vec; cv += blockDim.x) {
+    float as[kVec], ab[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) as[k] = ab[k] = 0.0f;
+#pragma unroll 4
+    for (long long row = r0; row < r1; ++row) {
+      const float mu = mean[row], rs = rstd[row];
+      float gv[kVec], sv[kVec];
+      load8(g + row * w + cv * kVec, gv);
+      load8(s + row * w + cv * kVec, sv);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        as[k] = __fadd_rn(as[k], __fmul_rn(gv[k], (sv[k] - mu) * rs));
+        ab[k] = __fadd_rn(ab[k], gv[k]);
+      }
+    }
+    store8(partial + (long long)blockIdx.x * 2 * w + cv * kVec, as);
+    store8(partial + (long long)blockIdx.x * 2 * w + w + cv * kVec, ab);
+  }
+}
+
+// ---- launches ----------------------------------------------------------------
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+bool shape_ok(long long rows, int w) { return rows > 0 && w > 0 && w % kVec == 0; }
+
+template <typename TH, typename TO>
+cudaError_t f1_fwd(int act, const void* h, const float* b, void* y,
+                   long long rows, int w, cudaStream_t st) {
+  const int w_vec = w / kVec;
+  const long long n_vec = rows * w_vec;
+  const int threads = 256;
+  long long blocks = (n_vec + threads - 1) / threads;
+  if (blocks > 4096) blocks = 4096;
+  const TH* hh = static_cast<const TH*>(h);
+  TO* yy = static_cast<TO*>(y);
+  switch (act) {
+    case kNone: bias_act_fwd<TH, TO, kNone><<<(int)blocks, threads, 0, st>>>(hh, b, yy, n_vec, w_vec); break;
+    case kErf: bias_act_fwd<TH, TO, kErf><<<(int)blocks, threads, 0, st>>>(hh, b, yy, n_vec, w_vec); break;
+    case kPoly: bias_act_fwd<TH, TO, kPoly><<<(int)blocks, threads, 0, st>>>(hh, b, yy, n_vec, w_vec); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// Column tiles of at most 128 threads, as even as whole warps allow.
+dim3 f1_bwd_block(int w_vec) {
+  const int tiles = (w_vec + 127) / 128;
+  const int per = (w_vec + tiles - 1) / tiles;
+  return dim3((per + 31) / 32 * 32);
+}
+
+template <typename TH, typename TO>
+cudaError_t f1_bwd(int act, const void* g, const void* h, const float* b,
+                   void* dh, float* partial, long long rows, int w, int chunk,
+                   cudaStream_t st) {
+  const int w_vec = w / kVec;
+  const dim3 block = f1_bwd_block(w_vec);
+  const dim3 grid((w_vec + block.x - 1) / block.x, (unsigned)((rows + chunk - 1) / chunk));
+  const TO* gg = static_cast<const TO*>(g);
+  const TH* hh = static_cast<const TH*>(h);
+  TH* dd = static_cast<TH*>(dh);
+  switch (act) {
+    case kNone: bias_act_bwd<TH, TO, kNone><<<grid, block, 0, st>>>(gg, hh, b, dd, partial, rows, w_vec, chunk); break;
+    case kErf: bias_act_bwd<TH, TO, kErf><<<grid, block, 0, st>>>(gg, hh, b, dd, partial, rows, w_vec, chunk); break;
+    case kPoly: bias_act_bwd<TH, TO, kPoly><<<grid, block, 0, st>>>(gg, hh, b, dd, partial, rows, w_vec, chunk); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TO, int NV>
+void f2_fwd_nv(const void* x, const void* r, const float* scale,
+               const float* bias, void* y, void* s, float* mean, float* rstd,
+               long long rows, int w, float eps, cudaStream_t st) {
+  long long blocks = (rows + 7) / 8;   // 8 warps a block, a warp a row
+  if (blocks > 65536) blocks = 65536;
+  add_ln_fwd<TX, TO, NV><<<(int)blocks, 256, 0, st>>>(
+      static_cast<const TX*>(x), static_cast<const TX*>(r), scale, bias,
+      static_cast<TO*>(y), static_cast<TX*>(s), mean, rstd, rows, w, eps);
+}
+
+// The fewest vectors a lane that hold the row: 3 at H 768, 4 at H 1024.
+template <typename TX, typename TO>
+cudaError_t f2_fwd(const void* x, const void* r, const float* scale,
+                   const float* bias, void* y, void* s, float* mean, float* rstd,
+                   long long rows, int w, float eps, cudaStream_t st) {
+  const int per_lane = (w / kVec + 31) / 32;
+  if (per_lane <= 1) f2_fwd_nv<TX, TO, 1>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, st);
+  else if (per_lane <= 2) f2_fwd_nv<TX, TO, 2>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, st);
+  else if (per_lane <= 3) f2_fwd_nv<TX, TO, 3>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, st);
+  else if (per_lane <= 4) f2_fwd_nv<TX, TO, 4>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, st);
+  else if (per_lane <= 8) f2_fwd_nv<TX, TO, 8>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, st);
+  else if (per_lane <= 16) f2_fwd_nv<TX, TO, 16>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, st);
+  else return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+template <typename TS, typename TG>
+cudaError_t f2_bwd(const void* g, const void* s, const float* mean,
+                   const float* rstd, const float* scale, void* ds,
+                   float* partial, long long rows, int w, int chunk,
+                   cudaStream_t st) {
+  const int n_chunks = (int)((rows + chunk - 1) / chunk);
+  add_ln_bwd<TS, TG><<<n_chunks, 256, 0, st>>>(
+      static_cast<const TG*>(g), static_cast<const TS*>(s), mean, rstd, scale,
+      static_cast<TS*>(ds), partial, rows, w, chunk);
+  return cudaGetLastError();
+}
+
+cudaError_t column_sums(const float* partial, int n, int w, float* out,
+                        cudaStream_t st) {
+  column_sum<<<(w + 31) / 32, dim3(32, 32), 0, st>>>(partial, n, w, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Tensors are contiguous (rows, w)
+// row-major, 16-byte aligned, w a multiple of 8; dtype ids 0 float32, 1
+// bfloat16; act 0 none, 1 erf, 2 poly; b, r may be null. Each launches on
+// `stream` without synchronising and returns cudaGetLastError() of its
+// launches (cudaErrorInvalidValue for shapes or alignments it does not take).
+
+extern "C" int bias_act_forward(const void* h, const void* b, void* y,
+                                long long rows, int w, int h_dtype,
+                                int out_dtype, int act, void* stream) {
+  if (!shape_ok(rows, w) || !aligned16(h) || !aligned16(b) || !aligned16(y))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* bb = static_cast<const float*>(b);
+  if (h_dtype == kBF16 && out_dtype == kBF16) return (int)f1_fwd<bf16, bf16>(act, h, bb, y, rows, w, st);
+  if (h_dtype == kF32 && out_dtype == kBF16) return (int)f1_fwd<float, bf16>(act, h, bb, y, rows, w, st);
+  if (h_dtype == kBF16 && out_dtype == kF32) return (int)f1_fwd<bf16, float>(act, h, bb, y, rows, w, st);
+  if (h_dtype == kF32 && out_dtype == kF32) return (int)f1_fwd<float, float>(act, h, bb, y, rows, w, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// g: the cotangent of y (out dtype); h, b: read only for act != none; dh may
+// be null when with_db (db alone); with_db: partial ((rows + chunk - 1) /
+// chunk, w) f32 scratch and db (w,) f32 out.
+extern "C" int bias_act_backward(const void* g, const void* h, const void* b,
+                                 void* dh, void* partial, void* db,
+                                 long long rows, int w, int h_dtype,
+                                 int out_dtype, int act, int chunk, int with_db,
+                                 void* stream) {
+  if (!shape_ok(rows, w) || chunk <= 0 || (rows + chunk - 1) / chunk > 65535 ||
+      !aligned16(g) || !aligned16(h) || !aligned16(b) || !aligned16(dh) ||
+      !aligned16(partial) || (act != kNone && h == nullptr) ||
+      (with_db && (partial == nullptr || db == nullptr)) ||
+      (!with_db && dh == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* bb = static_cast<const float*>(b);
+  float* pp = with_db ? static_cast<float*>(partial) : nullptr;
+  cudaError_t err;
+  if (h_dtype == kBF16 && out_dtype == kBF16) err = f1_bwd<bf16, bf16>(act, g, h, bb, dh, pp, rows, w, chunk, st);
+  else if (h_dtype == kF32 && out_dtype == kBF16) err = f1_bwd<float, bf16>(act, g, h, bb, dh, pp, rows, w, chunk, st);
+  else if (h_dtype == kBF16 && out_dtype == kF32) err = f1_bwd<bf16, float>(act, g, h, bb, dh, pp, rows, w, chunk, st);
+  else if (h_dtype == kF32 && out_dtype == kF32) err = f1_bwd<float, float>(act, g, h, bb, dh, pp, rows, w, chunk, st);
+  else return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess || !with_db) return (int)err;
+  return (int)column_sums(pp, (int)((rows + chunk - 1) / chunk), w,
+                          static_cast<float*>(db), st);
+}
+
+// r and s null together (LN of x alone); mean, rstd (rows,) f32 out; w at
+// most 4,096 (16 vectors a lane).
+extern "C" int add_layer_norm_forward(const void* x, const void* r,
+                                      const void* scale, const void* bias,
+                                      void* y, void* s, void* mean, void* rstd,
+                                      long long rows, int w, int x_dtype,
+                                      int out_dtype, float eps, void* stream) {
+  if (!shape_ok(rows, w) || (r == nullptr) != (s == nullptr) ||
+      !aligned16(x) || !aligned16(r) || !aligned16(scale) || !aligned16(bias) ||
+      !aligned16(y) || !aligned16(s))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  float* mu = static_cast<float*>(mean);
+  float* rs = static_cast<float*>(rstd);
+  if (x_dtype == kBF16 && out_dtype == kBF16) return (int)f2_fwd<bf16, bf16>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, st);
+  if (x_dtype == kF32 && out_dtype == kBF16) return (int)f2_fwd<float, bf16>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, st);
+  if (x_dtype == kBF16 && out_dtype == kF32) return (int)f2_fwd<bf16, float>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, st);
+  if (x_dtype == kF32 && out_dtype == kF32) return (int)f2_fwd<float, float>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// g: the cotangent of y (g_dtype); partial ((rows + chunk - 1) / chunk, 2w)
+// f32 scratch; dsb (2w,) f32 out: dscale, then dbias.
+extern "C" int add_layer_norm_backward(const void* g, const void* s,
+                                       const void* mean, const void* rstd,
+                                       const void* scale, void* ds,
+                                       void* partial, void* dsb, long long rows,
+                                       int w, int s_dtype, int g_dtype,
+                                       int chunk, void* stream) {
+  if (!shape_ok(rows, w) || chunk <= 0 || (rows + chunk - 1) / chunk > (1LL << 30) ||
+      !aligned16(g) || !aligned16(s) || !aligned16(scale) || !aligned16(ds) ||
+      !aligned16(partial))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* mu = static_cast<const float*>(mean);
+  const float* rs = static_cast<const float*>(rstd);
+  const float* sc = static_cast<const float*>(scale);
+  float* pp = static_cast<float*>(partial);
+  cudaError_t err;
+  if (s_dtype == kBF16 && g_dtype == kBF16) err = f2_bwd<bf16, bf16>(g, s, mu, rs, sc, ds, pp, rows, w, chunk, st);
+  else if (s_dtype == kF32 && g_dtype == kBF16) err = f2_bwd<float, bf16>(g, s, mu, rs, sc, ds, pp, rows, w, chunk, st);
+  else if (s_dtype == kBF16 && g_dtype == kF32) err = f2_bwd<bf16, float>(g, s, mu, rs, sc, ds, pp, rows, w, chunk, st);
+  else if (s_dtype == kF32 && g_dtype == kF32) err = f2_bwd<float, float>(g, s, mu, rs, sc, ds, pp, rows, w, chunk, st);
+  else return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  return (int)column_sums(pp, (int)((rows + chunk - 1) / chunk), 2 * w,
+                          static_cast<float*>(dsb), st);
+}

@@ -17,6 +17,14 @@ accumulation inside the library, bf16 output), so a bias is added after one
 bf16 round where the TPU package adds it before; the difference is one bf16
 rounding, inside the bf16 noise class.
 
+Both layers, and the embedding LayerNorm, run their elementwise chains
+through ops/fused_layer.py, where XLA fuses them in the TPU package: F1
+(`bias_act`: each GEMM's bias add, with the GeLU after ffn_in) and F2
+(`add_layer_norm`: the residual add with its LayerNorm), CUDA kernels on the
+card and their plain versions on the CPU. They save only the GEMM output and
+the rounded residual sum with its row statistics, where the op-by-op chains
+saved an f32 tensor at every step.
+
 Training (`deterministic=False`) runs the exact layer with dropout at the
 TPU package's four sites (embedding output, attention probabilities,
 attention output, FFN output) and builds an autograd graph; the inference
@@ -56,10 +64,11 @@ from typing import Any
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from blp_tpu_torch.ops.fused_layer import add_layer_norm, bias_act
+from blp_tpu_torch.ops.fused_layer import poly_gelu  # noqa: F401  (public name)
 from blp_tpu_torch.parallel import comm
 from blp_tpu_torch.utils import fold_seed
 
@@ -312,63 +321,30 @@ def _policy(saved):
 _REMAT_POLICIES = {"dots": _policy(_DOT_OPS), "names": _policy(_NAME_OPS)}
 
 
-def _layer_norm(x, scale, bias, eps: float, out_dtype=None):
-    """LayerNorm with float32 statistics; `out_dtype` is the dtype the
-    residual stream is carried in."""
-    x32 = x.to(torch.float32)
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = torch.square(x32 - mean).mean(dim=-1, keepdim=True)
-    out = (x32 - mean) * torch.rsqrt(var + eps) * scale + bias
-    return out.to(out_dtype) if out_dtype is not None else out
-
-
 def _matmul(x, w, dtype):
     """x @ w in `dtype`: f32 products in f32; bf16 operands through the bf16
     GEMM (f32 accumulation, bf16 output)."""
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 
-def _dense(x, w, b, dtype, out_dtype=None, model=None):
-    """Matmul in `dtype` plus the bias in f32; `out_dtype` (default f32) is
-    the dtype carried forward. `model`: the tensor-parallel axis of a
-    row-parallel product, whose f32 partial products are summed over it
-    before the bias is added once."""
-    out = _matmul(x, w, dtype).to(torch.float32)
+def _dense(x, w, b, dtype, out_dtype=None, model=None, act: str = "none"):
+    """Matmul in `dtype`, then F1: the bias in f32 and the activation `act`
+    ("none", "erf" or "poly"); `out_dtype` (default f32) is the dtype carried
+    forward. `model`: the tensor-parallel axis of a row-parallel product,
+    whose f32 partial products are summed over it before the bias is added
+    once."""
+    out = _matmul(x, w, dtype)
     if model is not None:
-        out = comm.reduce_from(out, model)
-    out = out + b
-    return out.to(out_dtype) if out_dtype is not None else out
-
-
-# Degree-6 minimax fit of Phi(x) - 0.5 as x * p(x^2) on [0, 4] (Phi = the
-# exact-GeLU gaussian CDF). Max abs error of the resulting GeLU is 4.2e-4 on
-# the fitted range; |x| is clamped to 4 for the polynomial argument and the
-# ORIGINAL x multiplies Phi, so large activations pass through with relative
-# error <= 3.2e-5 (= 1 - Phi(4)). Same coefficients as the TPU package.
-_POLY_GELU_C = (0.3985269463542832, -0.06538842792339565, 0.009112993720802636,
-                -0.0008789911715555882, 5.4191581420189626e-05,
-                -1.8919542111355878e-06, 2.816234526830968e-08)
-
-
-def poly_gelu(x):
-    """Exact-GeLU (erf) to beyond-bf16 accuracy through the polynomial above;
-    evaluated in f32, returned in x's dtype."""
-    xf = x.to(torch.float32)
-    xc = torch.clamp(xf, -4.0, 4.0)
-    u = xc * xc
-    p = torch.full_like(u, _POLY_GELU_C[6])
-    for c in _POLY_GELU_C[5::-1]:
-        p = p * u + c
-    phi = torch.clamp(0.5 + xc * p, 0.0, 1.0)
-    return (xf * phi).to(x.dtype)
+        out = comm.reduce_from(out.to(torch.float32), model)
+    return bias_act(out, b, act, out_dtype or torch.float32)
 
 
 def _head_major(x, w, b, nh: int, hd: int, dt):
     """(B, S, H) @ (H, nh*hd) + b -> (B, nh, S, hd) in dt (the TPU package's
     head-major projection einsum "bsh,hnd->bnsd")."""
     B, S, _ = x.shape
-    out = _matmul(x, w, dt).to(torch.float32) + b
-    return out.reshape(B, S, nh, hd).permute(0, 2, 1, 3).to(dt).contiguous()
+    out = bias_act(_matmul(x, w, dt), b, "none", dt)
+    return out.reshape(B, S, nh, hd).permute(0, 2, 1, 3).contiguous()
 
 
 def _encoder_layer_fast(cfg: BertConfig, x, mask_arg, lp: dict):
@@ -401,13 +377,12 @@ def _encoder_layer_fast(cfg: BertConfig, x, mask_arg, lp: dict):
         ctx = ctx.permute(0, 2, 1, 3).reshape(B, S, H)
 
     attn_out = _dense(ctx, lp["attn_out_w"], lp["attn_out_b"], dt, dt)
-    x = _layer_norm(x + attn_out, lp["attn_ln_scale"], lp["attn_ln_bias"],
-                    cfg.layer_norm_eps, out_dtype=dt)
-    ffn = _dense(x, lp["ffn_in_w"], lp["ffn_in_b"], dt, dt)
-    ffn = poly_gelu(ffn)
+    x = add_layer_norm(x, attn_out, lp["attn_ln_scale"], lp["attn_ln_bias"],
+                       cfg.layer_norm_eps, dt)
+    ffn = _dense(x, lp["ffn_in_w"], lp["ffn_in_b"], dt, dt, act="poly")
     ffn = _dense(ffn, lp["ffn_out_w"], lp["ffn_out_b"], dt, dt)
-    return _layer_norm(x + ffn, lp["ffn_ln_scale"], lp["ffn_ln_bias"],
-                       cfg.layer_norm_eps, out_dtype=dt)
+    return add_layer_norm(x, ffn, lp["ffn_ln_scale"], lp["ffn_ln_bias"],
+                          cfg.layer_norm_eps, dt)
 
 
 def _use_fast_inference(cfg: BertConfig) -> bool:
@@ -466,20 +441,23 @@ def _encoder_layer(cfg: BertConfig, x, mask_bias, lp: dict, seeds=None,
     if seeds is not None and rate > 0.0:
         attn_out = _rng_dropout(attn_out, seeds[1], rate, cfg.dropout_bits,
                                 part.block(attn_out))
-    x = _layer_norm(x + attn_out, lp["attn_ln_scale"], lp["attn_ln_bias"],
-                    cfg.layer_norm_eps, out_dtype=res_dt)
+    x = add_layer_norm(x, attn_out, lp["attn_ln_scale"], lp["attn_ln_bias"],
+                       cfg.layer_norm_eps, res_dt)
     xin = comm.copy_to(x, model) if model is not None else x
-    ffn = tag(_dense(xin, lp["ffn_in_w"], lp["ffn_in_b"], dt, dt), "ffn_pre")
-    if cfg.fast_train and dt != torch.float32:
-        ffn = poly_gelu(ffn)
+    act = "poly" if cfg.fast_train and dt != torch.float32 else "erf"
+    if names:
+        # ffn_pre is the biased, rounded pre-activation, as the TPU package
+        # tags it: F1's bias add, the tag, then F1's activation.
+        pre = tag(_dense(xin, lp["ffn_in_w"], lp["ffn_in_b"], dt, dt), "ffn_pre")
+        ffn = bias_act(pre, None, act, dt)
     else:
-        ffn = F.gelu(ffn)
+        ffn = _dense(xin, lp["ffn_in_w"], lp["ffn_in_b"], dt, dt, act=act)
     ffn = _dense(ffn, lp["ffn_out_w"], lp["ffn_out_b"], dt, od, model)
     if seeds is not None and rate > 0.0:
         ffn = _rng_dropout(ffn, seeds[2], rate, cfg.dropout_bits,
                            part.block(ffn))
-    return _layer_norm(x + ffn, lp["ffn_ln_scale"], lp["ffn_ln_bias"],
-                       cfg.layer_norm_eps, out_dtype=res_dt)
+    return add_layer_norm(x, ffn, lp["ffn_ln_scale"], lp["ffn_ln_bias"],
+                          cfg.layer_norm_eps, res_dt)
 
 
 def embed_inputs(params: dict, input_ids, attention_mask, cfg: BertConfig):
@@ -496,8 +474,8 @@ def embed_inputs(params: dict, input_ids, attention_mask, cfg: BertConfig):
     x = emb["word"][input_ids.long()]
     x = x + emb["position"][:S][None, :, :]
     x = x + emb["token_type"][0][None, None, :]
-    x = _layer_norm(x, emb["ln_scale"], emb["ln_bias"], cfg.layer_norm_eps,
-                    out_dtype=res_dt)
+    x = add_layer_norm(x, None, emb["ln_scale"], emb["ln_bias"],
+                       cfg.layer_norm_eps, res_dt)
 
     pack = cfg.seq_pack
     if pack == "auto":

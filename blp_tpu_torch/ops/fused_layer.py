@@ -1,0 +1,423 @@
+"""F1 and F2: the BERT layer's elementwise chains as two CUDA kernels.
+
+The JAX package has no Pallas kernel here: XLA fuses each chain of
+blp_tpu/models/bert.py (the bias add of `_dense` :282 with `poly_gelu` :305
+or `jax.nn.gelu`, and the residual add with `_layer_norm` :270), so the
+training pass keeps only the bf16 GEMM outputs. Run op by op in PyTorch, the
+same chains allocate an f32 tensor at every step (poly-GeLU's Horner loop,
+each clamp and product, three per LayerNorm) and autograd saves each of them:
+~190 KB a token for a BERT-base training layer under `fast_train`, ~48 KB
+without, against ~33 KB with the fused chains.
+
+F1, `bias_act(h, b, act, out_dtype)`: y = act(round_out(h + b)). h is the
+GEMM output (bf16, or f32 where tensor parallelism sums f32 partials before
+the bias), b f32 or None; the add is f32, rounded to `out_dtype`, and the
+activation ("none", "erf" as F.gelu, "poly" as `poly_gelu`) is evaluated in
+f32 from that rounded value and rounded again. The backward saves h and b
+(nothing for "none"), recomputes the rounded pre-activation, and returns
+dh = round_h(round_out(g * act'(pre))) and db, the f32 sum over rows of
+round_out(g * act'(pre)); for "none" with h in g's dtype, dh is g and the
+kernel only sums db. For "poly", act' is the derivative autograd takes
+of `poly_gelu` (the clamps pass gradient on their closed ranges, as torch's
+`clamp`), not the exact erf derivative.
+
+F2, `add_layer_norm(x, r, scale, bias, eps, out_dtype)`: y = LN(round(x + r))
+with f32 mean and variance, f32 scale and bias (r None: LN(x)). It saves the
+rounded sum s in its own dtype and the per-row f32 mean and rstd; the
+backward returns ds for both x and r, and dscale and dbias as f32 sums over
+rows.
+
+The CUDA kernels (csrc/fused_layer.cu) read and write 16-byte vectors and
+reduce db, dscale and dbias over rows in a fixed order, without atomics, so
+two calls give the same bits. `bias_act_plain` and `add_layer_norm_plain`
+are the arithmetic of the unfused layer. On CPU tensors the forwards run
+them, and the backwards recompute them from the saved set and differentiate
+them with torch.autograd, so CPU results equal the unfused chain's bit for
+bit while saving only the small set; CUDA tensors launch the kernels or
+raise. There is no fallback between the two.
+
+The wrappers allocate every output with torch ops and launch on the current
+stream: the selective checkpoint policies (models/bert.py) do not see a
+ctypes launch, so they recompute it.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from blp_tpu_torch.ops import _cuda
+
+#: Activation ids of the C entry points.
+ACTS = {"none": 0, "erf": 1, "poly": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: Elements a thread moves per step: 16 bytes of bf16.
+VEC = 8
+#: The backward kernels reduce over row chunks of at least this many rows,
+#: and into at most MAX_CHUNKS chunk partials.
+MIN_CHUNK_ROWS, MAX_CHUNKS = 32, 1024
+#: F2's kernel holds a row in one warp's registers: 16 vectors a lane.
+MAX_LN_WIDTH = 4096
+
+#: Kernel launches since the last reset, per wrapper (plain counters;
+#: chip_smoke.py reads them), and the same launches by kernel and variant:
+#: ("bias_act", "<act> <h dtype>-><out dtype>"), ("add_layer_norm",
+#: "<x+r or x> <x dtype>-><out dtype>") and their "... backward" kernels.
+bias_act_launches = 0
+bias_act_backward_launches = 0
+add_layer_norm_launches = 0
+add_layer_norm_backward_launches = 0
+launches_by_variant: collections.Counter = collections.Counter()
+
+
+# Degree-6 minimax fit of Phi(x) - 0.5 as x * p(x^2) on [0, 4] (Phi = the
+# exact-GeLU gaussian CDF). Max abs error of the resulting GeLU is 4.2e-4 on
+# the fitted range; |x| is clamped to 4 for the polynomial argument and the
+# ORIGINAL x multiplies Phi, so large activations pass through with relative
+# error <= 3.2e-5 (= 1 - Phi(4)). Same coefficients as the TPU package.
+_POLY_GELU_C = (0.3985269463542832, -0.06538842792339565, 0.009112993720802636,
+                -0.0008789911715555882, 5.4191581420189626e-05,
+                -1.8919542111355878e-06, 2.816234526830968e-08)
+
+
+def poly_gelu(x):
+    """Exact-GeLU (erf) to beyond-bf16 accuracy through the polynomial above;
+    evaluated in f32, returned in x's dtype."""
+    xf = x.to(torch.float32)
+    xc = torch.clamp(xf, -4.0, 4.0)
+    u = xc * xc
+    p = torch.full_like(u, _POLY_GELU_C[6])
+    for c in _POLY_GELU_C[5::-1]:
+        p = p * u + c
+    phi = torch.clamp(0.5 + xc * p, 0.0, 1.0)
+    return (xf * phi).to(x.dtype)
+
+
+def _act_plain(pre, act: str):
+    if act == "none":
+        return pre
+    if act == "erf":
+        return F.gelu(pre)
+    if act == "poly":
+        return poly_gelu(pre)
+    raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
+
+
+def bias_act_plain(h, b, act: str, out_dtype):
+    """F1's function in plain PyTorch: the bias added in f32, rounded to
+    out_dtype, then the activation in f32 from the rounded value."""
+    pre = h.to(torch.float32)
+    if b is not None:
+        pre = pre + b
+    return _act_plain(pre.to(out_dtype), act)
+
+
+def _layer_norm_stats(s, scale, bias, eps: float, out_dtype):
+    """LayerNorm of s with float32 statistics, and its (rows, 1) f32 mean
+    and rstd; `out_dtype` (None: f32) is the dtype the residual stream is
+    carried in."""
+    x32 = s.to(torch.float32)
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = torch.square(x32 - mean).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    out = (x32 - mean) * rstd * scale + bias
+    return (out.to(out_dtype) if out_dtype is not None else out), mean, rstd
+
+
+def add_layer_norm_plain(x, r, scale, bias, eps: float, out_dtype=None):
+    """F2's function in plain PyTorch: LayerNorm of x + r (of x when r is
+    None) with float32 statistics."""
+    s = x if r is None else x + r
+    return _layer_norm_stats(s, scale, bias, eps, out_dtype)[0]
+
+
+# -- the kernels ---------------------------------------------------------------
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+#: ctypes signatures of the C entry points, bound once at first use.
+_SIGNATURES = {
+    "bias_act_forward": [_P] * 3 + [_L] + [_I] * 4 + [_P],
+    "bias_act_backward": [_P] * 6 + [_L] + [_I] * 6 + [_P],
+    "add_layer_norm_forward": [_P] * 8 + [_L] + [_I] * 3 + [_F, _P],
+    "add_layer_norm_backward": [_P] * 8 + [_L] + [_I] * 4 + [_P],
+}
+_entry: dict = {}
+
+
+def _bound(name: str):
+    """The C entry point `name` of csrc/fused_layer.cu with its signature."""
+    fn = _entry.get(name)
+    if fn is None:
+        lib = _cuda.load("fused_layer")
+        for sym, argtypes in _SIGNATURES.items():
+            f = getattr(lib, sym)
+            f.restype, f.argtypes = ctypes.c_int, argtypes
+            _entry[sym] = f
+        fn = _entry[name]
+    return fn
+
+
+def chunk_rows(rows: int) -> int:
+    """Rows a backward block reduces into one partial of db, dscale and
+    dbias: at least MIN_CHUNK_ROWS, and enough for at most MAX_CHUNKS
+    chunks. A function of the row count alone, so the reduction order is
+    too."""
+    return max(MIN_CHUNK_ROWS, -(-rows // MAX_CHUNKS))
+
+
+def _dtype_id(t_dtype, what: str) -> int:
+    if t_dtype not in _DTYPES:
+        raise TypeError(f"fused_layer: {what} must be float32 or bfloat16, "
+                        f"got {t_dtype}")
+    return _DTYPES[t_dtype]
+
+
+def _rows(t, w: int, what: str):
+    """t as a contiguous (rows, w) tensor on t's CUDA device, 16-byte
+    aligned: a non-contiguous tensor is copied; a misaligned one raises."""
+    if not t.is_cuda:
+        raise ValueError(f"fused_layer: {what} is not on a CUDA device")
+    if w % VEC:
+        raise ValueError(f"fused_layer: width {w} of {what} is not a multiple "
+                         f"of {VEC} (the kernels move {VEC}-element vectors)")
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError(f"fused_layer: {what} is not 16-byte aligned "
+                         f"(address {t.data_ptr():#x})")
+    return t.reshape(-1, w)
+
+
+def _vector(v, w: int, device, what: str):
+    """A per-column (w,) f32 vector on `device` (None stays None)."""
+    if v is None:
+        return None
+    if tuple(v.shape) != (w,):
+        raise ValueError(f"fused_layer: {what} {tuple(v.shape)} is not ({w},)")
+    v = v.to(device, torch.float32)
+    return _rows(v, w, what).reshape(w)
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _bias_act_kernel(h, b, act: str, out_dtype):
+    global bias_act_launches
+    w = h.shape[-1]
+    h2 = _rows(h, w, "h")
+    b = _vector(b, w, h.device, "b")
+    y = torch.empty(h.shape, dtype=out_dtype, device=h.device)
+    if h2.numel() == 0:      # an empty grid is not a valid launch
+        return y
+    err = _bound("bias_act_forward")(
+        h2.data_ptr(), _ptr(b), y.data_ptr(), h2.shape[0], w,
+        _dtype_id(h.dtype, "h"), _dtype_id(out_dtype, "out_dtype"), ACTS[act],
+        _stream(h.device))
+    _cuda.check(err, "bias_act launch")
+    bias_act_launches += 1
+    launches_by_variant["bias_act", f"{act} {_NAMES[h.dtype]}->{_NAMES[out_dtype]}"] += 1
+    return y
+
+
+def _bias_act_backward_kernel(g, h, b, act: str, h_dtype, with_db: bool):
+    """(dh, db) from the cotangent g of y. h and b are read only to
+    recompute the pre-activation (act != "none"); db is None unless
+    `with_db`. For "none" with h in g's dtype, dh is g itself (both rounds
+    are exact), and the kernel only reduces db."""
+    global bias_act_backward_launches
+    dh_is_g = act == "none" and h_dtype == g.dtype
+    if dh_is_g and not with_db:
+        return g, None
+    w = g.shape[-1]
+    g2 = _rows(g, w, "g")
+    h2 = None if act == "none" else _rows(h, w, "h")
+    b = None if act == "none" else _vector(b, w, g.device, "b")
+    dh = g if dh_is_g else torch.empty(g.shape, dtype=h_dtype, device=g.device)
+    rows = g2.shape[0]
+    n_chunks = -(-rows // chunk_rows(rows))
+    f32 = dict(dtype=torch.float32, device=g.device)
+    partial = torch.empty((n_chunks, w), **f32) if with_db else None
+    db = torch.zeros(w, **f32) if with_db else None
+    if rows == 0:
+        return dh, db
+    err = _bound("bias_act_backward")(
+        g2.data_ptr(), _ptr(h2), _ptr(b), None if dh_is_g else dh.data_ptr(),
+        _ptr(partial),
+        _ptr(db), rows, w, _dtype_id(h_dtype, "h"), _dtype_id(g.dtype, "g"),
+        ACTS[act], chunk_rows(rows), int(with_db), _stream(g.device))
+    _cuda.check(err, "bias_act backward launch")
+    bias_act_backward_launches += 1
+    launches_by_variant["bias_act backward",
+                        f"{act} {_NAMES[h_dtype]}->{_NAMES[g.dtype]}"] += 1
+    return dh, db
+
+
+def _add_layer_norm_kernel(x, r, scale, bias, eps: float, out_dtype):
+    """(y, s, mean, rstd); x and r share a dtype (r may be None, s is then
+    x)."""
+    global add_layer_norm_launches
+    w = x.shape[-1]
+    if w > MAX_LN_WIDTH:
+        raise ValueError(f"fused_layer: width {w} of x is above {MAX_LN_WIDTH} "
+                         "(add_layer_norm holds a row in one warp's registers)")
+    x2 = _rows(x, w, "x")
+    r2 = None if r is None else _rows(r, w, "r")
+    scale = _vector(scale, w, x.device, "scale")
+    bias = _vector(bias, w, x.device, "bias")
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    s = x if r is None else torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    stat = dict(dtype=torch.float32, device=x.device)
+    mean = torch.empty(x.shape[:-1] + (1,), **stat)
+    rstd = torch.empty(x.shape[:-1] + (1,), **stat)
+    if x2.numel() == 0:
+        return y, s, mean, rstd
+    err = _bound("add_layer_norm_forward")(
+        x2.data_ptr(), _ptr(r2), scale.data_ptr(), bias.data_ptr(),
+        y.data_ptr(), None if r is None else s.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), x2.shape[0], w, _dtype_id(x.dtype, "x"),
+        _dtype_id(out_dtype, "out_dtype"), eps, _stream(x.device))
+    _cuda.check(err, "add_layer_norm launch")
+    add_layer_norm_launches += 1
+    launches_by_variant["add_layer_norm", f"{'x' if r is None else 'x+r'} "
+                        f"{_NAMES[x.dtype]}->{_NAMES[out_dtype]}"] += 1
+    return y, s, mean, rstd
+
+
+def _add_layer_norm_backward_kernel(g, s, mean, rstd, scale):
+    """(ds, dscale, dbias) from the cotangent g of y."""
+    global add_layer_norm_backward_launches
+    w = s.shape[-1]
+    g2 = _rows(g, w, "g")
+    s2 = _rows(s, w, "s")
+    rows = s2.shape[0]
+    mean, rstd = mean.contiguous(), rstd.contiguous()
+    scale = _vector(scale, w, s.device, "scale")
+    ds = torch.empty(s.shape, dtype=s.dtype, device=s.device)
+    n_chunks = -(-rows // chunk_rows(rows))
+    f32 = dict(dtype=torch.float32, device=s.device)
+    partial = torch.empty((n_chunks, 2 * w), **f32)
+    dsb = torch.zeros(2 * w, **f32)        # dscale, then dbias
+    if rows == 0:
+        return ds, dsb[:w], dsb[w:]
+    err = _bound("add_layer_norm_backward")(
+        g2.data_ptr(), s2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        scale.data_ptr(), ds.data_ptr(), partial.data_ptr(), dsb.data_ptr(),
+        rows, w, _dtype_id(s.dtype, "s"), _dtype_id(g.dtype, "g"),
+        chunk_rows(rows), _stream(s.device))
+    _cuda.check(err, "add_layer_norm backward launch")
+    add_layer_norm_backward_launches += 1
+    launches_by_variant["add_layer_norm backward",
+                        f"{_NAMES[s.dtype]}->{_NAMES[g.dtype]}"] += 1
+    return ds, dsb[:w], dsb[w:]
+
+
+# -- autograd ------------------------------------------------------------------
+
+class _BiasAct(torch.autograd.Function):
+    """F1. Saves h and b (nothing for act "none")."""
+
+    @staticmethod
+    def forward(ctx, h, b, act, out_dtype):
+        ctx.act, ctx.h_dtype, ctx.out_dtype = act, h.dtype, out_dtype
+        ctx.b_shape = None if b is None else b.shape
+        ctx.save_for_backward(*(() if act == "none" else (h, b)))
+        if h.is_cuda:
+            return _bias_act_kernel(h, b, act, out_dtype)
+        return bias_act_plain(h, b, act, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, b = ctx.saved_tensors if ctx.act != "none" else (None, None)
+        with_db = ctx.b_shape is not None and ctx.needs_input_grad[1]
+        if g.is_cuda:
+            dh, db = _bias_act_backward_kernel(g, h, b, ctx.act, ctx.h_dtype,
+                                               with_db)
+            return dh, db, None, None
+        # The unfused chain's backward, re-run on the recomputed
+        # pre-activation: the same ops, hence the same bits.
+        dpre = g
+        if ctx.act != "none":
+            with torch.enable_grad():
+                pre = bias_act_plain(h, b, "none", ctx.out_dtype)
+                pre = pre.detach().requires_grad_()
+                dpre, = torch.autograd.grad(_act_plain(pre, ctx.act), pre, g)
+        d32 = dpre.to(torch.float32)
+        db = d32.sum_to_size(ctx.b_shape) if with_db else None
+        return d32.to(ctx.h_dtype), db, None, None
+
+
+class _AddLayerNorm(torch.autograd.Function):
+    """F2. Saves the rounded sum s, the per-row mean and rstd, and scale and
+    bias (parameters, not activations)."""
+
+    @staticmethod
+    def forward(ctx, x, r, scale, bias, eps, out_dtype):
+        ctx.eps, ctx.out_dtype = eps, out_dtype
+        ctx.dtypes = (x.dtype, None if r is None else r.dtype)
+        if x.is_cuda:
+            if r is not None and r.dtype != x.dtype:
+                # x + r in its promoted dtype: both cast up exactly first.
+                st = torch.promote_types(x.dtype, r.dtype)
+                x, r = x.to(st), r.to(st)
+            y, s, mean, rstd = _add_layer_norm_kernel(x, r, scale, bias, eps,
+                                                      out_dtype)
+        else:
+            s = x if r is None else x + r
+            y, mean, rstd = _layer_norm_stats(s, scale, bias, eps, out_dtype)
+        ctx.save_for_backward(s, mean, rstd, scale, bias)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        s, mean, rstd, scale, bias = ctx.saved_tensors
+        if g.is_cuda:
+            ds, dscale, dbias = _add_layer_norm_backward_kernel(g, s, mean,
+                                                                rstd, scale)
+        else:
+            # The unfused LayerNorm's backward on the saved sum.
+            need = ctx.needs_input_grad
+            with torch.enable_grad():
+                s_ = s.detach().requires_grad_()
+                sc = scale.detach().requires_grad_(need[2])
+                bi = bias.detach().requires_grad_(need[3])
+                y = _layer_norm_stats(s_, sc, bi, ctx.eps, ctx.out_dtype)[0]
+                wrt = [t for t in (s_, sc, bi) if t.requires_grad]
+                got = iter(torch.autograd.grad(y, wrt, g))
+                ds = next(got)
+                dscale = next(got) if need[2] else None
+                dbias = next(got) if need[3] else None
+        x_dt, r_dt = ctx.dtypes
+        return (ds.to(x_dt), None if r_dt is None else ds.to(r_dt),
+                dscale, dbias, None, None)
+
+
+def bias_act(h, b, act: str = "none", out_dtype=torch.float32):
+    """F1: act(round_out(h + b)), differentiable in h and b.
+
+    h: (..., w) float32 or bfloat16 (the GEMM output); b: (w,) (f32 on the
+    kernel), or None for no bias; act: "none", "erf" or "poly"; out_dtype:
+    float32 or bfloat16. The kernel on CUDA tensors (w a multiple of 8,
+    16-byte aligned rows; it raises otherwise), the plain version on CPU
+    tensors."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
+    return _BiasAct.apply(h, b, act, out_dtype)
+
+
+def add_layer_norm(x, r, scale, bias, eps: float, out_dtype=None):
+    """F2: LayerNorm of x + r (of x when r is None) with float32 statistics,
+    differentiable in x, r, scale and bias; out_dtype None is float32.
+
+    x, r: (..., H) float32 or bfloat16; scale, bias: (H,). The kernel on
+    CUDA tensors (H a multiple of 8 up to 4,096, 16-byte aligned rows; it
+    raises otherwise), the plain version on CPU tensors."""
+    return _AddLayerNorm.apply(x, r, scale, bias, eps,
+                               torch.float32 if out_dtype is None else out_dtype)

@@ -139,13 +139,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    directory; (d) the flagship bench step (BERT-base bf16, B 128, L 32, K
    64) through `bench.measure` with 2 windows of 20 steps, `vs_baseline`
    against (c)'s file, which must be positive; (e) `family_bench` for every
-   family at 2 steps a window, each rate positive and finite, except
-   blp-w5m, which may run out of memory (the TPU bench's remat=4 at B
-   1,024, L 64 needs more than the card's 80 GB in the port); (f) `python
+   family at 2 steps a window, blp-w5m included, each rate positive and
+   finite; (f) `python
    -m torch.distributed.run --nproc-per-node 2 -m
    blp_tpu_torch.tools.scaling_bench --device cuda:0`: the train and
    eval_rank rows at (1, 1) and (2, 1) (2 gloo ranks on the card: overhead,
    not scaling).
+13. The layer's fused chains, F1 (bias + activation) and F2 (residual +
+   LayerNorm), after phase 12, before the timings of phase 7. (a) Each
+   against its plain version, forward and backward, at the main path's
+   variants and shapes (F1: none at 768 wide, erf and poly at 3072, over
+   the W5M train step's 131,072 rows and, forward, the encode chunk's
+   786,432; f32 h, f32 out and fp32 at 16,384 rows. F2: with r in bf16,
+   without r from f32 (the embedding LayerNorm), fp32): bf16 outputs and
+   dh within one bf16 ulp (F2's within one ulp plus 1e-5 of the largest,
+   the f32 order of its row sums), f32 outputs within rtol 1e-5, db,
+   dscale and dbias within rtol 1e-4 (atol 1e-4 of the largest), every
+   gradient identical across two backward calls; the plain references run
+   in row blocks of 16,384. Then, with every count set to 0 again: (b) the
+   TPU bench's W5M point (B 1,024, L 64, K 64, remat=4, fast_train, 8-bit
+   masks) through `bench.measure` with 2 windows of 10 steps: ms a step,
+   triples/s, peak memory below 80 GB; (c) phase 6 (c)'s remat=8 peak
+   beside its 30.85 GiB before; (d) one phase-1 chunk of 12,288 entities
+   at L 64 (BERT-base bf16, K2): ms, entities/s, peak beside 72.01 GiB.
 7. Time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function, at the main path's shapes
    (K3's backward: the kernel with its index bookkeeping against the plain
@@ -155,14 +171,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the sum of the counts read after phases 4-5 (inference), after phase 6
    (train) and after phase 8 (word models), each path driven with every
    count (K3's forward and backward each have one) set to 0 just before it,
-   plus phase 9's, phase 10's, phase 11's and phase 12's.
+   plus phase 9's to 13's.
    K1's record also counts its launches by variant and width (every
    main-path launch must take the "tma" variant, at d 128, 300 and 768),
    reads the SM clock right after its timing with the kernel running, and
    times the retained "scalar" variant beside it at each width. K2's record
    counts its launches by segment length (both 32 and 64 must occur) and
    times it again at the Wikidata5M phase-1 chunk (6,144 rows, seg 64)
-   under `at_seg64`.
+   under `at_seg64`. F1 and F2 (no Pallas counterpart: XLA fusions in the
+   TPU package) have a record each for forward and backward, with their
+   launches by variant, at the W5M train step's shapes (F1 poly at 131,072
+   x 3072, and none at 768 under `at_w768_none`; F2 at 131,072 x 768) and,
+   forward, at the encode chunk's (`at_encode`); their `library_ms` is
+   F.gelu or F.layer_norm (or their backward) on the already-added input,
+   which covers part of the function (`library_covers`), and for F1's
+   backward at "none" (db alone: dh is g) g's f32 column sum, all of it.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -198,7 +221,8 @@ from blp_tpu_torch.data.loader import epoch_batches, text_train_batch
 from blp_tpu_torch.data.synth import write_synth_dataset, write_tiny_glove
 from blp_tpu_torch.data.tokenizers import GloVeTokenizer, WordPieceTokenizer
 from blp_tpu_torch.models import bert, blp
-from blp_tpu_torch.ops import _cuda, packed_attention, sddmm, transe_rank
+from blp_tpu_torch.ops import (_cuda, fused_layer, packed_attention, sddmm,
+                               transe_rank)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -235,6 +259,35 @@ K3_TRANSE_OPS = 3
 # Its backward per task element: (h + r) - t (2), sign times -g (1), and the
 # three accumulates into the head, tail and relation gradients (3).
 K3_TRANSE_BWD_OPS = 6
+
+
+#: Each kernel's launch counter: (module, attribute), a plain int.
+COUNTERS = {"K1": (transe_rank, "launches"),
+            "K2": (packed_attention, "launches"),
+            "K3": (sddmm, "launches"),
+            "K3 backward": (sddmm, "backward_launches"),
+            "F1": (fused_layer, "bias_act_launches"),
+            "F1 backward": (fused_layer, "bias_act_backward_launches"),
+            "F2": (fused_layer, "add_layer_norm_launches"),
+            "F2 backward": (fused_layer, "add_layer_norm_backward_launches")}
+#: Launch counts split by shape or variant (Counters).
+BY_KEYS = ("K1 by variant", "K2 by seg", "F by variant")
+
+
+def reset_counts() -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+    transe_rank.launches_by_variant.clear()
+    packed_attention.launches_by_seg.clear()
+    fused_layer.launches_by_variant.clear()
+
+
+def read_counts() -> dict:
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+    counts["K1 by variant"] = collections.Counter(transe_rank.launches_by_variant)
+    counts["K2 by seg"] = collections.Counter(packed_attention.launches_by_seg)
+    counts["F by variant"] = collections.Counter(fused_layer.launches_by_variant)
+    return counts
 
 
 def log(msg: str) -> None:
@@ -1374,10 +1427,7 @@ def _mesh_rank(rank: int, n_ranks: int, rank_device: str, store: str,
                               "params_beyond": beyond, "grad_at_beyond": g_beyond}
         del params, step, got
         torch.cuda.empty_cache()
-    res["launches"] = {"K1": transe_rank.launches, "K2": packed_attention.launches,
-                       "K3": sddmm.launches, "K3 backward": sddmm.backward_launches,
-                       "K1 by variant": dict(transe_rank.launches_by_variant),
-                       "K2 by seg": dict(packed_attention.launches_by_seg)}
+    res["launches"] = read_counts()
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     with open(out_path % rank, "wb") as f:
@@ -1447,9 +1497,6 @@ def mesh_cli(data_dir: str, n_ranks: int = RANKS,
     return {"mesh_cli_s": run_s, "mesh_cli_resume_s": res_s,
             "mesh_cli_test_mrr_filt": [mesh_res[0]["test_mrr_filt"],
                                        one["test_mrr_filt"]]}
-
-
-BY_KEYS = ("K1 by variant", "K2 by seg")   # launch counts split by shape
 
 
 def mesh_phase(data_dir: str, cfg, read_counts) -> tuple[dict, dict]:
@@ -1607,15 +1654,17 @@ def mesh_ranks(data_dir: str, cfg, n_ranks: int = RANKS,
             f"{st['grad_at_beyond']:.3g}; ms per step by rank "
             f"{[[round(t, 1) for t in ms] for ms in steps[name]['ms']]}")
     launches = collections.Counter()
-    by_seg = collections.Counter()
+    by_seg, f_by = collections.Counter(), collections.Counter()
     for r in ranks:
         launches.update({k: v for k, v in r["launches"].items()
                          if k not in BY_KEYS})
         by_seg.update(r["launches"]["K2 by seg"])
+        f_by.update(r["launches"]["F by variant"])
     return ({"mesh_w5m": w, "mesh_w5m_one_ms": one_s * 1e3 / W5M_BATCHES,
              "mesh_encode_diff": diff, "mesh_steps": steps,
              "mesh_ref_loss": ref_loss, "mesh_ranks_s": ranks_s},
-            {**launches, "K1 by variant": by_variant, "K2 by seg": by_seg})
+            {**launches, "K1 by variant": by_variant, "K2 by seg": by_seg,
+             "F by variant": f_by})
 
 
 # -- phase 10: the modules that complete the port --------------------------------
@@ -2240,7 +2289,6 @@ def w5m_phase(read_counts) -> dict:
 SERVE_N = 1_000_000               # candidates of (b), the tool's default
 BENCH_WINDOWS = 2                 # (d): windows of 20 flagship steps
 FAMILY_REPS = 2                   # (e): steps a window
-FAMILY_OOM = {"blp-w5m"}          # (e): families known not to fit the card
 
 
 def bench_tools(read_counts) -> dict:
@@ -2302,23 +2350,13 @@ def bench_tools(read_counts) -> dict:
 
     family = []
     for model in family_bench.FAMILIES:
-        try:
-            row = family_bench.bench_family(model, reps=FAMILY_REPS)
-        except torch.OutOfMemoryError as e:
-            # The W5M point at the TPU bench's remat=4 does not fit the card
-            # (PERF.md, ROADMAP.md); every other family must run.
-            require(model in FAMILY_OOM, f"(e) {model}: {e}")
-            row = {"model": model, "out_of_memory_at_gib": round(
-                torch.cuda.max_memory_allocated() / 2**30, 2)}
-        else:
-            require(0 < row["triples_per_sec"] < float("inf"), f"(e) {row}")
+        row = family_bench.bench_family(model, reps=FAMILY_REPS)
+        require(0 < row["triples_per_sec"] < float("inf"), f"(e) {row}")
         family.append(row)
         torch.cuda.empty_cache()
     log("(e) family_bench --reps 2: " + "; ".join(
-        f"{r['model']} out of memory after {r['out_of_memory_at_gib']} GiB"
-        if "out_of_memory_at_gib" in r
-        else f"{r['model']} B {r['batch']} {r['ms_per_step']} ms "
-             f"{r['triples_per_sec']:,.0f} t/s peak {r['peak_mem_gib']} GiB"
+        f"{r['model']} B {r['batch']} {r['ms_per_step']} ms "
+        f"{r['triples_per_sec']:,.0f} t/s peak {r['peak_mem_gib']} GiB"
         for r in family))
     return {"rank_bench": rank, "rank_bench_launches": got, "serving": rows,
             "reference_baseline": base, "bench_flagship": {**flag, "windows_s": times},
@@ -2360,6 +2398,265 @@ def bench_phase(read_counts) -> dict:
     stats["phase12_s"] = time.perf_counter() - t0
     log(f"phase 12: {stats['phase12_s']:.1f} s")
     return stats
+
+
+# -- phase 13: the layer's fused chains (F1, F2) ---------------------------------
+
+W5M_TOKENS = 131_072              # the W5M train step: 2,048 descriptions x L 64
+ENCODE_CHUNK = 12_288             # the W5M scripts' emb_batch_size
+ENCODE_TOKENS = ENCODE_CHUNK * 64  # one phase-1 chunk at L 64
+F_CHECK_ROWS = 16_384             # rows of the f32 variants' checks
+F_BLOCK_ROWS = 16_384             # rows of one block of the plain references
+BERT_H, BERT_I = 768, 3072
+# The same peaks before F1 and F2 (PERF.md §5).
+W5M_PEAK_GIB_BEFORE, CHUNK_PEAK_GIB_BEFORE = 30.85, 72.01
+F_DT = {"bf16": torch.bfloat16, "f32": torch.float32}
+#: F1's checks: (act, h dtype, out dtype, rows, width, backward). The main
+#: path's variants: none at 768 (q, k, v, attn_out, ffn_out) and erf or poly
+#: at 3072 (ffn_in) at the W5M train step's and the encode chunk's rows; f32
+#: h under tensor parallelism, f32 out with mixed_precision_train off, f32
+#: throughout in fp32 mode.
+F1_CASES = (("none", "bf16", "bf16", W5M_TOKENS, BERT_H, True),
+            ("erf", "bf16", "bf16", W5M_TOKENS, BERT_I, True),
+            ("poly", "bf16", "bf16", W5M_TOKENS, BERT_I, True),
+            ("none", "bf16", "bf16", ENCODE_TOKENS, BERT_H, False),
+            ("poly", "bf16", "bf16", ENCODE_TOKENS, BERT_I, False),
+            ("none", "f32", "bf16", F_CHECK_ROWS, BERT_H, True),
+            ("none", "bf16", "f32", F_CHECK_ROWS, BERT_H, True),
+            ("none", "f32", "f32", F_CHECK_ROWS, BERT_H, True),
+            ("erf", "f32", "f32", F_CHECK_ROWS, BERT_I, True),
+            ("poly", "f32", "f32", F_CHECK_ROWS, BERT_I, True))
+#: F2's checks: (with r, x dtype, out dtype, rows, backward): the layers'
+#: residual LayerNorms and the embedding LayerNorm (f32 sum, no r).
+F2_CASES = ((True, "bf16", "bf16", W5M_TOKENS, True),
+            (False, "f32", "bf16", W5M_TOKENS, True),
+            (True, "bf16", "bf16", ENCODE_TOKENS, False),
+            (True, "f32", "f32", F_CHECK_ROWS, True),
+            (False, "f32", "f32", F_CHECK_ROWS, True))
+
+
+def within_ulp(got, want, atol: float = 0.0) -> bool:
+    """Every element of bf16 `got` within one bf16 ulp of `want` (plus
+    atol)."""
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    return bool(((got.float() - w).abs() <= ulp + atol).all())
+
+
+def f_close(got, want, *, rows_summed: bool = False) -> tuple[bool, float]:
+    """(within tolerance, max abs err). bf16: one bf16 ulp; f32: rtol 1e-5,
+    atol 1e-5 x max|want|. rows_summed (F2's outputs): plus 1e-5 x
+    max|want| for the f32 order of the row sums behind them."""
+    err = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
+    top = want.float().abs().max().item() if want.numel() else 0.0
+    if got.dtype == torch.bfloat16:
+        return within_ulp(got, want, 1e-5 * top if rows_summed else 0.0), err
+    return torch.allclose(got, want, rtol=1e-5, atol=1e-5 * top), err
+
+
+def sum_close(got, want) -> tuple[bool, float]:
+    """An f32 sum over rows (db, dscale, dbias): rtol 1e-4, atol 1e-4 x
+    max|want| (another order over up to 786,432 rows)."""
+    top = want.abs().max().item()
+    return (torch.allclose(got, want, rtol=1e-4, atol=1e-4 * top),
+            (got - want).abs().max().item())
+
+
+def f1_inputs(rows: int, w: int, h_dt, out_dt, seed: int):
+    """h (its range reaches past poly's clamp at +-4), f32 b, cotangent."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = (2.5 * torch.randn((rows, w), generator=g, device="cuda")).to(h_dt)
+    b = 0.5 * torch.randn(w, generator=g, device="cuda")
+    gy = torch.randn((rows, w), generator=g, device="cuda").to(out_dt)
+    return h, b, gy
+
+
+def f2_inputs(rows: int, with_r: bool, x_dt, out_dt, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (1.0 + torch.randn((rows, BERT_H), generator=g, device="cuda")).to(x_dt)
+    r = (0.5 * torch.randn((rows, BERT_H), generator=g, device="cuda")).to(x_dt)
+    scale = 1.0 + 0.1 * torch.randn(BERT_H, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(BERT_H, generator=g, device="cuda")
+    gy = torch.randn((rows, BERT_H), generator=g, device="cuda").to(out_dt)
+    return x, (r if with_r else None), scale, bias, gy
+
+
+def _plain_blocks(fn, args_rows, args_fixed, gy, backward: bool):
+    """The plain version run over row blocks of F_BLOCK_ROWS (its autograd
+    graph at the full shape would hold tens of GB): the output, the
+    gradients of the row inputs, and those of the fixed inputs summed over
+    the blocks."""
+    ys, d_rows, d_fixed = [], [], None
+    rows = args_rows[0].shape[0]
+    for i in range(0, rows, F_BLOCK_ROWS):
+        part = [a[i:i + F_BLOCK_ROWS].detach().requires_grad_(backward)
+                for a in args_rows]
+        fixed = [a.detach().requires_grad_(backward) for a in args_fixed]
+        with torch.set_grad_enabled(backward):
+            y = fn(*part, *fixed)
+        if backward:
+            got = torch.autograd.grad(y, part + fixed, gy[i:i + F_BLOCK_ROWS])
+            d_rows.append(got[:len(part)])
+            dfx = got[len(part):]
+            d_fixed = dfx if d_fixed is None else [a + b for a, b in zip(d_fixed, dfx)]
+        ys.append(y.detach())
+    cat = [torch.cat(d) for d in zip(*d_rows)] if backward else None
+    return torch.cat(ys), cat, d_fixed
+
+
+def check_f1() -> dict:
+    """(a), F1: each case's output, dh and db against the plain version;
+    dh and db identical across two backward calls."""
+    errs = {}
+    for i, (act, hd, od, rows, w, backward) in enumerate(F1_CASES):
+        h, b, gy = f1_inputs(rows, w, F_DT[hd], F_DT[od], seed=30 + i)
+        plain = lambda hh, bb: fused_layer.bias_act_plain(hh, bb, act, F_DT[od])  # noqa: E731,B023
+        want, d_want, db_want = _plain_blocks(plain, [h], [b], gy, backward)
+        hh = h.detach().requires_grad_(backward)
+        bb = b.detach().requires_grad_(backward)
+        with torch.set_grad_enabled(backward):
+            got = fused_layer.bias_act(hh, bb, act, F_DT[od])
+        ok, err = f_close(got, want)
+        what = f"F1 {act} {hd}->{od} at {rows:,} x {w}"
+        require(ok, f"{what}: y differs from the plain version (max abs err {err})")
+        rec = {"y": err}
+        del want
+        if backward:
+            calls = [torch.autograd.grad(got, (hh, bb), gy, retain_graph=True)
+                     for _ in range(2)]
+            (dh, db), (dh2, db2) = calls
+            require(torch.equal(dh, dh2) and torch.equal(db, db2),
+                    f"{what}: dh or db differ between two backward calls")
+            ok, rec["dh"] = f_close(dh, d_want[0])
+            require(ok, f"{what}: dh differs (max abs err {rec['dh']})")
+            ok, rec["db"] = sum_close(db, db_want[0])
+            require(ok, f"{what}: db differs (max abs err {rec['db']})")
+            rec["dh_equal"] = bool(torch.equal(dh, d_want[0]))
+            del calls, dh, db, dh2, db2, d_want
+        log(f"F1 check {what}: " + ", ".join(f"{k} {v:.3g}" if isinstance(v, float)
+                                             else f"{k} {v}" for k, v in rec.items()))
+        errs[what] = rec
+        del h, b, gy, got, hh, bb
+        torch.cuda.empty_cache()
+    return errs
+
+
+def check_f2() -> dict:
+    """(a), F2: each case's output, ds, dscale and dbias against the plain
+    version; identical across two backward calls."""
+    errs = {}
+    eps = bert.BertConfig().layer_norm_eps
+    for i, (with_r, xd, od, rows, backward) in enumerate(F2_CASES):
+        x, r, scale, bias, gy = f2_inputs(rows, with_r, F_DT[xd], F_DT[od], 40 + i)
+        if with_r:
+            plain = lambda xx, rr, sc, bi: fused_layer.add_layer_norm_plain(  # noqa: E731,B023
+                xx, rr, sc, bi, eps, F_DT[od])
+            want, d_rows, d_fixed = _plain_blocks(plain, [x, r], [scale, bias], gy,
+                                                  backward)
+        else:
+            plain = lambda xx, sc, bi: fused_layer.add_layer_norm_plain(  # noqa: E731,B023
+                xx, None, sc, bi, eps, F_DT[od])
+            want, d_rows, d_fixed = _plain_blocks(plain, [x], [scale, bias], gy,
+                                                  backward)
+        ins = [t.detach().requires_grad_(backward) for t in (x, r, scale, bias)
+               if t is not None]
+        with torch.set_grad_enabled(backward):
+            got = fused_layer.add_layer_norm(ins[0], ins[1] if with_r else None,
+                                             ins[-2], ins[-1], eps, F_DT[od])
+        ok, err = f_close(got, want, rows_summed=True)
+        what = f"F2 {'x+r' if with_r else 'x'} {xd}->{od} at {rows:,} x {BERT_H}"
+        require(ok, f"{what}: y differs from the plain version (max abs err {err})")
+        rec = {"y": err, "y_over_1ulp": over_one_ulp(got, want)
+               if got.dtype == torch.bfloat16 else 0.0}
+        del want
+        if backward:
+            calls = [torch.autograd.grad(got, ins, gy, retain_graph=True)
+                     for _ in range(2)]
+            require(all(torch.equal(a, b) for a, b in zip(*calls)),
+                    f"{what}: gradients differ between two backward calls")
+            grads = calls[0]
+            if with_r:
+                require(torch.equal(grads[0], grads[1]), f"{what}: dx != dr")
+            ok, rec["ds"] = f_close(grads[0], d_rows[0], rows_summed=True)
+            require(ok, f"{what}: ds differs (max abs err {rec['ds']})")
+            rec["ds_over_1ulp"] = (over_one_ulp(grads[0], d_rows[0])
+                                   if grads[0].dtype == torch.bfloat16 else 0.0)
+            for name, got_d, want_d in zip(("dscale", "dbias"), grads[-2:], d_fixed):
+                ok, rec[name] = sum_close(got_d, want_d)
+                require(ok, f"{what}: {name} differs (max abs err {rec[name]})")
+            del calls, grads, d_rows, d_fixed
+        log(f"F2 check {what}: " + ", ".join(f"{k} {v:.3g}" for k, v in rec.items()))
+        errs[what] = rec
+        del x, r, scale, bias, gy, got, ins
+        torch.cuda.empty_cache()
+    return errs
+
+
+def w5m_point() -> dict:
+    """(b): the TPU bench's W5M point (B 1,024, L 64, K 64, remat=4,
+    fast_train, 8-bit masks) through bench.measure, BENCH_WINDOWS windows."""
+    from blp_tpu_torch import bench
+
+    (B, L, K), (steps, warmup, _) = bench.W5M["shape"], bench.W5M["timing"]
+    torch.cuda.reset_peak_memory_stats()
+    times = bench.measure(B, L, K, steps, warmup, BENCH_WINDOWS,
+                          bench.model_config(bench.W5M), DEVICE)
+    peak = torch.cuda.max_memory_allocated()
+    rep = bench.report(B, times, w5m=True)
+    require(rep["value"] > 0 and peak < 80e9, f"(b) W5M point: {rep}, peak {peak}")
+    log(f"(b) bench --w5m point (B {B}, L {L}, K {K}, remat=4, fast_train, 8-bit "
+        f"masks): windows {[round(t * 1e3, 1) for t in times]} ms a step, "
+        f"{rep['value']} triples/s, peak {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated; out of memory at 78.06 GiB before F1 and F2)")
+    return {"w5m_point_s": times, "w5m_point_triples_per_s": rep["value"],
+            "w5m_point_peak_bytes": peak}
+
+
+def encode_chunk() -> dict:
+    """(d): one phase-1 chunk of the W5M scripts' keys, 12,288 entities at L
+    64 through BERT-base bf16 with K2: peak memory and entities/s."""
+    cfg, params = make_model(num_relations=12)
+    rng = np.random.default_rng(13)
+    ids = torch.from_numpy(rng.integers(1, BERT_VOCAB, (ENCODE_CHUNK, 64))).cuda()
+    lens = torch.from_numpy(rng.integers(8, 65, ENCODE_CHUNK)).cuda()
+    mask = (torch.arange(64, device="cuda")[None] < lens[:, None]).float()
+    view = blp.encode_view(params, cfg)
+    blp.encode(view, cfg, ids, mask, device=DEVICE)          # warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, s = wall(lambda: blp.encode(view, cfg, ids, mask, device=DEVICE))
+    peak = torch.cuda.max_memory_allocated()
+    require(out.shape == (ENCODE_CHUNK, 128) and bool(torch.isfinite(out).all()),
+            f"(d) encode chunk: {tuple(out.shape)}")
+    log(f"(d) phase-1 chunk of {ENCODE_CHUNK:,} entities at L 64 (BERT-base "
+        f"bf16, K2 at seg 64): {s * 1e3:.1f} ms, {ENCODE_CHUNK / s:,.0f} "
+        f"entities/s, peak {peak / 2**30:.2f} GiB (before F1 and F2: "
+        f"{CHUNK_PEAK_GIB_BEFORE} GiB)")
+    del params, view, out
+    return {"encode_chunk_s": s, "encode_chunk_entities_per_s": ENCODE_CHUNK / s,
+            "encode_chunk_peak_bytes": peak}
+
+
+def fused_phase(w5m_remat8_peak: int) -> tuple[dict, dict]:
+    """Phase 13: (a) F1 and F2 against their plain versions (not counted);
+    then, with every count set to 0, (b) the W5M point, (c) phase 6's
+    remat=8 peak beside its figure before, (d) the encode chunk. Returns the
+    stats and the launches of (b) and (d)."""
+    t0 = time.perf_counter()
+    stats = {"f1_check": check_f1(), "f2_check": check_f2()}
+    torch.cuda.empty_cache()
+    reset_counts()
+    stats.update(w5m_point())
+    torch.cuda.empty_cache()
+    log(f"(c) W5M train step at remat=8 (phase 6 (c)): peak "
+        f"{w5m_remat8_peak / 2**30:.2f} GiB (before F1 and F2: "
+        f"{W5M_PEAK_GIB_BEFORE} GiB)")
+    stats.update(encode_chunk())
+    launches = read_counts()
+    torch.cuda.empty_cache()
+    stats["phase13_s"] = time.perf_counter() - t0
+    log(f"phase 13: {stats['phase13_s']:.1f} s")
+    return stats, launches
 
 
 # -- phase 7: timings at the main path's shapes ----------------------------------
@@ -2574,6 +2871,212 @@ def time_k3(launches: int, backward_launches: int) -> list[dict]:
              **{k: fb[1] for k, fb in words.items()}}]
 
 
+# F1's and F2's f32 operations an element, counted in csrc/fused_layer.cu's
+# formulas (erff and expf one each; the poly backward recomputes the forward).
+F1_OPS = {"none": 1, "erf": 6, "poly": 21}
+F1_BWD_OPS = {"none": 1, "erf": 14, "poly": 48}
+F2_OPS, F2_BWD_OPS = 9, 14
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    t_ops, t_bytes = ops / FP32_ADDS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _blockwise(fn, rows: int, block: int = W5M_TOKENS):
+    """fn(start, stop) over row blocks: the plain versions at the encode
+    chunk's rows, whose f32 temporaries at once would not fit."""
+    return lambda: [fn(i, min(i + block, rows)) for i in range(0, rows, block)]
+
+
+def _time_f1_at(act: str, rows: int, w: int) -> dict:
+    """F1's forward at (rows, w) bf16: kernel and plain ms (CUDA events),
+    F.gelu on the biased input (the library's nearest call: the erf
+    activation alone), the bound (h and y in bf16 and b, or its operations)."""
+    bf = torch.bfloat16
+    h, b, _ = f1_inputs(rows, w, bf, bf, seed=50)
+    with torch.no_grad():
+        got = fused_layer.bias_act(h, b, act, bf)
+        want = torch.cat(_blockwise(lambda i, j: fused_layer.bias_act_plain(
+            h[i:j], b, act, bf), rows)())
+        err = (got.float() - want.float()).abs().max().item()
+        require(within_ulp(got, want), f"F1 {act} at {rows} x {w}: error {err}")
+        del got, want
+        ms = cuda_ms(lambda: fused_layer.bias_act(h, b, act, bf), reps=20, warmup=3)
+        plain_ms = cuda_ms(_blockwise(lambda i, j: fused_layer.bias_act_plain(
+            h[i:j], b, act, bf), rows), reps=3)
+        pre = fused_layer.bias_act_plain(h, b, "none", bf)
+        library_ms = cuda_ms(lambda: torch.nn.functional.gelu(pre), reps=20, warmup=3)
+    del h, pre
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **_bound(4.0 * rows * w + 4.0 * w, float(F1_OPS[act]) * rows * w),
+            "library_ms": library_ms, "library_covers":
+                "F.gelu (erf) on the biased bf16 input: the activation alone",
+            "shape": f"{rows:,} x {w} {act} bf16->bf16"}
+
+
+def _time_f1_backward_at(act: str, rows: int, w: int) -> dict:
+    """F1's backward kernel (dh and db, the column sums included; for
+    "none", where dh is g, db alone) against the plain chain's VJP
+    (recomputed from h and b, as the CPU backward does) and the nearest
+    library call: aten.gelu_backward on the rounded pre-activation, or for
+    "none" g's f32 column sum, which is the whole function."""
+    bf = torch.bfloat16
+    h, b, gy = f1_inputs(rows, w, bf, bf, seed=51)
+
+    def plain_vjp():
+        with torch.enable_grad():
+            hh, bb = h.detach().requires_grad_(), b.detach().requires_grad_()
+            return torch.autograd.grad(fused_layer.bias_act_plain(hh, bb, act, bf),
+                                       (hh, bb), gy)
+
+    kernel = lambda: fused_layer._bias_act_backward_kernel(gy, h, b, act, bf, True)  # noqa: E731
+    (dh, db), (dh_p, db_p) = kernel(), plain_vjp()
+    err = (dh.float() - dh_p.float()).abs().max().item()
+    require(within_ulp(dh, dh_p) and sum_close(db, db_p)[0],
+            f"F1 backward {act} at {rows} x {w}: dh error {err}")
+    del dh, db, dh_p, db_p
+    ms = cuda_ms(kernel, reps=20, warmup=3)
+    plain_ms = cuda_ms(plain_vjp, reps=2)
+    if act == "none":
+        library_ms = cuda_ms(lambda: gy.sum(0, dtype=torch.float32), reps=20,
+                             warmup=3)
+        covers = "g.sum(0, dtype=torch.float32): all of it (dh is g)"
+        # g read (bf16), db written (f32).
+        nbytes = 2.0 * rows * w + 4.0 * w
+    else:
+        pre = fused_layer.bias_act_plain(h, b, "none", bf)
+        library_ms = cuda_ms(lambda: torch.ops.aten.gelu_backward(gy, pre),
+                             reps=20, warmup=3)
+        del pre
+        covers = ("aten.gelu_backward (erf) on the rounded pre-activation: the "
+                  "activation's derivative alone, no db")
+        # g, h read and dh written (bf16); b read and db written (f32).
+        nbytes = 6.0 * rows * w + 8.0 * w
+    del h, gy
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **_bound(nbytes, float(F1_BWD_OPS[act]) * rows * w),
+            "library_ms": library_ms, "library_covers": covers,
+            "shape": f"{rows:,} x {w} {act} bf16->bf16"}
+
+
+def time_f1(launches: int, backward_launches: int, by_variant: dict) -> list[dict]:
+    """F1 at the W5M train step's FFN (131,072 x 3072, poly: fast_train),
+    and at 768 wide ("none": q, k, v, attn_out, ffn_out) and the encode
+    chunk's FFN (786,432 x 3072, forward) under `at_*`."""
+    common = {"route": "cuda", "source": "blp_tpu_torch/csrc/fused_layer.cu",
+              "replaces": "blp_tpu/models/bert.py:282",
+              "xla_fusion": "no Pallas kernel: XLA fuses _dense's bias add "
+                            "(:282) with poly_gelu (:305) or jax.nn.gelu"}
+    fwd = {"name": "bias_act (F1)", **common, "launches": launches,
+           "launches_by_variant": by_variant.get("bias_act", {}),
+           **_time_f1_at("poly", W5M_TOKENS, BERT_I),
+           "at_w768_none": _time_f1_at("none", W5M_TOKENS, BERT_H),
+           "at_encode": _time_f1_at("poly", ENCODE_TOKENS, BERT_I)}
+    bwd = {"name": "bias_act backward (F1)", **common,
+           "launches": backward_launches,
+           "launches_by_variant": by_variant.get("bias_act backward", {}),
+           **_time_f1_backward_at("poly", W5M_TOKENS, BERT_I),
+           "at_w768_none": _time_f1_backward_at("none", W5M_TOKENS, BERT_H)}
+    return [fwd, bwd]
+
+
+def _time_f2_at(rows: int) -> dict:
+    """F2's forward (x + r, bf16) at (rows, 768): kernel and plain ms,
+    F.layer_norm on the added input (the library's nearest call: no add;
+    bf16 scale and bias), the bound (x, r, y, s in bf16, the row stats)."""
+    bf = torch.bfloat16
+    eps = bert.BertConfig().layer_norm_eps
+    x, r, scale, bias, _ = f2_inputs(rows, True, bf, bf, seed=52)
+    with torch.no_grad():
+        got = fused_layer.add_layer_norm(x, r, scale, bias, eps, bf)
+        want = torch.cat(_blockwise(lambda i, j: fused_layer.add_layer_norm_plain(
+            x[i:j], r[i:j], scale, bias, eps, bf), rows)())
+        ok, err = f_close(got, want, rows_summed=True)
+        require(ok, f"F2 at {rows}: error {err}")
+        del got, want
+        ms = cuda_ms(lambda: fused_layer.add_layer_norm(x, r, scale, bias, eps, bf),
+                     reps=20, warmup=3)
+        plain_ms = cuda_ms(_blockwise(lambda i, j: fused_layer.add_layer_norm_plain(
+            x[i:j], r[i:j], scale, bias, eps, bf), rows), reps=3)
+        s = x + r
+        sc, bi = scale.to(bf), bias.to(bf)
+        library_ms = cuda_ms(lambda: torch.nn.functional.layer_norm(
+            s, (BERT_H,), sc, bi, eps), reps=20, warmup=3)
+    del x, r, s
+    torch.cuda.empty_cache()
+    w = BERT_H
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **_bound(8.0 * rows * w + 8.0 * rows + 8.0 * w, float(F2_OPS) * rows * w),
+            "library_ms": library_ms, "library_covers":
+                "F.layer_norm on x + r (bf16 scale and bias): no residual add, "
+                "no saved sum",
+            "shape": f"{rows:,} x {w} x+r bf16->bf16"}
+
+
+def _time_f2_backward_at(rows: int) -> dict:
+    """F2's backward kernel (ds, dscale, dbias) against the plain
+    LayerNorm's VJP from the saved sum and aten.native_layer_norm_backward."""
+    bf = torch.bfloat16
+    eps = bert.BertConfig().layer_norm_eps
+    x, r, scale, bias, gy = f2_inputs(rows, True, bf, bf, seed=53)
+    with torch.no_grad():
+        _, s, mean, rstd = fused_layer._add_layer_norm_kernel(x, r, scale, bias,
+                                                              eps, bf)
+    del x, r
+
+    def plain_vjp():
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (s, scale, bias)]
+            y = fused_layer.add_layer_norm_plain(ins[0], None, ins[1], ins[2], eps, bf)
+            return torch.autograd.grad(y, ins, gy)
+
+    kernel = lambda: fused_layer._add_layer_norm_backward_kernel(  # noqa: E731
+        gy, s, mean, rstd, scale)
+    got, want = kernel(), plain_vjp()
+    ok, err = f_close(got[0], want[0], rows_summed=True)
+    require(ok and all(sum_close(a, b)[0] for a, b in zip(got[1:], want[1:])),
+            f"F2 backward at {rows}: ds error {err}")
+    del got, want
+    ms = cuda_ms(kernel, reps=20, warmup=3)
+    plain_ms = cuda_ms(plain_vjp, reps=3)
+    sc, bi = scale.to(bf), bias.to(bf)
+    _, mu, rs = torch.ops.aten.native_layer_norm(s, [BERT_H], sc, bi, eps)
+    library_ms = cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+        gy, s, [BERT_H], mu, rs, sc, bi, [True, True, True]), reps=20, warmup=3)
+    del s, gy
+    torch.cuda.empty_cache()
+    w = BERT_H
+    # g and s read, ds written (bf16); the row stats and scale read; dscale
+    # and dbias written.
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **_bound(6.0 * rows * w + 8.0 * rows + 12.0 * w,
+                     float(F2_BWD_OPS) * rows * w),
+            "library_ms": library_ms, "library_covers":
+                "aten.native_layer_norm_backward (bf16 scale): the LayerNorm's "
+                "backward alone",
+            "shape": f"{rows:,} x {w} x+r bf16->bf16"}
+
+
+def time_f2(launches: int, backward_launches: int, by_variant: dict) -> list[dict]:
+    """F2 at the W5M train step's rows (131,072 x 768) and, forward, at the
+    encode chunk's (786,432 x 768, under `at_encode`)."""
+    common = {"route": "cuda", "source": "blp_tpu_torch/csrc/fused_layer.cu",
+              "replaces": "blp_tpu/models/bert.py:270",
+              "xla_fusion": "no Pallas kernel: XLA fuses the residual add with "
+                            "_layer_norm (:270)"}
+    return [{"name": "add_layer_norm (F2)", **common, "launches": launches,
+             "launches_by_variant": by_variant.get("add_layer_norm", {}),
+             **_time_f2_at(W5M_TOKENS), "at_encode": _time_f2_at(ENCODE_TOKENS)},
+            {"name": "add_layer_norm backward (F2)", **common,
+             "launches": backward_launches,
+             "launches_by_variant": by_variant.get("add_layer_norm backward", {}),
+             **_time_f2_backward_at(W5M_TOKENS)}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2616,24 +3119,6 @@ def main() -> int:
                                    num_triples=8000, seed=0)
     cfg, params = make_model(num_relations=12)
 
-    counters = {"K1": (transe_rank, "launches"),
-                "K2": (packed_attention, "launches"),
-                "K3": (sddmm, "launches"),
-                "K3 backward": (sddmm, "backward_launches")}
-
-    def reset_counts():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-        transe_rank.launches_by_variant.clear()
-        packed_attention.launches_by_seg.clear()
-
-    def read_counts() -> dict:
-        counts = {name: getattr(mod, attr)
-                  for name, (mod, attr) in counters.items()}
-        counts["K1 by variant"] = collections.Counter(transe_rank.launches_by_variant)
-        counts["K2 by seg"] = collections.Counter(packed_attention.launches_by_seg)
-        return counts
-
     reset_counts()
     serve_stats = serve_phase(data_dir, cfg, params)
     eval_stats = eval_phase(data_dir, cfg, params)
@@ -2659,7 +3144,7 @@ def main() -> int:
     reset_counts()
     mesh_stats, mesh_launches = mesh_phase(data_dir, cfg, read_counts)
     log(f"main-path launches, multi-device paths (phase 9): {mesh_launches}")
-    require(all(mesh_launches.get(k, 0) > 0 for k in counters),
+    require(all(mesh_launches.get(k, 0) > 0 for k in COUNTERS),
             "a kernel of the multi-device paths was never launched")
     torch.cuda.empty_cache()
 
@@ -2667,7 +3152,7 @@ def main() -> int:
     done_stats = completion_phase(data_dir, card, read_counts, native_build_s)
     done_launches = read_counts()
     log(f"main-path launches, the completing modules (phase 10): {done_launches}")
-    require(all(done_launches[k] > 0 for k in counters),
+    require(all(done_launches[k] > 0 for k in COUNTERS),
             "a kernel of phase 10's paths was never launched")
     torch.cuda.empty_cache()
 
@@ -2675,7 +3160,7 @@ def main() -> int:
     w5m_stats = w5m_phase(read_counts)
     w5m_launches = read_counts()
     log(f"main-path launches, the Wikidata5M mode (phase 11): {w5m_launches}")
-    require(all(w5m_launches[k] > 0 for k in counters)
+    require(all(w5m_launches[k] > 0 for k in COUNTERS)
             and w5m_launches["K2 by seg"][W5M_SEG] > 0,
             "a kernel of phase 11's paths was never launched")
     torch.cuda.empty_cache()
@@ -2687,16 +3172,27 @@ def main() -> int:
         f"{bench_launches}")
     require(bench_launches["K1"] > 0,
             "K1 was never launched by phase 12's entry points")
+    torch.cuda.empty_cache()
+
+    # reset inside: (a) holds the kernels to their plain versions first
+    fused_stats, fused_launches = fused_phase(train_stats["w5m_train_peak_bytes"])
+    log(f"main-path launches, the fused chains (phase 13): {fused_launches}")
+    require(all(fused_launches[k] > 0 for k in COUNTERS if k[0] == "F"),
+            "F1 or F2 was never launched by phase 13's paths")
     phases = (infer_launches, train_launches, word_launches, mesh_launches,
-              done_launches, w5m_launches, bench_launches)
-    launches = {k: sum(p[k] for p in phases) for k in counters}
+              done_launches, w5m_launches, bench_launches, fused_launches)
+    launches = {k: sum(p[k] for p in phases) for k in COUNTERS}
     k1_counts = sum((p["K1 by variant"] for p in phases), collections.Counter())
     k1_by = {v: {d: c for (w, d), c in sorted(k1_counts.items()) if w == v}
              for v in transe_rank.VARIANTS}   # {variant: {d: launches}}
     k2_by = dict(sorted(sum((p["K2 by seg"] for p in phases),
                             collections.Counter()).items()))
+    f_counts = sum((p["F by variant"] for p in phases), collections.Counter())
+    f_by = {}                 # {kernel: {variant: launches}}
+    for (kernel, variant), c in sorted(f_counts.items()):
+        f_by.setdefault(kernel, {})[variant] = c
     log(f"main-path launches: {launches}; K1 by variant and width: {k1_by}; "
-        f"K2 by segment length: {k2_by}")
+        f"K2 by segment length: {k2_by}; F1 and F2 by variant: {f_by}")
     require(all(n > 0 for n in launches.values()),
             "a kernel of the main path was never launched")
     require(all(k1_by["tma"].get(d, 0) > 0 for d in (K1_D, *WORD_DIMS))
@@ -2707,7 +3203,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels = [time_k1(launches["K1"], k1_by), time_k2(launches["K2"], k2_by),
-               *time_k3(launches["K3"], launches["K3 backward"])]
+               *time_k3(launches["K3"], launches["K3 backward"]),
+               *time_f1(launches["F1"], launches["F1 backward"], f_by),
+               *time_f2(launches["F2"], launches["F2 backward"], f_by)]
     for kr in kernels:
         for rec in (kr, *(v for k, v in kr.items() if k.startswith("at_"))):
             log(f"{kr['name']}: {rec['ms']:.4f} ms (plain "
@@ -2730,7 +3228,7 @@ def main() -> int:
                 f"{kr['at_b1024']['call_ms']:.4f} ms (B=1024)")
     log("summary: " + json.dumps({**serve_stats, **eval_stats, **train_stats,
                                   **word_stats, **mesh_stats, **done_stats,
-                                  **w5m_stats, **bench_stats},
+                                  **w5m_stats, **bench_stats, **fused_stats},
                                  default=str))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(card)   # name, power limit: nvidia-smi's own line

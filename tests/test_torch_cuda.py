@@ -20,7 +20,11 @@ sddmm_scores_backward_plain on the CPU, and within rtol 1e-5, atol 1e-6 of
 autograd through the plain formulation (another order). The
 training step on the card holds the CPU's loss within rtol 1e-5 and its
 gradients within rtol 1e-4, atol 1e-6 (fp32, dropout 0, the same injected
-negatives; cuBLAS sums in another order).
+negatives; cuBLAS sums in another order). F1 and F2 (the layer's fused
+chains): bf16 outputs and dh within one bf16 ulp of the plain version on the
+card (F2's outputs and ds plus 1e-5 of the largest, for the f32 order of its
+row sums), f32 ones within rtol 1e-5, db, dscale and dbias within rtol 1e-4
+(atol 1e-4 of the largest) and identical across calls.
 """
 
 import dataclasses
@@ -34,7 +38,7 @@ from blp_tpu_torch import checkpoint, evaluation, training
 from blp_tpu_torch.data import sampling
 from blp_tpu_torch.data.filtering import FilterIndex
 from blp_tpu_torch.models import bert, blp
-from blp_tpu_torch.ops import packed_attention, sddmm, transe_rank
+from blp_tpu_torch.ops import fused_layer, packed_attention, sddmm, transe_rank
 
 pytestmark = pytest.mark.cuda
 
@@ -801,3 +805,195 @@ def test_serving_bench_top10_on_the_card_equals_the_cpu():
     for (s_gpu, i_gpu), (s_cpu, i_cpu) in zip(*answers):
         np.testing.assert_array_equal(i_gpu, i_cpu)
         np.testing.assert_allclose(s_gpu, s_cpu, rtol=1e-4, atol=1e-4)
+
+
+DT = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _within_ulp(got, want, atol=0.0):
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    return bool(((got.float() - w).abs() <= ulp + atol).all())
+
+
+def _close(got, want, rows_summed=False):
+    top = want.float().abs().max().item() if want.numel() else 0.0
+    if got.dtype == torch.bfloat16:
+        return _within_ulp(got, want, 1e-5 * top if rows_summed else 0.0)
+    return torch.allclose(got, want, rtol=1e-5, atol=1e-5 * top)
+
+
+def _sum_close(got, want):
+    return torch.allclose(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+def _f1_case(act, h_dt, out_dt, rows, w, bias=True, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = (2.5 * torch.randn((rows, w), generator=g, device="cuda")).to(DT[h_dt])
+    b = 0.5 * torch.randn(w, generator=g, device="cuda") if bias else None
+    gy = torch.randn((rows, w), generator=g, device="cuda").to(DT[out_dt])
+    out = []
+    for fn in (fused_layer.bias_act, fused_layer.bias_act_plain):
+        hh = h.detach().requires_grad_()
+        bb = None if b is None else b.detach().requires_grad_()
+        y = fn(hh, bb, act, DT[out_dt])
+        out.append((y, *torch.autograd.grad(y, [t for t in (hh, bb) if t is not None], gy)))
+    return out
+
+
+@pytest.mark.parametrize("w", [32, 64, 768, 3072])
+@pytest.mark.parametrize("h_dt,out_dt", [("bf16", "bf16"), ("f32", "f32"),
+                                         ("f32", "bf16"), ("bf16", "f32")])
+@pytest.mark.parametrize("act", ["none", "erf", "poly"])
+def test_f1_kernel_matches_plain(act, h_dt, out_dt, w):
+    """997 rows (no multiple of a block or a row chunk)."""
+    before = (fused_layer.bias_act_launches, fused_layer.bias_act_backward_launches)
+    (y, dh, db), (y_p, dh_p, db_p) = _f1_case(act, h_dt, out_dt, 997, w)
+    assert (fused_layer.bias_act_launches, fused_layer.bias_act_backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert y.dtype == DT[out_dt] and dh.dtype == DT[h_dt] and db.dtype == torch.float32
+    assert _close(y, y_p) and _close(dh, dh_p) and _sum_close(db, db_p)
+
+
+@pytest.mark.parametrize("rows,w,act", [(1, 768, "poly"), (37, 3072, "erf"),
+                                        (20_000, 3072, "poly"), (131_072, 768, "none")])
+def test_f1_kernel_matches_plain_at_other_row_counts(rows, w, act):
+    (y, dh, db), (y_p, dh_p, db_p) = _f1_case(act, "bf16", "bf16", rows, w, seed=1)
+    assert _close(y, y_p) and _close(dh, dh_p) and _sum_close(db, db_p)
+
+
+@pytest.mark.parametrize("act", ["none", "erf", "poly"])
+def test_f1_kernel_without_bias_matches_plain(act):
+    """No bias, no db."""
+    (y, dh), (y_p, dh_p) = _f1_case(act, "bf16", "bf16", 997, 3072, bias=False)
+    assert _close(y, y_p) and _close(dh, dh_p)
+
+
+@pytest.mark.parametrize("with_db", [True, False])
+def test_f1_none_backward_returns_g(with_db):
+    """"none" with h in g's dtype: dh is g itself; the kernel runs only to
+    sum db, and not at all without it."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    gy = torch.randn((997, 768), generator=g, device="cuda").to(torch.bfloat16)
+    before = fused_layer.bias_act_backward_launches
+    dh, db = fused_layer._bias_act_backward_kernel(gy, None, None, "none",
+                                                    torch.bfloat16, with_db)
+    assert dh is gy
+    assert fused_layer.bias_act_backward_launches == before + int(with_db)
+    if with_db:
+        assert _sum_close(db, gy.float().sum(0))
+    else:
+        assert db is None
+
+
+def _f2_case(with_r, x_dt, out_dt, rows, w, seed=0, calls=1):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (1.0 + torch.randn((rows, w), generator=g, device="cuda")).to(DT[x_dt])
+    r = (0.5 * torch.randn((rows, w), generator=g, device="cuda")).to(DT[x_dt])
+    scale = 1.0 + 0.1 * torch.randn(w, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(w, generator=g, device="cuda")
+    gy = torch.randn((rows, w), generator=g, device="cuda").to(DT[out_dt])
+    out = []
+    for fn in (fused_layer.add_layer_norm, fused_layer.add_layer_norm_plain):
+        ins = [t.detach().requires_grad_() for t in (x, r, scale, bias)]
+        if not with_r:
+            del ins[1]
+        y = fn(ins[0], ins[1] if with_r else None, ins[-2], ins[-1], 1e-12, DT[out_dt])
+        out.append([y, *(g_ for _ in range(calls) for g_ in
+                         torch.autograd.grad(y, ins, gy, retain_graph=True))])
+    return out
+
+
+@pytest.mark.parametrize("w", [32, 64, 512, 768, 1024, 2048, 3072, 4096])
+@pytest.mark.parametrize("x_dt,out_dt", [("bf16", "bf16"), ("f32", "f32"),
+                                         ("f32", "bf16"), ("bf16", "f32")])
+@pytest.mark.parametrize("with_r", [True, False])
+def test_f2_kernel_matches_plain(with_r, x_dt, out_dt, w):
+    before = (fused_layer.add_layer_norm_launches,
+              fused_layer.add_layer_norm_backward_launches)
+    got, want = _f2_case(with_r, x_dt, out_dt, 997, w)
+    assert (fused_layer.add_layer_norm_launches,
+            fused_layer.add_layer_norm_backward_launches) == (before[0] + 1, before[1] + 1)
+    assert got[0].dtype == DT[out_dt]
+    assert _close(got[0], want[0], rows_summed=True)
+    for a, b in zip(got[1:-2], want[1:-2]):        # dx (and dr)
+        assert a.dtype == DT[x_dt] and _close(a, b, rows_summed=True)
+    assert _sum_close(got[-2], want[-2]) and _sum_close(got[-1], want[-1])
+
+
+def test_f2_kernel_with_mixed_dtypes_matches_plain():
+    """x bf16 + r f32 (mixed_precision_train off): the sum in f32."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((997, 768), generator=g, device="cuda").to(torch.bfloat16)
+    r = torch.randn((997, 768), generator=g, device="cuda")
+    scale, bias = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
+    gy = torch.randn((997, 768), generator=g, device="cuda").to(torch.bfloat16)
+    res = []
+    for fn in (fused_layer.add_layer_norm, fused_layer.add_layer_norm_plain):
+        xx, rr = x.detach().requires_grad_(), r.detach().requires_grad_()
+        y = fn(xx, rr, scale, bias, 1e-12, torch.bfloat16)
+        res.append((y, *torch.autograd.grad(y, (xx, rr), gy)))
+    for a, b in zip(*res):
+        assert a.dtype == b.dtype and _close(a, b, rows_summed=True)
+
+
+def test_fused_reductions_identical_across_calls():
+    """db, dscale and dbias (and the row gradients) are the same bits on
+    every call: fixed row chunks, no atomics."""
+    first, again = (_f1_case("poly", "bf16", "bf16", 50_000, 3072, seed=2)[0]
+                    for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    got, _ = _f2_case(True, "bf16", "bf16", 50_000, 768, seed=2, calls=2)
+    first, second = got[1:5], got[5:]
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_fused_layer_refuses_what_its_kernels_do_not_take():
+    buf = torch.zeros(64 * 32 + 1, dtype=torch.bfloat16, device="cuda")
+    off = buf[1:].view(64, 32)                  # 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_layer.bias_act(off, None, "poly", torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_layer.add_layer_norm(off, None, torch.ones(32, device="cuda"),
+                                   torch.zeros(32, device="cuda"), 1e-12, None)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_layer.bias_act(torch.zeros(4, 12, device="cuda"), None, "none")
+    with pytest.raises(ValueError, match="above 4096"):
+        fused_layer.add_layer_norm(torch.zeros(4, 4104, device="cuda"), None,
+                                   torch.ones(4104, device="cuda"),
+                                   torch.zeros(4104, device="cuda"), 1e-12, None)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_layer.bias_act(torch.zeros(4, 16, device="cuda", dtype=torch.float16),
+                             None, "none")
+
+
+def _layer_saved_bytes(device):
+    """Bytes of the distinct storages one BERT-base-width bf16 training
+    layer saves at 4 x 128 tokens (weights and their casts left out), as
+    tests/test_torch_fused_layer.py counts them on the CPU."""
+    H, I, B, S = 768, 3072, 4, 128
+    cfg = bert.BertConfig(num_layers=1, compute_dtype=torch.bfloat16,
+                          fast_train=True, dropout_bits=8)
+    params = bert.unstack_layers(bert.init_bert_params(
+        cfg, torch.Generator().manual_seed(0)))
+    lp = {k: v.to(device).requires_grad_() for k, v in params["layers"][0].items()}
+    x = torch.randn((B, S, H), generator=torch.Generator().manual_seed(5)).to(
+        device, torch.bfloat16).requires_grad_()
+    storages = {}
+
+    def pack(t):
+        if tuple(t.shape) not in {(H, H), (H, I), (I, H)}:
+            storages[t.untyped_storage().data_ptr()] = (
+                t.untyped_storage().nbytes(), t.dtype, tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        bert._encoder_layer(cfg, x, torch.zeros(B, 1, 1, S, device=device), lp,
+                            seeds=(1, 2, 3), rate=0.1)
+    return sorted(storages.values(), key=str)
+
+
+def test_w5m_layer_saves_on_the_card_what_it_saves_on_the_cpu():
+    card, cpu = _layer_saved_bytes("cuda"), _layer_saved_bytes("cpu")
+    assert card == cpu
+    assert sum(n for n, _, _ in card) / 512 <= 40e3

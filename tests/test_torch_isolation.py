@@ -54,6 +54,10 @@ W5M_TOOLS = {f"blp_tpu_torch.tools.{m}" for m in
              ("w5m_e2e_eval", "w5m_scale_check", "w5m_mode_rehearsal",
               "umls_smoke", "gen_scripts")}
 
+#: The kernels' wrappers, the layer's fused chains (F1, F2) among them.
+KERNEL_OPS = {f"blp_tpu_torch.ops.{m}" for m in
+              ("transe_rank", "packed_attention", "sddmm", "fused_layer")}
+
 
 def test_port_imports_without_jax_or_blp_tpu():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -65,6 +69,7 @@ def test_port_imports_without_jax_or_blp_tpu():
     assert PARALLEL <= set(found["names"])
     assert COMPLETING <= set(found["names"])
     assert W5M_TOOLS <= set(found["names"])
+    assert KERNEL_OPS <= set(found["names"])
     assert found["leaked"] == []
 
 
