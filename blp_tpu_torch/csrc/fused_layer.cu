@@ -21,13 +21,15 @@
 // f32), and keeps every intermediate of the chain in registers: where the
 // op-by-op chain wrote and re-read an f32 tensor at each step.
 //
-// F1's forward is a grid-stride loop over vectors; F2's forward holds a
-// row in a warp's registers (w <= 4,096). F1's backward and F2's
-// reduce db, dscale and dbias without atomics: a block owns a chunk of rows
-// (the wrapper's `chunk`, a function of the row count) and writes one
-// partial row per chunk, adding its rows in order; `column_sum` then adds
-// the partials of each column in a fixed tree (32 strided streams, then the
-// 32 stream sums in order). So a call gives the same bits every time.
+// F1's forward is a grid-stride loop over vectors; F2's forward and
+// backward hold a row in a warp's registers (w <= 4,096), so the backward
+// reads g and s once. F1's backward and F2's reduce db, dscale and dbias
+// without atomics: a block owns a chunk of rows (the wrapper's `chunk`, a
+// function of the row count) and writes one partial row per chunk, adding
+// its rows in a fixed order (F1: in row order; F2: each warp its rows in
+// order, then the block's warps in warp order); `column_sum` then adds the
+// partials of each column in a fixed tree (32 strided streams, then the 32
+// stream sums in order). So a call gives the same bits every time.
 //
 // Rounding: F1's poly activation and its derivative round every product and
 // sum on its own (no FMA), in the order of the plain `poly_gelu` and of the
@@ -324,66 +326,87 @@ add_ln_fwd(const TX* __restrict__ x, const TX* __restrict__ r,
   }
 }
 
-// Block = one chunk of rows. First a warp a row: ds. Then a thread per
-// column vector walks the chunk's rows in order into the chunk's partials
-// of dscale (columns [0, w)) and dbias (columns [w, 2w)).
-template <typename TS, typename TG>
-__global__ void __launch_bounds__(256)
+// Block = one chunk of rows, a warp a row with the row in registers (lane l
+// owns column vectors l, l + 32, ..., at most NV): g and s are read once,
+// the row sums give ds, and each lane adds g * xhat and g into its columns'
+// dscale and dbias partials, in the order of the warp's rows (r0 + warp,
+// r0 + warp + 8, ...). Then the block's warps add their partials in warp
+// order through shared memory, a vector index at a time, into the chunk's
+// partial row (dscale in columns [0, w), dbias in [w, 2w)).
+template <typename TS, typename TG, int NV>
+__global__ void __launch_bounds__(256, 2)
 add_ln_bwd(const TG* __restrict__ g, const TS* __restrict__ s,
            const float* __restrict__ mean, const float* __restrict__ rstd,
            const float* __restrict__ scale, TS* __restrict__ ds,
            float* __restrict__ partial, long long rows, int w, int chunk) {
-  const int lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
+  constexpr int kWarps = 8;
+  __shared__ float stage[kWarps][32][2 * kVec];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int w_vec = w / kVec;
   const long long r0 = (long long)blockIdx.x * chunk;
   const long long r1 = r0 + chunk < rows ? r0 + chunk : rows;
-  for (long long row = r0 + (threadIdx.x >> 5); row < r1; row += nw) {
+  float as[NV][kVec], ab[NV][kVec];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) as[j][k] = ab[j][k] = 0.0f;
+  for (long long row = r0 + warp; row < r1; row += kWarps) {
     const long long base = row * w;
     const float mu = mean[row], rs = rstd[row];
-    float gv[kVec], sv[kVec], sc[kVec];
+    float gs[NV][kVec], xh[NV][kVec];
     float c1 = 0.0f, c2 = 0.0f;
-    for (int cv = lane; cv < w_vec; cv += 32) {
-      load8(g + base + cv * kVec, gv);
-      load8(s + base + cv * kVec, sv);
-      load8(scale + cv * kVec, sc);
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        const float gs = gv[k] * sc[k];
-        c1 += gs;
-        c2 += gs * ((sv[k] - mu) * rs);
+    for (int j = 0; j < NV; ++j) {
+      const int cv = lane + 32 * j;
+      if (cv < w_vec) {
+        float gv[kVec], sc[kVec];
+        load8(g + base + cv * kVec, gv);
+        load8(s + base + cv * kVec, xh[j]);
+        load8(scale + cv * kVec, sc);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          xh[j][k] = (xh[j][k] - mu) * rs;
+          gs[j][k] = gv[k] * sc[k];
+          c1 += gs[j][k];
+          c2 += gs[j][k] * xh[j][k];
+          as[j][k] = __fadd_rn(as[j][k], __fmul_rn(gv[k], xh[j][k]));
+          ab[j][k] = __fadd_rn(ab[j][k], gv[k]);
+        }
       }
     }
     c1 = warp_sum(c1) / (float)w;
     c2 = warp_sum(c2) / (float)w;
-    for (int cv = lane; cv < w_vec; cv += 32) {
-      load8(g + base + cv * kVec, gv);
-      load8(s + base + cv * kVec, sv);
-      load8(scale + cv * kVec, sc);
 #pragma unroll
-      for (int k = 0; k < kVec; ++k)
-        gv[k] = rs * (gv[k] * sc[k] - c1 - ((sv[k] - mu) * rs) * c2);
-      store8(ds + base + cv * kVec, gv);
-    }
-  }
-  for (int cv = threadIdx.x; cv < w_vec; cv += blockDim.x) {
-    float as[kVec], ab[kVec];
+    for (int j = 0; j < NV; ++j) {
+      const int cv = lane + 32 * j;
+      if (cv < w_vec) {
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) as[k] = ab[k] = 0.0f;
-#pragma unroll 4
-    for (long long row = r0; row < r1; ++row) {
-      const float mu = mean[row], rs = rstd[row];
-      float gv[kVec], sv[kVec];
-      load8(g + row * w + cv * kVec, gv);
-      load8(s + row * w + cv * kVec, sv);
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        as[k] = __fadd_rn(as[k], __fmul_rn(gv[k], (sv[k] - mu) * rs));
-        ab[k] = __fadd_rn(ab[k], gv[k]);
+        for (int k = 0; k < kVec; ++k)
+          gs[j][k] = rs * (gs[j][k] - c1 - xh[j][k] * c2);
+        store8(ds + base + cv * kVec, gs[j]);
       }
     }
-    store8(partial + (long long)blockIdx.x * 2 * w + cv * kVec, as);
-    store8(partial + (long long)blockIdx.x * 2 * w + w + cv * kVec, ab);
+  }
+  float* out = partial + (long long)blockIdx.x * 2 * w;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      stage[warp][lane][k] = as[j][k];
+      stage[warp][lane][kVec + k] = ab[j][k];
+    }
+    __syncthreads();
+    for (int v = threadIdx.x; v < 32 * 2 * kVec; v += blockDim.x) {
+      const int ln = v / (2 * kVec), q = v % (2 * kVec);
+      const int cv = ln + 32 * j;
+      if (cv < w_vec) {
+        float t = 0.0f;
+#pragma unroll
+        for (int wp = 0; wp < kWarps; ++wp) t = __fadd_rn(t, stage[wp][ln][q]);
+        out[(q < kVec ? 0 : w) + cv * kVec + q % kVec] = t;
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -465,15 +488,29 @@ cudaError_t f2_fwd(const void* x, const void* r, const float* scale,
   return cudaGetLastError();
 }
 
+template <typename TS, typename TG, int NV>
+void f2_bwd_nv(const void* g, const void* s, const float* mean,
+               const float* rstd, const float* scale, void* ds, float* partial,
+               long long rows, int w, int chunk, cudaStream_t st) {
+  const int n_chunks = (int)((rows + chunk - 1) / chunk);
+  add_ln_bwd<TS, TG, NV><<<n_chunks, 256, 0, st>>>(
+      static_cast<const TG*>(g), static_cast<const TS*>(s), mean, rstd, scale,
+      static_cast<TS*>(ds), partial, rows, w, chunk);
+}
+
 template <typename TS, typename TG>
 cudaError_t f2_bwd(const void* g, const void* s, const float* mean,
                    const float* rstd, const float* scale, void* ds,
                    float* partial, long long rows, int w, int chunk,
                    cudaStream_t st) {
-  const int n_chunks = (int)((rows + chunk - 1) / chunk);
-  add_ln_bwd<TS, TG><<<n_chunks, 256, 0, st>>>(
-      static_cast<const TG*>(g), static_cast<const TS*>(s), mean, rstd, scale,
-      static_cast<TS*>(ds), partial, rows, w, chunk);
+  const int per_lane = (w / kVec + 31) / 32;
+  if (per_lane <= 1) f2_bwd_nv<TS, TG, 1>(g, s, mean, rstd, scale, ds, partial, rows, w, chunk, st);
+  else if (per_lane <= 2) f2_bwd_nv<TS, TG, 2>(g, s, mean, rstd, scale, ds, partial, rows, w, chunk, st);
+  else if (per_lane <= 3) f2_bwd_nv<TS, TG, 3>(g, s, mean, rstd, scale, ds, partial, rows, w, chunk, st);
+  else if (per_lane <= 4) f2_bwd_nv<TS, TG, 4>(g, s, mean, rstd, scale, ds, partial, rows, w, chunk, st);
+  else if (per_lane <= 8) f2_bwd_nv<TS, TG, 8>(g, s, mean, rstd, scale, ds, partial, rows, w, chunk, st);
+  else if (per_lane <= 16) f2_bwd_nv<TS, TG, 16>(g, s, mean, rstd, scale, ds, partial, rows, w, chunk, st);
+  else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 

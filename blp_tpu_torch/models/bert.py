@@ -18,12 +18,14 @@ bf16 round where the TPU package adds it before; the difference is one bf16
 rounding, inside the bf16 noise class.
 
 Both layers, and the embedding LayerNorm, run their elementwise chains
-through ops/fused_layer.py, where XLA fuses them in the TPU package: F1
-(`bias_act`: each GEMM's bias add, with the GeLU after ffn_in) and F2
-(`add_layer_norm`: the residual add with its LayerNorm), CUDA kernels on the
-card and their plain versions on the CPU. They save only the GEMM output and
-the rounded residual sum with its row statistics, where the op-by-op chains
-saved an f32 tensor at every step.
+through ops/fused_layer.py and ops/attn_softmax.py, where XLA fuses them in
+the TPU package: F1 (`bias_act`: each GEMM's bias add, with the GeLU after
+ffn_in), F2 (`add_layer_norm`: the residual add with its LayerNorm) and F3
+(`attn_softmax`: the logits' scale and mask bias, the softmax and the
+attention dropout), CUDA kernels on the card and their plain versions on the
+CPU. They save only the GEMM output, the rounded residual sum with its row
+statistics and the logits, where the op-by-op chains saved an f32 tensor at
+every step.
 
 Training (`deterministic=False`) runs the exact layer with dropout at the
 TPU package's four sites (embedding output, attention probabilities,
@@ -67,6 +69,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from blp_tpu_torch.ops.attn_softmax import attn_softmax
 from blp_tpu_torch.ops.fused_layer import add_layer_norm, bias_act
 from blp_tpu_torch.ops.fused_layer import poly_gelu  # noqa: F401  (public name)
 from blp_tpu_torch.parallel import comm
@@ -366,14 +369,11 @@ def _encoder_layer_fast(cfg: BertConfig, x, mask_arg, lp: dict):
         ctx = packed_attention.block_diag_attention(
             q, k, v, key_mask, seg=seg, scale=1.0 / math.sqrt(hd)).to(dt)
     else:
-        logits = torch.matmul(q, k.transpose(-1, -2)).to(torch.float32)
-        # bf16 logits; -10000 rounds to -9984, still a hard mask. Softmax
-        # statistics stay f32.
-        logits = (logits / math.sqrt(hd) + mask_bias).to(torch.bfloat16)
-        m = logits.amax(dim=-1, keepdim=True).to(torch.float32)
-        e = torch.exp(logits.to(torch.float32) - m)
-        probs = e / e.sum(dim=-1, keepdim=True)
-        ctx = torch.matmul(probs.to(dt), v)                  # (B, nh, S, hd)
+        # F3's inference variant: bf16 logits (-10000 rounds to -9984, still
+        # a hard mask), f32 softmax statistics.
+        probs = attn_softmax(torch.matmul(q, k.transpose(-1, -2)), mask_bias,
+                             math.sqrt(hd), dt, round_logits=True)
+        ctx = torch.matmul(probs, v)                         # (B, nh, S, hd)
         ctx = ctx.permute(0, 2, 1, 3).reshape(B, S, H)
 
     attn_out = _dense(ctx, lp["attn_out_w"], lp["attn_out_b"], dt, dt)
@@ -422,17 +422,15 @@ def _encoder_layer(cfg: BertConfig, x, mask_bias, lp: dict, seeds=None,
                    .reshape(B, S, nh, hd).permute(0, 2, 1, 3)
                    for n in ("q", "k", "v"))
     q, k, v = tag(q, "q"), tag(k, "k"), tag(v, "v")
-    logits = _matmul(q, k.transpose(-1, -2), dt).to(torch.float32)
-    logits = logits / math.sqrt(hd) + mask_bias
-    probs = torch.softmax(logits, dim=-1)
-    if mp:
-        # The bf16 cast the ctx product needs anyway comes before the
-        # dropout, as in the TPU package's mixed-precision layer.
-        probs = probs.to(dt)
+    logits = _matmul(q, k.transpose(-1, -2), dt)
+    drop = None
     if seeds is not None and cfg.attention_dropout > 0.0:
-        probs = _rng_dropout(probs, seeds[0], cfg.attention_dropout,
-                             cfg.dropout_bits,
-                             part.block(probs, heads=cfg.num_heads))
+        drop = (seeds[0], cfg.attention_dropout, cfg.dropout_bits,
+                part.block(logits, heads=cfg.num_heads))
+    # F3. With mp the bf16 cast the ctx product needs anyway comes before
+    # the dropout, as in the TPU package's mixed-precision layer.
+    probs = attn_softmax(logits, mask_bias, math.sqrt(hd),
+                         dt if mp else torch.float32, dropout=drop)
     ctx = _matmul(probs, v, dt).to(torch.float32)            # (B, nh, S, hd)
     ctx = tag(ctx.permute(0, 2, 1, 3).reshape(B, S, nh * hd), "ctx")
 

@@ -1,0 +1,247 @@
+"""F3: the BERT layer's attention softmax chain as one CUDA kernel.
+
+The JAX package has no Pallas kernel here: XLA fuses the chain of
+blp_tpu/models/bert.py, the training layer's scale, mask bias,
+`jax.nn.softmax`, bf16 cast and `_rng_dropout` (:430-441) and the inference
+layer's bf16 logits with f32 softmax statistics (:357-365). Run op by op in
+PyTorch the chain writes and re-reads an f32 tensor of the (B, heads, S, S)
+logits' shape at each step, and autograd saves the f32 softmax output (6 KB
+a token at S 128 and 12 heads).
+
+`attn_softmax(l, mask_bias, scale, out_dtype, round_logits, dropout)`:
+y = drop(round_out(softmax(f32(l) / scale + mask_bias))). l is the QK^T
+product (B, heads, Sq, Sk) in bf16 or f32, mask_bias the additive f32 bias
+broadcastable to it, scale the divisor sqrt(head_dim), out_dtype the dtype
+of y. `round_logits` (the inference layer) rounds the scaled, biased logits
+to bf16 first (-10000 becomes -9984) and takes the max over those values,
+then exp(f32 - max) / sum. `dropout` is a dropout site's (seed, rate, nbits,
+block): drop(y) = where(keep, y / keep_p, 0) in out_dtype, with `keep` drawn
+by models/bert.py `_site_keep`, so the masks are the ones `_RngDropout`
+draws. The backward saves only l (3 KB a token in bf16), recomputes the
+row's f32 softmax from it, redraws `keep` from the seed and returns dl in
+l's dtype, rounding where the op-by-op chain's backward rounds.
+
+The CUDA kernel (csrc/attn_softmax.cu) holds a row in a warp's registers
+(Sk <= MAX_SK) and sums within the row, without atomics, so two calls give
+the same bits. `attn_softmax_plain` is the arithmetic of the unfused layer.
+On CPU tensors the forward runs it, and the backward recomputes it from l
+and differentiates it with torch.autograd, so CPU results equal the unfused
+chain's bit for bit while saving only l; CUDA tensors launch the kernel or
+raise. The wrapper allocates with torch ops and launches on the current
+stream, so the selective checkpoint policies (models/bert.py) recompute it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from blp_tpu_torch.ops import _cuda, fused_layer
+
+#: The longest row (keys) the kernel holds in a warp's registers.
+MAX_SK = 1024
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: (l dtype, out dtype) pairs the kernel takes: the ones the layer uses.
+_PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+          (torch.float32, torch.float32)}
+
+#: Kernel launches since the last reset (plain counters; chip_smoke.py reads
+#: them). Launches by variant go to fused_layer.launches_by_variant under
+#: ("attn_softmax", "<l dtype>-><out dtype> <round|drop<nbits>|plain>") and
+#: ("attn_softmax backward", ...).
+launches = 0
+backward_launches = 0
+
+
+def _check_sk(l) -> None:
+    if l.dim() != 4:
+        raise ValueError(f"attn_softmax: logits {tuple(l.shape)} are not "
+                         "(batch, heads, queries, keys)")
+    if l.shape[-1] > MAX_SK:
+        raise ValueError(f"attn_softmax: {l.shape[-1]} keys is above {MAX_SK} "
+                         "(the kernel holds a row in one warp's registers)")
+
+
+def _keep(dropout, shape, device):
+    """(keep, keep_p) of the dropout site (seed, rate, nbits, block)."""
+    # models/bert.py imports this module.
+    from blp_tpu_torch.models.bert import _site_keep
+
+    seed, rate, nbits, block = dropout
+    return _site_keep(seed, rate, nbits, shape, device, block)
+
+
+def _softmax_plain(l, mask_bias, scale: float, out_dtype, round_logits: bool):
+    """The chain before the dropout, op by op as the unfused layer runs it."""
+    x = l.to(torch.float32) / scale + mask_bias
+    if round_logits:
+        x = x.to(torch.bfloat16)
+        m = x.amax(dim=-1, keepdim=True).to(torch.float32)
+        e = torch.exp(x.to(torch.float32) - m)
+        p = e / e.sum(dim=-1, keepdim=True)
+    else:
+        p = torch.softmax(x, dim=-1)
+    return p.to(out_dtype)
+
+
+def attn_softmax_plain(l, mask_bias, scale: float, out_dtype,
+                       round_logits: bool = False, dropout=None):
+    """F3's function in plain PyTorch (see the module doc)."""
+    p = _softmax_plain(l, mask_bias, scale, out_dtype, round_logits)
+    if dropout is None:
+        return p
+    keep, keep_p = _keep(dropout, p.shape, p.device)
+    return torch.where(keep, p / keep_p, 0.0)
+
+
+# -- the kernel ----------------------------------------------------------------
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "attn_softmax_forward": [_P, _P] + [_L] * 4 + [_P, _P, _L] + [_I] * 5
+                            + [_F, _F, _I, _P],
+    "attn_softmax_backward": [_P, _P] + [_L] * 4 + [_P, _P, _P, _L] + [_I] * 5
+                             + [_F, _F, _P],
+}
+_entry: dict = {}
+
+
+def _bound(name: str):
+    fn = _entry.get(name)
+    if fn is None:
+        lib = _cuda.load("attn_softmax")
+        for sym, argtypes in _SIGNATURES.items():
+            f = getattr(lib, sym)
+            f.restype, f.argtypes = ctypes.c_int, argtypes
+            _entry[sym] = f
+        fn = _entry[name]
+    return fn
+
+
+def _operands(l, mask_bias, out_dtype, dropout, mask):
+    """l contiguous, the bias broadcast to l's shape (f32; the kernel reads
+    it through its strides), and the keep mask (None without dropout) with
+    keep_p: `mask` when given, else drawn from `dropout`."""
+    if not l.is_cuda:
+        raise ValueError("attn_softmax: logits are not on a CUDA device")
+    if (l.dtype, out_dtype) not in _PAIRS:
+        raise TypeError(f"attn_softmax: logits {l.dtype} with output {out_dtype} "
+                        "is not one of bf16->bf16, bf16->f32, f32->f32")
+    bias = mask_bias.to(l.device, torch.float32).expand(l.shape)
+    if dropout is None:
+        return l.contiguous(), bias, None, 1.0
+    keep, keep_p = mask or _keep(dropout, l.shape, l.device)
+    return l.contiguous(), bias, keep.contiguous(), keep_p
+
+
+def _dims(l):
+    b, nh, sq, sk = l.shape
+    return b * nh * sq, nh, sq, sk
+
+
+def _variant(l, out_dtype, round_logits, dropout) -> str:
+    kind = ("round" if round_logits else
+            "plain" if dropout is None else f"drop{dropout[2]}")
+    return f"{_NAMES[l.dtype]}->{_NAMES[out_dtype]} {kind}"
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _forward_kernel(l, mask_bias, scale, out_dtype, round_logits, dropout,
+                    mask=None):
+    """y; `mask`: the site's (keep, keep_p) when already drawn."""
+    global launches
+    l, bias, keep, keep_p = _operands(l, mask_bias, out_dtype, dropout, mask)
+    y = torch.empty(l.shape, dtype=out_dtype, device=l.device)
+    if l.numel() == 0:      # an empty grid is not a valid launch
+        return y
+    err = _bound("attn_softmax_forward")(
+        l.data_ptr(), bias.data_ptr(), *bias.stride(),
+        None if keep is None else keep.data_ptr(), y.data_ptr(), *_dims(l),
+        _DTYPES[l.dtype], _DTYPES[out_dtype], scale, keep_p, int(round_logits),
+        _stream(l.device))
+    _cuda.check(err, "attn_softmax launch")
+    launches += 1
+    fused_layer.launches_by_variant[
+        "attn_softmax", _variant(l, out_dtype, round_logits, dropout)] += 1
+    return y
+
+
+def _backward_kernel(g, l, mask_bias, scale, dropout, mask=None):
+    """dl from the cotangent g of y (the training variant)."""
+    global backward_launches
+    l, bias, keep, keep_p = _operands(l, mask_bias, g.dtype, dropout, mask)
+    g = g.contiguous()
+    dl = torch.empty(l.shape, dtype=l.dtype, device=l.device)
+    if l.numel() == 0:
+        return dl
+    err = _bound("attn_softmax_backward")(
+        l.data_ptr(), bias.data_ptr(), *bias.stride(),
+        None if keep is None else keep.data_ptr(), g.data_ptr(), dl.data_ptr(),
+        *_dims(l), _DTYPES[l.dtype], _DTYPES[g.dtype], scale, keep_p,
+        _stream(l.device))
+    _cuda.check(err, "attn_softmax backward launch")
+    backward_launches += 1
+    fused_layer.launches_by_variant[
+        "attn_softmax backward", _variant(l, g.dtype, False, dropout)] += 1
+    return dl
+
+
+# -- autograd ------------------------------------------------------------------
+
+class _AttnSoftmax(torch.autograd.Function):
+    """F3. Saves l alone; the bias (one tensor for every layer) is kept on
+    the context."""
+
+    @staticmethod
+    def forward(ctx, l, mask_bias, scale, out_dtype, round_logits, dropout):
+        ctx.mask_bias = mask_bias
+        ctx.args = (scale, out_dtype, round_logits, dropout)
+        ctx.save_for_backward(l)
+        if l.is_cuda:
+            return _forward_kernel(l, mask_bias, scale, out_dtype, round_logits,
+                                   dropout)
+        return attn_softmax_plain(l, mask_bias, scale, out_dtype, round_logits,
+                                  dropout)
+
+    @staticmethod
+    def backward(ctx, g):
+        l, = ctx.saved_tensors
+        scale, out_dtype, round_logits, dropout = ctx.args
+        if g.is_cuda:
+            if round_logits:
+                raise ValueError("attn_softmax: the kernel's backward takes "
+                                 "the training variant (round_logits=False)")
+            dl = _backward_kernel(g, l, ctx.mask_bias, scale, dropout)
+            return dl, None, None, None, None, None
+        # The unfused chain's backward: _RngDropout's, then autograd's
+        # through the chain recomputed from l; the same ops, hence the same
+        # bits.
+        if dropout is not None:
+            keep, keep_p = _keep(dropout, g.shape, g.device)
+            g = torch.where(keep, g / keep_p, 0.0)
+        with torch.enable_grad():
+            ll = l.detach().requires_grad_()
+            p = _softmax_plain(ll, ctx.mask_bias, scale, out_dtype, round_logits)
+            dl, = torch.autograd.grad(p, ll, g)
+        return dl, None, None, None, None, None
+
+
+def attn_softmax(l, mask_bias, scale: float, out_dtype,
+                 round_logits: bool = False, dropout=None):
+    """F3 (see the module doc), differentiable in l (not in mask_bias).
+
+    l: (B, heads, Sq, Sk) bfloat16 or float32 with Sk <= MAX_SK (it raises
+    above); mask_bias: float32, broadcastable to l; scale: the divisor;
+    out_dtype: bfloat16 or float32 (bf16 logits take either, f32 logits
+    f32); dropout: None or (seed, rate, nbits, block). The kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    _check_sk(l)
+    if mask_bias.requires_grad:
+        raise ValueError("attn_softmax: mask_bias takes no gradient")
+    return _AttnSoftmax.apply(l, mask_bias, scale, out_dtype, round_logits,
+                              dropout)

@@ -162,6 +162,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    triples/s, peak memory below 80 GB; (c) phase 6 (c)'s remat=8 peak
    beside its 30.85 GiB before; (d) one phase-1 chunk of 12,288 entities
    at L 64 (BERT-base bf16, K2): ms, entities/s, peak beside 72.01 GiB.
+14. The attention softmax chain, F3 (scale, mask bias, softmax, dropout),
+   after phase 13, before the timings of phase 7. (a) F3 against its plain
+   version and the plain version's autograd VJP: the training variant with
+   8- and 32-bit masks at the W5M train step's 1,024 packed rows (12 heads,
+   Sp 128, two 64-token segments), the inference variant (bf16 logits) at
+   the W5M encode chunk's 6,144 rows and at L 32's 1,024, and at 64 rows
+   bf16 -> f32, fp32, no dropout and an unpacked bias; each with row 0's
+   keys all masked: bf16 within one bf16 ulp plus 1e-5 of the largest (y
+   with dropout within two: its second rounding), f32 within rtol 1e-5
+   (atol 1e-5 of the largest), dl identical across two backward calls. Then, each with every count set to 0 just before it:
+   (b) phase 6 (c)'s W5M step at remat=8 again (its launches: F3 and its
+   backward must occur); (c) phase 4's 4,096 entities at L 32 encoded with
+   `fused_attention=False`, the CLI's layer (F3's inference variant, no
+   K2), best of 5, held within 1e-2 of the K2 table, with both rates.
 7. Time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function, at the main path's shapes
    (K3's backward: the kernel with its index bookkeeping against the plain
@@ -171,7 +185,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the sum of the counts read after phases 4-5 (inference), after phase 6
    (train) and after phase 8 (word models), each path driven with every
    count (K3's forward and backward each have one) set to 0 just before it,
-   plus phase 9's to 13's.
+   plus phase 9's to 14's.
    K1's record also counts its launches by variant and width (every
    main-path launch must take the "tma" variant, at d 128, 300 and 768),
    reads the SM clock right after its timing with the kernel running, and
@@ -182,7 +196,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    TPU package) have a record each for forward and backward, with their
    launches by variant, at the W5M train step's shapes (F1 poly at 131,072
    x 3072, and none at 768 under `at_w768_none`; F2 at 131,072 x 768) and,
-   forward, at the encode chunk's (`at_encode`); their `library_ms` is
+   forward, at the encode chunk's (`at_encode`); F3 at the W5M train
+   shape with 8-bit masks (the kernel alone, the mask drawn before;
+   `with_mask_draw_ms` the call with its draw) and, forward, its inference variant at the
+   encode chunk's (`at_encode`) and L 32's rows (`at_l32`), its
+   `library_ms` torch.softmax (or aten._softmax_backward_data) on the f32
+   logits; F1's and F2's `library_ms` is
    F.gelu or F.layer_norm (or their backward) on the already-added input,
    which covers part of the function (`library_covers`), and for F1's
    backward at "none" (db alone: dh is g) g's f32 column sum, all of it.
@@ -221,8 +240,8 @@ from blp_tpu_torch.data.loader import epoch_batches, text_train_batch
 from blp_tpu_torch.data.synth import write_synth_dataset, write_tiny_glove
 from blp_tpu_torch.data.tokenizers import GloVeTokenizer, WordPieceTokenizer
 from blp_tpu_torch.models import bert, blp
-from blp_tpu_torch.ops import (_cuda, fused_layer, packed_attention, sddmm,
-                               transe_rank)
+from blp_tpu_torch.ops import (_cuda, attn_softmax, fused_layer,
+                               packed_attention, sddmm, transe_rank)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -269,7 +288,9 @@ COUNTERS = {"K1": (transe_rank, "launches"),
             "F1": (fused_layer, "bias_act_launches"),
             "F1 backward": (fused_layer, "bias_act_backward_launches"),
             "F2": (fused_layer, "add_layer_norm_launches"),
-            "F2 backward": (fused_layer, "add_layer_norm_backward_launches")}
+            "F2 backward": (fused_layer, "add_layer_norm_backward_launches"),
+            "F3": (attn_softmax, "launches"),
+            "F3 backward": (attn_softmax, "backward_launches")}
 #: Launch counts split by shape or variant (Counters).
 BY_KEYS = ("K1 by variant", "K2 by seg", "F by variant")
 
@@ -2435,22 +2456,24 @@ F2_CASES = ((True, "bf16", "bf16", W5M_TOKENS, True),
             (False, "f32", "f32", F_CHECK_ROWS, True))
 
 
-def within_ulp(got, want, atol: float = 0.0) -> bool:
-    """Every element of bf16 `got` within one bf16 ulp of `want` (plus
+def within_ulp(got, want, atol: float = 0.0, ulps: int = 1) -> bool:
+    """Every element of bf16 `got` within `ulps` bf16 ulps of `want` (plus
     atol)."""
     w = want.float()
     ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
-    return bool(((got.float() - w).abs() <= ulp + atol).all())
+    return bool(((got.float() - w).abs() <= ulps * ulp + atol).all())
 
 
-def f_close(got, want, *, rows_summed: bool = False) -> tuple[bool, float]:
-    """(within tolerance, max abs err). bf16: one bf16 ulp; f32: rtol 1e-5,
-    atol 1e-5 x max|want|. rows_summed (F2's outputs): plus 1e-5 x
+def f_close(got, want, *, rows_summed: bool = False,
+            ulps: int = 1) -> tuple[bool, float]:
+    """(within tolerance, max abs err). bf16: `ulps` bf16 ulps (one, or two
+    for F3's output after the dropout's second rounding); f32: rtol 1e-5,
+    atol 1e-5 x max|want|. rows_summed (F2's and F3's outputs): plus 1e-5 x
     max|want| for the f32 order of the row sums behind them."""
     err = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
     top = want.float().abs().max().item() if want.numel() else 0.0
     if got.dtype == torch.bfloat16:
-        return within_ulp(got, want, 1e-5 * top if rows_summed else 0.0), err
+        return within_ulp(got, want, 1e-5 * top if rows_summed else 0.0, ulps), err
     return torch.allclose(got, want, rtol=1e-5, atol=1e-5 * top), err
 
 
@@ -2656,6 +2679,167 @@ def fused_phase(w5m_remat8_peak: int) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     stats["phase13_s"] = time.perf_counter() - t0
     log(f"phase 13: {stats['phase13_s']:.1f} s")
+    return stats, launches
+
+
+# -- phase 14: the attention softmax chain (F3) ---------------------------------
+
+ATTN_HEADS, ATTN_SP, ATTN_HD = 12, 128, 64   # BERT-base heads, packed row, head dim
+F3_SMALL_ROWS = 64                # rows of the other variants' checks
+#: F3's checks: (l dtype, out dtype, round_logits, dropout bits, packed
+#: rows, segment length (None: the unpacked (B, 1, 1, S) bias), backward).
+#: The main path's: the training variant with 8-bit (bench --w5m) and
+#: 32-bit (phase 6) masks at the W5M train step's 1,024 rows of two 64-token
+#: segments; the inference variant at the W5M encode chunk (6,144 rows) and
+#: at L 32 (1,024 rows of four segments); bf16 -> f32 with
+#: mixed_precision_train off, f32 in fp32 mode, no dropout, and an unpacked
+#: bias at a small shape.
+F3_CASES = (("bf16", "bf16", False, 8, 1024, W5M_SEG, True),
+            ("bf16", "bf16", False, 32, 1024, W5M_SEG, True),
+            ("bf16", "bf16", True, None, W5M_K2_ROWS, W5M_SEG, False),
+            ("bf16", "bf16", True, None, 1024, SEG, False),
+            ("bf16", "f32", False, 32, F3_SMALL_ROWS, W5M_SEG, True),
+            ("f32", "f32", False, 32, F3_SMALL_ROWS, SEG, True),
+            ("bf16", "bf16", False, None, F3_SMALL_ROWS, W5M_SEG, True),
+            ("bf16", "bf16", False, 8, F3_SMALL_ROWS, None, True))
+# Operations an element, for the bound (bytes bound every case): forward
+# scale, bias, max, subtract, exp, sum, divide, dropout scale; backward the
+# same recompute and the dropout scale, product, sum, fused multiply-add and
+# scale.
+F3_OPS, F3_BWD_OPS = 10, 16
+
+
+def f3_inputs(rows: int, seg, l_dt, out_dt, seed: int):
+    """Logits (rows, 12, 128, 128), the layer's additive bias over a key
+    mask with ~1 key in 4 padding (packed: block-diagonal over segments of
+    `seg`; None: unpacked (rows, 1, 1, 128)), row 0's keys all masked, and a
+    cotangent."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (rows, ATTN_HEADS, ATTN_SP, ATTN_SP)
+    l = (4.0 * torch.randn(shape, generator=g, device="cuda")).to(l_dt)
+    keys = torch.rand((rows, ATTN_SP), generator=g, device="cuda") > 0.25
+    keys[0] = False
+    if seg is None:
+        bias = ((~keys).float() * -10000.0)[:, None, None, :]
+    else:
+        idx = torch.arange(ATTN_SP, device="cuda") // seg
+        visible = (idx[:, None] == idx[None, :])[None] & keys[:, None, :]
+        bias = torch.where(visible, 0.0, -10000.0)[:, None]
+    gy = torch.randn(shape, generator=g, device="cuda").to(out_dt)
+    return l, bias, gy
+
+
+def _f3_dropout(nbits, seed: int):
+    return None if nbits is None else (seed, 0.1, nbits, None)
+
+
+def check_f3() -> dict:
+    """(a) of phase 14: each case's output and dl against the plain chain
+    and its autograd VJP: bf16 within one bf16 ulp plus 1e-5 of the largest
+    (y with dropout within two: the dropout's second rounding of a
+    probability one ulp apart), f32 within rtol 1e-5, atol 1e-5 of the
+    largest; dl identical across two backward calls; whether each equals
+    the plain version bit for bit is printed."""
+    errs, scale = {}, math.sqrt(ATTN_HD)
+    for i, (ld, od, rl, nbits, rows, seg, backward) in enumerate(F3_CASES):
+        l, bias, gy = f3_inputs(rows, seg, F_DT[ld], F_DT[od], seed=70 + i)
+        drop = _f3_dropout(nbits, 1000 + i)
+        ll = l.detach().requires_grad_(backward)
+        with torch.set_grad_enabled(backward):
+            want = attn_softmax.attn_softmax_plain(ll, bias, scale, F_DT[od], rl, drop)
+            dl_want = torch.autograd.grad(want, ll, gy)[0] if backward else None
+            got = attn_softmax.attn_softmax(ll, bias, scale, F_DT[od], rl, drop)
+        what = (f"F3 {ld}->{od} {'round' if rl else f'drop {nbits}'} at {rows:,} x "
+                f"{ATTN_HEADS} x {ATTN_SP} x {ATTN_SP}, "
+                f"{'unpacked' if seg is None else f'seg {seg}'}")
+        ok, err = f_close(got, want, rows_summed=True, ulps=1 if drop is None else 2)
+        require(ok and bool(torch.isfinite(got[0]).all()),
+                f"{what}: y differs from the plain version (max abs err {err})")
+        rec = {"y": err, "y_equal": bool(torch.equal(got, want))}
+        del want
+        if backward:
+            (dl,), (dl2,) = [torch.autograd.grad(got, ll, gy, retain_graph=True)
+                             for _ in range(2)]
+            require(torch.equal(dl, dl2), f"{what}: dl differs between two calls")
+            ok, rec["dl"] = f_close(dl, dl_want, rows_summed=True)
+            require(ok and bool(torch.isfinite(dl[0]).all()),
+                    f"{what}: dl differs (max abs err {rec['dl']})")
+            rec["dl_equal"] = bool(torch.equal(dl, dl_want))
+            del dl, dl2, dl_want
+        log(f"F3 check {what}: " + ", ".join(f"{k} {v:.3g}" if isinstance(v, float)
+                                             else f"{k} {v}" for k, v in rec.items()))
+        errs[what] = rec
+        del l, bias, gy, got, ll
+        torch.cuda.empty_cache()
+    return errs
+
+
+def eager_encode(data_dir: str) -> dict:
+    """(c) of phase 14: phase 4's batch (4,096 entities at L 32, BERT-base
+    bf16) encoded through `fused_attention=False`, the layer the CLI runs
+    (F3's inference variant), best of 5; its launches are read after it.
+    Then, not counted, the same batch through K2, the yardstick: the two
+    tables within 1e-2 (unit-norm embeddings) and their entities/s."""
+    tok = WordPieceTokenizer(os.path.join(data_dir, "vocab.txt"))
+    texts = [ln.split("\t")[1] for ln in open(
+        os.path.join(data_dir, "entity2text.txt"), encoding="utf-8").read().splitlines()]
+    ids, mask = tok.batch_encode(texts, SEG)
+    cfg, params = make_model(num_relations=12)
+    out = {}
+    for fused in (False, True):
+        c = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, fused_attention=fused))
+        srv = serve.LinkPredictor(params=params, cfg=c, tokenizer=tok,
+                                  max_len=SEG, device="cuda")
+        table = srv._encode(srv.params, ids, mask)
+        best = min(wall(lambda: srv._encode(srv.params, ids, mask))[1]  # noqa: B023
+                   for _ in range(5))
+        out[fused] = (table, best)
+        if not fused:
+            launches = read_counts()
+    diff = (out[False][0] - out[True][0]).abs().max().item()
+    require(diff <= 1e-2 and bool(torch.isfinite(out[False][0]).all()),
+            f"(c) the eager and K2 encodes differ by {diff}")
+    n = len(texts)
+    rate = {f: n / out[f][1] for f in out}
+    log(f"(c) encode of {n:,} entities at L {SEG} (BERT-base bf16) with "
+        f"fused_attention=False (F3's inference variant): "
+        f"{out[False][1] * 1e3:.2f} ms, {rate[False]:,.0f} entities/s; with K2 "
+        f"{out[True][1] * 1e3:.2f} ms, {rate[True]:,.0f} entities/s "
+        f"({100 * rate[False] / rate[True]:.1f}% of it); tables within {diff:.3g} "
+        f"(limit 1e-2); launches {launches}")
+    return {"eager_encode_ms": out[False][1] * 1e3,
+            "eager_encode_entities_per_s": rate[False],
+            "k2_encode_entities_per_s": rate[True], "eager_vs_k2": diff}, launches
+
+
+def softmax_phase(data_dir: str, card: str) -> tuple[dict, dict]:
+    """Phase 14: (a) F3 against its plain version (not counted); then, each
+    with every count set to 0 just before it, (b) phase 6 (c)'s W5M step at
+    remat=8 and (c) the eager encode. Returns the stats and the sum of (b)'s
+    and (c)'s launches."""
+    t0 = time.perf_counter()
+    stats = {"f3_check": check_f3()}
+    torch.cuda.empty_cache()
+    reset_counts()
+    w5m = w5m_train(data_dir, card)
+    step_launches = read_counts()
+    stats.update({"f3_" + k: v for k, v in w5m.items()})
+    log(f"(b) W5M step at remat=8: launches {step_launches}")
+    require(step_launches["F3"] > 0 and step_launches["F3 backward"] > 0,
+            "F3 or its backward was never launched by the W5M step")
+    torch.cuda.empty_cache()
+    reset_counts()
+    enc, enc_launches = eager_encode(data_dir)
+    stats.update(enc)
+    require(enc_launches["F3"] > 0 and enc_launches["K2"] == 0,
+            "the eager encode did not take F3 (or took K2)")
+    torch.cuda.empty_cache()
+    launches = {k: step_launches[k] + enc_launches[k] for k in COUNTERS}
+    for key in BY_KEYS:
+        launches[key] = step_launches[key] + enc_launches[key]
+    stats["phase14_s"] = time.perf_counter() - t0
+    log(f"phase 14: {stats['phase14_s']:.1f} s")
     return stats, launches
 
 
@@ -3077,6 +3261,110 @@ def time_f2(launches: int, backward_launches: int, by_variant: dict) -> list[dic
              **_time_f2_backward_at(W5M_TOKENS)}]
 
 
+def _f3_bias_bytes(bias) -> float:
+    """Bytes of the bias the kernel reads: each distinct f32 element once."""
+    return 4.0 * math.prod(n for n, st in zip(bias.shape, bias.stride()) if st)
+
+
+def _time_f3_at(rows: int, seg, round_logits: bool, nbits) -> dict:
+    """F3's forward at (rows, 12, 128, 128) bf16 -> bf16: the kernel alone
+    (the keep mask drawn before) and the plain chain with its draw (CUDA
+    events), torch.softmax on the f32 scaled, biased logits (the library's
+    nearest call), the bound (l, keep, y and the bias once)."""
+    bf, scale = torch.bfloat16, math.sqrt(ATTN_HD)
+    l, bias, _ = f3_inputs(rows, seg, bf, bf, seed=60)
+    drop = _f3_dropout(nbits, 7)
+    mask = None if drop is None else attn_softmax._keep(drop, l.shape, l.device)
+    kernel = lambda: attn_softmax._forward_kernel(l, bias, scale, bf,  # noqa: E731
+                                                  round_logits, drop, mask)
+    plain = lambda: attn_softmax.attn_softmax_plain(l, bias, scale, bf,  # noqa: E731
+                                                    round_logits, drop)
+    with torch.no_grad():
+        ok, err = f_close(kernel(), plain(), rows_summed=True,
+                          ulps=1 if drop is None else 2)
+        require(ok, f"F3 at {rows} rows: error {err}")
+        ms = cuda_ms(kernel, reps=20, warmup=3)
+        plain_ms = cuda_ms(plain, reps=3)
+        with_draw_ms = cuda_ms(lambda: attn_softmax.attn_softmax(
+            l, bias, scale, bf, round_logits, drop), reps=10, warmup=2)
+        x = l.float() / scale + bias
+        library_ms = cuda_ms(lambda: torch.softmax(x, dim=-1), reps=10, warmup=2)
+    n = l.numel()
+    nbytes = 4.0 * n + (n if drop else 0) + _f3_bias_bytes(bias)
+    del l, bias, mask, x
+    torch.cuda.empty_cache()
+    kind = "round" if round_logits else f"drop {nbits}"
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "with_mask_draw_ms": with_draw_ms,
+            **_bound(nbytes, float(F3_OPS) * n), "library_ms": library_ms,
+            "library_covers": "torch.softmax on the f32 scaled, biased logits: "
+                              "no scale, bias, cast or dropout",
+            "shape": f"{rows:,} x {ATTN_HEADS} x {ATTN_SP} x {ATTN_SP} bf16->bf16 "
+                     f"{kind}, seg {seg}"}
+
+
+def _time_f3_backward_at(rows: int, seg, nbits) -> dict:
+    """F3's backward kernel (the keep mask drawn before) against the plain
+    chain's VJP (forward and backward, as autograd runs it from l) and
+    aten._softmax_backward_data on f32 y and g (the library's nearest
+    call)."""
+    bf, scale = torch.bfloat16, math.sqrt(ATTN_HD)
+    l, bias, gy = f3_inputs(rows, seg, bf, bf, seed=61)
+    drop = _f3_dropout(nbits, 8)
+    mask = None if drop is None else attn_softmax._keep(drop, l.shape, l.device)
+
+    def plain_vjp():
+        with torch.enable_grad():
+            ll = l.detach().requires_grad_()
+            return torch.autograd.grad(attn_softmax.attn_softmax_plain(
+                ll, bias, scale, bf, False, drop), ll, gy)[0]
+
+    kernel = lambda: attn_softmax._backward_kernel(gy, l, bias, scale, drop,  # noqa: E731
+                                                   mask)
+    ok, err = f_close(kernel(), plain_vjp(), rows_summed=True)
+    require(ok, f"F3 backward at {rows} rows: dl error {err}")
+    ms = cuda_ms(kernel, reps=20, warmup=3)
+    plain_ms = cuda_ms(plain_vjp, reps=3)
+    with torch.no_grad():
+        y32 = torch.softmax(l.float() / scale + bias, dim=-1)
+        g32 = gy.float()
+    library_ms = cuda_ms(lambda: torch.ops.aten._softmax_backward_data(
+        g32, y32, -1, torch.float32), reps=10, warmup=2)
+    n = l.numel()
+    nbytes = 6.0 * n + n + _f3_bias_bytes(bias)    # l, g, dl; keep; bias
+    del l, bias, gy, mask, y32, g32
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **_bound(nbytes, float(F3_BWD_OPS) * n), "library_ms": library_ms,
+            "library_covers": "aten._softmax_backward_data on f32 y and g: the "
+                              "softmax's backward alone, no recompute, dropout or "
+                              "casts",
+            "shape": f"{rows:,} x {ATTN_HEADS} x {ATTN_SP} x {ATTN_SP} bf16->bf16 "
+                     f"drop {nbits}, seg {seg}"}
+
+
+def time_f3(launches: int, backward_launches: int, by_variant: dict) -> list[dict]:
+    """F3 at the W5M train step's shape (1,024 rows of two 64-token
+    segments, 8-bit masks as bench --w5m draws them) and, its inference
+    variant, at the W5M encode chunk (6,144 rows, `at_encode`) and at L 32
+    (1,024 rows of four segments, `at_l32`)."""
+    common = {"route": "cuda", "source": "blp_tpu_torch/csrc/attn_softmax.cu",
+              "replaces": "blp_tpu/models/bert.py:430",
+              "xla_fusion": "no Pallas kernel: XLA fuses the scale, mask bias, "
+                            "jax.nn.softmax, bf16 cast and _rng_dropout "
+                            "(:430-441; the inference layer's :357-365)"}
+    fwd = {"name": "attn_softmax (F3)", **common, "launches": launches,
+           "launches_by_variant": by_variant.get("attn_softmax", {}),
+           **_time_f3_at(1024, W5M_SEG, False, 8),
+           "at_encode": _time_f3_at(W5M_K2_ROWS, W5M_SEG, True, None),
+           "at_l32": _time_f3_at(1024, SEG, True, None)}
+    bwd = {"name": "attn_softmax backward (F3)", **common,
+           "launches": backward_launches,
+           "launches_by_variant": by_variant.get("attn_softmax backward", {}),
+           **_time_f3_backward_at(1024, W5M_SEG, 8)}
+    return [fwd, bwd]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3178,9 +3466,16 @@ def main() -> int:
     fused_stats, fused_launches = fused_phase(train_stats["w5m_train_peak_bytes"])
     log(f"main-path launches, the fused chains (phase 13): {fused_launches}")
     require(all(fused_launches[k] > 0 for k in COUNTERS if k[0] == "F"),
-            "F1 or F2 was never launched by phase 13's paths")
+            "F1, F2 or F3 was never launched by phase 13's paths")
+    torch.cuda.empty_cache()
+
+    # reset inside: (a) holds F3 to its plain version first
+    softmax_stats, softmax_launches = softmax_phase(data_dir, card)
+    log(f"main-path launches, the attention softmax chain (phase 14): "
+        f"{softmax_launches}")
     phases = (infer_launches, train_launches, word_launches, mesh_launches,
-              done_launches, w5m_launches, bench_launches, fused_launches)
+              done_launches, w5m_launches, bench_launches, fused_launches,
+              softmax_launches)
     launches = {k: sum(p[k] for p in phases) for k in COUNTERS}
     k1_counts = sum((p["K1 by variant"] for p in phases), collections.Counter())
     k1_by = {v: {d: c for (w, d), c in sorted(k1_counts.items()) if w == v}
@@ -3192,7 +3487,7 @@ def main() -> int:
     for (kernel, variant), c in sorted(f_counts.items()):
         f_by.setdefault(kernel, {})[variant] = c
     log(f"main-path launches: {launches}; K1 by variant and width: {k1_by}; "
-        f"K2 by segment length: {k2_by}; F1 and F2 by variant: {f_by}")
+        f"K2 by segment length: {k2_by}; F1, F2 and F3 by variant: {f_by}")
     require(all(n > 0 for n in launches.values()),
             "a kernel of the main path was never launched")
     require(all(k1_by["tma"].get(d, 0) > 0 for d in (K1_D, *WORD_DIMS))
@@ -3205,7 +3500,8 @@ def main() -> int:
     kernels = [time_k1(launches["K1"], k1_by), time_k2(launches["K2"], k2_by),
                *time_k3(launches["K3"], launches["K3 backward"]),
                *time_f1(launches["F1"], launches["F1 backward"], f_by),
-               *time_f2(launches["F2"], launches["F2 backward"], f_by)]
+               *time_f2(launches["F2"], launches["F2 backward"], f_by),
+               *time_f3(launches["F3"], launches["F3 backward"], f_by)]
     for kr in kernels:
         for rec in (kr, *(v for k, v in kr.items() if k.startswith("at_"))):
             log(f"{kr['name']}: {rec['ms']:.4f} ms (plain "
@@ -3228,7 +3524,8 @@ def main() -> int:
                 f"{kr['at_b1024']['call_ms']:.4f} ms (B=1024)")
     log("summary: " + json.dumps({**serve_stats, **eval_stats, **train_stats,
                                   **word_stats, **mesh_stats, **done_stats,
-                                  **w5m_stats, **bench_stats, **fused_stats},
+                                  **w5m_stats, **bench_stats, **fused_stats,
+                                  **softmax_stats},
                                  default=str))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(card)   # name, power limit: nvidia-smi's own line

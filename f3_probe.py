@@ -1,0 +1,222 @@
+#!/usr/bin/env python3
+"""The attention softmax chain on one NVIDIA GPU: what it costs the main
+path, for the tree at --root (this checkout by default, or a `git archive`
+of another commit unpacked under build/, to compare two commits in one
+process launch each).
+
+    mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
+    python3 f3_probe.py --root build/parent --out build/f3_probe/parent.json
+    python3 f3_probe.py --out build/f3_probe/change.json
+
+On the tree at --root it measures, with torch.profiler's device time unless
+named otherwise:
+(1) the op-by-op chain (f32 cast, divide by sqrt(head_dim), add the mask
+    bias, torch.softmax, bf16 cast, `_rng_dropout`) at the W5M train shape
+    (1,024 packed rows of two 64-token segments, 12 heads, 128 x 128, bf16
+    logits), forward and forward+backward, with 32- and 8-bit masks, one
+    mask draw alone, and F3 (ops/attn_softmax.py) the same way where the
+    tree has it;
+(2) chip_smoke's phase 6 (c) W5M step (B 1,024, L 64, K 64, remat=8): six
+    steps' wall ms, peak memory, and one step's device time by kernel name;
+(3) phase 4's encode of 4,096 entities at L 32 with and without K2
+    (`fused_attention`), best of 5, with its kernels;
+(4) `bench --w5m`'s point through chip_smoke's `w5m_point` (skip with
+    --skip-bench).
+Prints a summary and writes every table to --out (JSON).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import sys
+import time
+
+import torch
+
+B, NH, S, HD = 1024, 12, 128, 64
+
+
+def kernel_table(fn) -> tuple[float, list]:
+    """(wall ms, [(kernel name, device ms, count)] by device time) of one
+    call of fn under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                            for e in prof.key_averages()
+                            if e.device_type == torch.autograd.DeviceType.CUDA
+                            and e.self_device_time_total > 0), key=lambda k: -k[1])
+
+
+def chain(l, mask_bias, nbits):
+    """The layer's attention chain before F3, op by op."""
+    x = l.to(torch.float32) / math.sqrt(HD) + mask_bias
+    p = torch.softmax(x, dim=-1).to(torch.bfloat16)
+    return bert._rng_dropout(p, 1234, 0.1, nbits)
+
+
+def chain_costs(res: dict) -> None:
+    """(1)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    l = (4 * torch.randn((B, NH, S, S), generator=g, device="cuda")).to(torch.bfloat16)
+    keys = (torch.rand((B // 2, S), generator=g, device="cuda") > 0.3).float()
+    idx = torch.arange(S, device="cuda") // 64
+    visible = (idx[:, None] == idx[None, :])[None] & (keys[:, None, :] > 0)
+    mask_bias = torch.where(visible, 0.0, -10000.0)[:B // 2, None]
+    mask_bias = torch.cat([mask_bias, mask_bias])
+    gy = torch.randn((B, NH, S, S), generator=g, device="cuda").to(torch.bfloat16)
+
+    def fwd_bwd(fn):
+        def run():
+            ll = l.detach().requires_grad_()
+            torch.autograd.grad(fn(ll), ll, gy)
+        return run
+
+    for nbits in (32, 8):
+        with torch.no_grad():
+            fwd_ms, fwd_n, fwd_names = cs.device_ms(lambda: chain(l, mask_bias, nbits),
+                                                    reps=3)
+        fb_ms, fb_n, fb_names = cs.device_ms(
+            fwd_bwd(lambda ll: chain(ll, mask_bias, nbits)), reps=3)
+        keep_ms, _, _ = cs.device_ms(lambda: bert._site_keep(
+            1234, 0.1, nbits, l.shape, "cuda", None), reps=3)
+        res[f"chain{nbits}"] = {"fwd_ms": fwd_ms, "fwd_launches": fwd_n,
+                                "fwd_bwd_ms": fb_ms, "fwd_bwd_launches": fb_n,
+                                "mask_draw_ms": keep_ms, "fwd_names": fwd_names,
+                                "fwd_bwd_names": fb_names}
+        print(f"op-by-op chain at {B}x{NH}x{S}x{S}, {nbits}-bit masks: forward "
+              f"{fwd_ms:.3f} ms ({fwd_n:g} launches), forward+backward {fb_ms:.3f} "
+              f"ms ({fb_n:g}); one mask draw {keep_ms:.3f} ms", flush=True)
+        if F3 is None:
+            continue
+        drop = (1234, 0.1, nbits, None)
+
+        def f3(ll):
+            return F3.attn_softmax(ll, mask_bias, math.sqrt(HD), torch.bfloat16,
+                                   False, drop)
+        with torch.no_grad():
+            f_ms, _, _ = cs.device_ms(lambda: f3(l), reps=3)
+        f_fb, _, _ = cs.device_ms(fwd_bwd(f3), reps=3)
+        res[f"f3_{nbits}"] = {"fwd_ms": f_ms, "fwd_bwd_ms": f_fb}
+        print(f"  F3 (its mask draws included): forward {f_ms:.3f} ms, "
+              f"forward+backward {f_fb:.3f} ms", flush=True)
+
+
+def w5m_step(res: dict, data_dir: str) -> None:
+    """(2)."""
+    cfg, params = cs.train_model(12, remat=8)
+    opt = training.make_optimizer(5e-5, 1000)
+    state = opt.init(params)
+    step = training.make_train_step(cfg, opt, batch_size=1024, num_negatives=64,
+                                    device="cuda")
+    batches = cs.train_batches(data_dir, 64, 1024, 3)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i, batch in enumerate(batches * 2):
+        (params, state, _), s = cs.wall(lambda: step(params, state, (0, i), batch))  # noqa: B023
+        times.append(s * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    wall_ms, ks = kernel_table(lambda: step(params, state, (0, 9), batches[0]))
+    busy = sum(k[1] for k in ks)
+    res["w5m_step"] = {"ms": times, "peak_gib": peak / 2**30, "prof_wall_ms": wall_ms,
+                       "busy_ms": busy, "kernels": [(n[:300], ms, c) for n, ms, c in ks[:80]]}
+    print(f"W5M step remat=8: {[round(t, 1) for t in times]} ms, peak "
+          f"{peak / 2**30:.2f} GiB; profiled wall {wall_ms:.1f} busy {busy:.1f}", flush=True)
+    for n, ms, c in ks[:30]:
+        print(f"  {ms:9.2f} ms x{c:<6d} {n[:150]}", flush=True)
+
+
+def encodes(res: dict, data_dir: str) -> None:
+    """(3)."""
+    tok = WordPieceTokenizer(os.path.join(data_dir, "vocab.txt"))
+    texts = [ln.split("\t")[1] for ln in open(
+        os.path.join(data_dir, "entity2text.txt"), encoding="utf-8").read().splitlines()]
+    ids, mask = tok.batch_encode(texts, cs.SEG)
+    cfg, params = cs.make_model(num_relations=12)
+    for fused in (True, False):
+        c = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, fused_attention=fused))
+        srv = serve.LinkPredictor(params=params, cfg=c, tokenizer=tok,
+                                  max_len=cs.SEG, device="cuda")
+        srv._encode(srv.params, ids, mask)
+        ts = [cs.wall(lambda: srv._encode(srv.params, ids, mask))[1]  # noqa: B023
+              for _ in range(5)]
+        _, ks = kernel_table(lambda: srv._encode(srv.params, ids, mask))  # noqa: B023
+        busy = sum(k[1] for k in ks)
+        res[f"encode_fused_{fused}"] = {
+            "ms": [t * 1e3 for t in ts], "entities_per_s": len(texts) / min(ts),
+            "busy_ms": busy, "kernels": [(n[:300], ms, c) for n, ms, c in ks[:40]]}
+        print(f"encode 4,096 at L 32 fused_attention={fused}: best "
+              f"{min(ts) * 1e3:.2f} ms = {len(texts) / min(ts):,.0f} entities/s; busy "
+              f"{busy:.2f} ms", flush=True)
+        for n, ms, cnt in ks[:12]:
+            print(f"  {ms:8.3f} ms x{cnt:<5d} {n[:150]}", flush=True)
+
+
+def _import(root: str) -> None:
+    """The modules of the tree at `root`, as this module's globals."""
+    global cs, serve, training, write_synth_dataset, WordPieceTokenizer, bert
+    global _cuda, F3
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import chip_smoke as cs
+    from blp_tpu_torch import serve, training
+    from blp_tpu_torch.data.synth import write_synth_dataset
+    from blp_tpu_torch.data.tokenizers import WordPieceTokenizer
+    from blp_tpu_torch.models import bert
+    from blp_tpu_torch.ops import _cuda
+    try:
+        from blp_tpu_torch.ops import attn_softmax as F3
+    except ImportError:     # a tree from before F3
+        F3 = None
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
+                    help="the tree to measure (default: this checkout)")
+    ap.add_argument("--out", default="build/f3_probe/f3_probe.json",
+                    help="JSON file for the tables (relative to the working "
+                         "directory)")
+    ap.add_argument("--skip-bench", action="store_true")
+    args = ap.parse_args(argv)
+    out_path = os.path.abspath(args.out)
+    root = os.path.abspath(args.root)
+    if not torch.cuda.is_available():
+        print("f3_probe: CUDA is not available", file=sys.stderr)
+        return 2
+    _import(root)
+    res = {"root": root, "card": cs.card_line()}
+    print("card", res["card"], "torch", torch.__version__, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _cuda.build_all()
+    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    chain_costs(res)
+    torch.cuda.empty_cache()
+    data_dir = write_synth_dataset(os.path.join(cs.WORK_DIR, "synth4096"),
+                                   num_entities=4096, num_relations=12,
+                                   num_triples=8000, seed=0)
+    w5m_step(res, data_dir)
+    torch.cuda.empty_cache()
+    encodes(res, data_dir)
+    torch.cuda.empty_cache()
+    if not args.skip_bench:
+        res.update(cs.w5m_point())
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    print(f"wrote {out_path}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,7 +24,12 @@ negatives; cuBLAS sums in another order). F1 and F2 (the layer's fused
 chains): bf16 outputs and dh within one bf16 ulp of the plain version on the
 card (F2's outputs and ds plus 1e-5 of the largest, for the f32 order of its
 row sums), f32 ones within rtol 1e-5, db, dscale and dbias within rtol 1e-4
-(atol 1e-4 of the largest) and identical across calls.
+(atol 1e-4 of the largest) and identical across calls. F3 (the attention
+softmax chain): y and dl within one bf16 ulp plus 1e-5 of the largest of the
+plain chain and its autograd VJP (f32: rtol 1e-5, atol 1e-5 of the largest),
+for the kernel's order of the row sums and its reciprocal of the sum where
+torch divides; a bf16 y with dropout within two ulps (the dropout's second
+rounding of a probability one ulp apart); identical across calls.
 """
 
 import dataclasses
@@ -38,7 +43,8 @@ from blp_tpu_torch import checkpoint, evaluation, training
 from blp_tpu_torch.data import sampling
 from blp_tpu_torch.data.filtering import FilterIndex
 from blp_tpu_torch.models import bert, blp
-from blp_tpu_torch.ops import fused_layer, packed_attention, sddmm, transe_rank
+from blp_tpu_torch.ops import (attn_softmax, fused_layer, packed_attention, sddmm,
+                               transe_rank)
 
 pytestmark = pytest.mark.cuda
 
@@ -810,16 +816,16 @@ def test_serving_bench_top10_on_the_card_equals_the_cpu():
 DT = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
-def _within_ulp(got, want, atol=0.0):
+def _within_ulp(got, want, atol=0.0, ulps=1):
     w = want.float()
     ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
-    return bool(((got.float() - w).abs() <= ulp + atol).all())
+    return bool(((got.float() - w).abs() <= ulps * ulp + atol).all())
 
 
-def _close(got, want, rows_summed=False):
+def _close(got, want, rows_summed=False, ulps=1):
     top = want.float().abs().max().item() if want.numel() else 0.0
     if got.dtype == torch.bfloat16:
-        return _within_ulp(got, want, 1e-5 * top if rows_summed else 0.0)
+        return _within_ulp(got, want, 1e-5 * top if rows_summed else 0.0, ulps)
     return torch.allclose(got, want, rtol=1e-5, atol=1e-5 * top)
 
 
@@ -996,4 +1002,140 @@ def _layer_saved_bytes(device):
 def test_w5m_layer_saves_on_the_card_what_it_saves_on_the_cpu():
     card, cpu = _layer_saved_bytes("cuda"), _layer_saved_bytes("cpu")
     assert card == cpu
-    assert sum(n for n, _, _ in card) / 512 <= 40e3
+    assert sum(n for n, _, _ in card) / 512 <= 32e3
+
+
+def test_f2_backward_matches_plain_at_the_w5m_shape():
+    """The W5M train step's 131,072 rows x 768: ds, dscale and dbias against
+    the plain LayerNorm's VJP."""
+    got, want = _f2_case(True, "bf16", "bf16", 131_072, 768, seed=5)
+    for a, b in zip(got[1:3], want[1:3]):
+        assert _close(a, b, rows_summed=True)
+    assert _sum_close(got[-2], want[-2]) and _sum_close(got[-1], want[-1])
+
+
+def _f3_inputs(b, nh, sq, sk, l_dt, out_dt, seg=None, seed=0):
+    """Logits, the layer's bias (packed: block-diagonal over segments of
+    `seg`, (b, 1, sq, sk); else (b, 1, 1, sk)) over a key mask with row 0's
+    keys all masked, and a cotangent."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    l = (4.0 * torch.randn((b, nh, sq, sk), generator=g, device="cuda")).to(DT[l_dt])
+    keys = torch.rand((b, sk), generator=g, device="cuda") > 0.25
+    keys[0] = False
+    if seg is None:
+        bias = ((~keys).float() * -10000.0)[:, None, None, :]
+    else:
+        iq = torch.arange(sq, device="cuda") // seg
+        ik = torch.arange(sk, device="cuda") // seg
+        bias = torch.where((iq[:, None] == ik[None, :])[None] & keys[:, None, :],
+                           0.0, -10000.0)[:, None]
+    gy = torch.randn((b, nh, sq, sk), generator=g, device="cuda").to(DT[out_dt])
+    return l, bias, gy
+
+
+def _f3_case(l, bias, gy, out_dt, round_logits=False, dropout=None, calls=1):
+    """[y, dl...] of the kernel and of the plain chain (dl calls times for
+    the kernel; no dl for round_logits)."""
+    out = []
+    for fn, n in ((attn_softmax.attn_softmax, calls), (attn_softmax.attn_softmax_plain, 1)):
+        ll = l.detach().requires_grad_(not round_logits)
+        with torch.set_grad_enabled(not round_logits):
+            y = fn(ll, bias, 8.0, DT[out_dt], round_logits, dropout)
+        grads = [] if round_logits else [
+            torch.autograd.grad(y, ll, gy, retain_graph=True)[0] for _ in range(n)]
+        out.append([y.detach(), *grads])
+    return out
+
+
+@pytest.mark.parametrize("seg", [None, 16])
+@pytest.mark.parametrize("nbits", [8, 16, 32, None])
+@pytest.mark.parametrize("l_dt,out_dt", [("bf16", "bf16"), ("bf16", "f32"),
+                                         ("f32", "f32")])
+def test_f3_kernel_matches_plain(l_dt, out_dt, nbits, seg):
+    before = (attn_softmax.launches, attn_softmax.backward_launches)
+    l, bias, gy = _f3_inputs(5, 3, 128, 128, l_dt, out_dt, seg, seed=1)
+    drop = None if nbits is None else (11, 0.1, nbits, None)
+    (y, dl), (y_p, dl_p) = _f3_case(l, bias, gy, out_dt, dropout=drop)
+    assert (attn_softmax.launches, attn_softmax.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert y.dtype == DT[out_dt] and dl.dtype == DT[l_dt]
+    assert _close(y, y_p, rows_summed=True, ulps=1 if drop is None else 2)
+    assert _close(dl, dl_p, rows_summed=True)
+    assert torch.isfinite(y[0]).all() and torch.isfinite(dl[0]).all()
+
+
+@pytest.mark.parametrize("sk", [1, 7, 33, 64, 100, 200, 512, 777, 1024])
+def test_f3_kernel_matches_plain_at_every_row_length(sk):
+    """Each register count a lane (1 to 32 keys) and ragged rows, with the
+    queries fewer than the keys."""
+    l, bias, gy = _f3_inputs(3, 2, 5, sk, "bf16", "bf16", seed=2)
+    (y, dl), (y_p, dl_p) = _f3_case(l, bias, gy, "bf16", dropout=(3, 0.1, 8, None))
+    assert _close(y, y_p, rows_summed=True, ulps=2) and _close(dl, dl_p, rows_summed=True)
+    (y,), (y_p,) = _f3_case(l, bias, gy, "bf16", round_logits=True)
+    assert _close(y, y_p, rows_summed=True)
+
+
+@pytest.mark.parametrize("seg", [None, 32])
+def test_f3_inference_variant_matches_plain(seg):
+    l, bias, gy = _f3_inputs(9, 12, 128, 128, "bf16", "bf16", seg, seed=3)
+    (y,), (y_p,) = _f3_case(l, bias, gy, "bf16", round_logits=True)
+    assert y.dtype == torch.bfloat16 and _close(y, y_p, rows_summed=True)
+
+
+def test_f3_in_a_dropout_block_matches_plain():
+    """A rank's block of the one-device site (rows 2-4, heads 4-7 of 12)."""
+    l, bias, gy = _f3_inputs(3, 4, 64, 64, "bf16", "bf16", 32, seed=4)
+    block = ((8, 12, 64, 64), (slice(2, 5), slice(4, 8), slice(None), slice(None)))
+    (y, dl), (y_p, dl_p) = _f3_case(l, bias, gy, "bf16", dropout=(5, 0.1, 8, block))
+    assert _close(y, y_p, rows_summed=True, ulps=2) and _close(dl, dl_p, rows_summed=True)
+
+
+def test_f3_matches_plain_at_the_w5m_shapes():
+    """The training variant at the W5M train step's 1,024 packed rows (two
+    64-token segments, 8-bit masks), identical across two backward calls;
+    the inference variant at the W5M encode chunk's 6,144 rows."""
+    l, bias, gy = _f3_inputs(1024, 12, 128, 128, "bf16", "bf16", 64, seed=5)
+    (y, dl, dl2), (y_p, dl_p) = _f3_case(l, bias, gy, "bf16",
+                                         dropout=(6, 0.1, 8, None), calls=2)
+    assert torch.equal(dl, dl2)
+    assert _close(y, y_p, rows_summed=True, ulps=2) and _close(dl, dl_p, rows_summed=True)
+    del l, bias, gy, y, dl, dl2, y_p, dl_p
+    l, bias, gy = _f3_inputs(6144, 12, 128, 128, "bf16", "bf16", 64, seed=6)
+    with torch.no_grad():
+        y = attn_softmax.attn_softmax(l, bias, 8.0, torch.bfloat16, True)
+        y_p = attn_softmax.attn_softmax_plain(l, bias, 8.0, torch.bfloat16, True)
+    assert _close(y, y_p, rows_summed=True)
+
+
+def test_f3_one_key_chunks_match_plain_at_sk_128():
+    """Logits in a view 2 bytes past an aligned address take the kernel's
+    one-key-a-chunk path (Sk 128 takes four-key chunks otherwise)."""
+    l, bias, gy = _f3_inputs(5, 3, 128, 128, "bf16", "bf16", 16, seed=9)
+    buf = torch.empty(l.numel() + 1, dtype=l.dtype, device="cuda")
+    off = buf[1:].view(l.shape)
+    off.copy_(l)
+    (y, dl), (y_p, dl_p) = _f3_case(off, bias, gy, "bf16", dropout=(12, 0.1, 8, None))
+    assert _close(y, y_p, rows_summed=True, ulps=2) and _close(dl, dl_p, rows_summed=True)
+
+
+def test_f3_identical_across_calls():
+    l, bias, gy = _f3_inputs(64, 12, 128, 128, "bf16", "bf16", 64, seed=7)
+    first, again = (_f3_case(l, bias, gy, "bf16", dropout=(8, 0.1, 8, None))[0]
+                    for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_f3_refuses_what_its_kernel_does_not_take():
+    l = torch.zeros(1, 1, 2, 8, device="cuda")
+    with pytest.raises(TypeError, match="bf16->bf16"):
+        attn_softmax.attn_softmax(l, torch.zeros(1, 1, 1, 8, device="cuda"), 8.0,
+                                  torch.bfloat16)
+    with pytest.raises(ValueError, match="above 1024"):
+        attn_softmax.attn_softmax(torch.zeros(1, 1, 2, 1025, device="cuda"),
+                                  torch.zeros(1, 1, 1, 1025, device="cuda"), 8.0,
+                                  torch.float32)
+    with pytest.raises(ValueError, match="training variant"):
+        ll = l.to(torch.bfloat16).requires_grad_()
+        y = attn_softmax.attn_softmax(ll, torch.zeros(1, 1, 1, 8, device="cuda"),
+                                      8.0, torch.bfloat16, True)
+        y.sum().backward()

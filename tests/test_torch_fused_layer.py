@@ -263,3 +263,34 @@ def test_bert_base_training_layer_saves_at_most_40_kb_a_token(fast_train):
     per_token = sum(storages.values()) / T
     assert per_token <= 40e3, per_token
     assert wide_f32 == []
+
+
+@pytest.mark.parametrize("fast_train", [True, False])
+def test_bert_base_training_layer_saves_at_most_32_kb_a_token(fast_train):
+    """The layer above since F3 (ops/attn_softmax.py) saves the bf16 logits
+    in place of the f32 softmax output: at most 32 KB a token (~30.9), and
+    no f32 tensor of the attention probabilities' (B, heads, S, S) shape."""
+    H, B, S, nh = 768, 4, 128, 12
+    cfg = t_bert.BertConfig(num_layers=1, compute_dtype=torch.bfloat16,
+                            fast_train=fast_train, dropout_bits=8)
+    params = t_bert.unstack_layers(t_bert.init_bert_params(
+        cfg, torch.Generator().manual_seed(0)))
+    lp = {k: v.requires_grad_() for k, v in params["layers"][0].items()}
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((B, S, H))
+                         .astype(np.float32)).to(torch.bfloat16).requires_grad_()
+    weights = {(H, H), (H, cfg.intermediate_size), (cfg.intermediate_size, H)}
+    storages, attn_f32 = {}, []
+
+    def pack(t):
+        if tuple(t.shape) not in weights:
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+            if t.dtype == torch.float32 and tuple(t.shape) == (B, nh, S, S):
+                attn_f32.append(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        t_bert._encoder_layer(cfg, x, torch.zeros(B, 1, 1, S), lp,
+                              seeds=(1, 2, 3), rate=0.1)
+    assert sum(storages.values()) / (B * S) <= 32e3
+    assert attn_f32 == []

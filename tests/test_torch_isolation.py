@@ -34,7 +34,7 @@ names = [m.name for m in pkgutil.walk_packages(blp_tpu_torch.__path__,
                                                 "blp_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke, k1_probe, k2_probe, mesh_probe
+import chip_smoke, f3_probe, k1_probe, k2_probe, mesh_probe
 leaked = sorted(m for m in sys.modules
                 if m == "blp_tpu" or m.startswith(("blp_tpu.", "jax.", "jaxlib")))
 print(json.dumps({"names": names, "leaked": leaked}))
@@ -54,9 +54,10 @@ W5M_TOOLS = {f"blp_tpu_torch.tools.{m}" for m in
              ("w5m_e2e_eval", "w5m_scale_check", "w5m_mode_rehearsal",
               "umls_smoke", "gen_scripts")}
 
-#: The kernels' wrappers, the layer's fused chains (F1, F2) among them.
+#: The kernels' wrappers, the layer's fused chains (F1, F2, F3) among them.
 KERNEL_OPS = {f"blp_tpu_torch.ops.{m}" for m in
-              ("transe_rank", "packed_attention", "sddmm", "fused_layer")}
+              ("transe_rank", "packed_attention", "sddmm", "fused_layer",
+               "attn_softmax")}
 
 
 def test_port_imports_without_jax_or_blp_tpu():
