@@ -65,10 +65,9 @@ def model_config(point: dict, encoder: bert.BertConfig | None = None) -> blp.Mod
                            dim=128, num_relations=16, encoder=enc)
 
 
-def measure(B: int, L: int, K: int, steps: int, warmup: int, windows: int,
-            cfg: blp.ModelConfig, device) -> list[float]:
-    """Seconds a step of each timed window of the train step at (B, L, K):
-    parameters from seed 0, the same numpy batch (seed 0) every step."""
+def setup(B: int, L: int, K: int, cfg: blp.ModelConfig, device):
+    """(step, params, opt_state, batch) of the train step at (B, L, K):
+    parameters from seed 0 and one numpy batch (seed 0)."""
     dev = resolve_device(device)
     params = training.unstack_params(blp.init_params(
         cfg, torch.Generator().manual_seed(0), device=dev))
@@ -83,6 +82,14 @@ def measure(B: int, L: int, K: int, steps: int, warmup: int, windows: int,
         "text_mask": torch.ones((B, 2, L), device=dev),
         "rels": torch.from_numpy(rng.integers(0, 16, (B,))).to(dev),
     }
+    return step, params, opt_state, batch
+
+
+def measure(B: int, L: int, K: int, steps: int, warmup: int, windows: int,
+            cfg: blp.ModelConfig, device) -> list[float]:
+    """Seconds a step of each timed window of the train step at (B, L, K)
+    (see `setup`), the same batch every step."""
+    step, params, opt_state, batch = setup(B, L, K, cfg, device)
     return time_windows(step, params, opt_state, batch, steps=steps,
                         warmup=warmup, windows=windows)
 

@@ -20,27 +20,41 @@
 // kernel agrees with the plain version to f32 rounding of the sums (bf16
 // outputs within one ulp), not bit for bit.
 //
-// What bounds it on an H100: bytes. At the W5M train shape (1,024 packed
-// rows x 12 heads x 128 x 128) the forward reads the bf16 logits (2 bytes
-// an element), the bool keep mask (1) and the f32 bias (shared by the 12
-// heads) and writes the bf16 output (2); the backward reads l, g and keep
-// and writes dl (7), against ~30 fp32 operations an element. The op-by-op
-// chain moved ~10 GB forward and ~8.6 GB backward a layer through f32
-// temporaries; this moves ~1.1 and ~1.5 GB. Design: a warp a row (row,
-// head, query), the row in registers (Sk <= 1,024), loaded once: the max,
-// the exponentials, their sum and the output from registers; the backward
-// recomputes the row's softmax from l instead of reading a saved f32
-// output. Rows of up to 256 keys go two to a warp, their loads issued
+// The dropout mask is not read: the forward and the backward evaluate it in
+// registers from the site's seed and each element's flat index in the whole
+// site (dropout_rng.cuh, ops/dropout_rng.py), so a rank's block of the site
+// (its first row, and its first head of the whole site's heads under tensor
+// parallelism) gets the one-device mask. A lane's four-key chunk is one
+// Philox call at 32 bits and a quarter (16 bits: a half) of one at 8 bits;
+// there the lanes whose chunks share a call take its words by shuffles
+// from the one lane that evaluates it (`keep_rows_shared`).
+//
+// What bounds it on an H100: bytes, or with 32-bit masks nearly the
+// generator's operations. At the W5M train shape (1,024 packed rows x 12
+// heads x 128 x 128) the forward reads the bf16 logits (2 bytes an element)
+// and the f32 bias (shared by the 12 heads) and writes the bf16 output (2);
+// the backward reads l and g and writes dl (6); against ~10 (forward) and
+// ~16 (backward) fp32 operations an element, plus the generator's ~100
+// integer operations a call, 25 an element at 32 bits and ~6 at 8 (what the
+// data needs; at 8 bits a warp evaluates half a call for each 4-key chunk,
+// its lanes sharing it, and the kernel reached ~45% of its bound: PERF.md
+// §6). The op-by-op chain moved ~10 GB forward and ~8.6 GB backward a layer
+// through f32 temporaries; this moves ~0.8 and ~1.2 GB. Design: a warp a
+// row (row, head, query), the row in registers (Sk <= 1,024), loaded once:
+// the max, the exponentials, their sum and the output from registers; the
+// backward recomputes the row's softmax from l instead of reading a saved
+// f32 output. Rows of up to 256 keys go two to a warp, their loads issued
 // before either row's reductions. A lane owns chunks of W consecutive keys:
-// W = 4 (8- or 16-byte loads and stores, the bias as float4, four keep
-// bytes at once) when Sk is a multiple of 4 and every pointer and bias
-// stride is aligned to it, else W = 1. Sums are row-local shuffles, so two
-// calls give the same bits.
+// W = 4 (8- or 16-byte loads and stores, the bias as float4) when Sk is a
+// multiple of 4 and every pointer and bias stride is aligned to it, else
+// W = 1. Sums are row-local shuffles, so two calls give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dropout_rng.cuh"
 
 namespace {
 
@@ -115,16 +129,6 @@ template <int W, typename T>
 __device__ __forceinline__ void store_w(T* p, const float v[W]) {
   if constexpr (W == 4) store4(p, v); else p[0] = from_f32<T>(v[0]);
 }
-template <int W>
-__device__ __forceinline__ void load_keep(const uint8_t* p, bool k[W]) {
-  if constexpr (W == 4) {
-    const uint32_t b = *reinterpret_cast<const uint32_t*>(p);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) k[i] = (b >> (8 * i)) & 0xffu;
-  } else {
-    k[0] = p[0] != 0;
-  }
-}
 // The bias at keys e .. e + W - 1 of a row (W = 4: key stride 1).
 template <int W>
 __device__ __forceinline__ void load_bias(const float* row, long long bsk, int e,
@@ -135,25 +139,38 @@ __device__ __forceinline__ void load_bias(const float* row, long long bsk, int e
 // Rows a warp takes at once: two while a row is at most 8 values a lane.
 template <int NE> __host__ __device__ constexpr int rows_per_warp() { return NE <= 8 ? 2 : 1; }
 
+// Where this call's (B, nh, Sq, Sk) block lies in its dropout site's
+// whole (B', heads, Sq, Sk): its first row and first head.
+struct Block {
+  long long row0;
+  int head0, heads;
+};
+
 // Block (batch * nh + head, chunk of queries): warp w takes queries
 // q0 + r, r < R, q0 = (chunk * kWarps + w) * R.
 struct Site {
-  long long off;       // of the row's first key in l, y, g, dl, keep
-  const float* bias;   // the row's bias
-  bool valid;          // q < Sq
+  long long off;            // of the row's first key in l, y, g, dl
+  unsigned long long n0;    // the same key's flat index in the dropout site
+  const float* bias;        // the row's bias
+  bool valid;               // q < Sq
 };
 
 template <int R>
-__device__ __forceinline__ void locate(const Bias& b, int nh, int sq, int sk,
-                                       unsigned chunks, Site site[R]) {
+__device__ __forceinline__ void locate(const Bias& b, const Block& blk, int nh,
+                                       int sq, int sk, unsigned chunks,
+                                       Site site[R]) {
   const unsigned bh = blockIdx.x / chunks, chunk = blockIdx.x % chunks;
   const int q0 = (int)(chunk * kWarps + (threadIdx.x >> 5)) * R;
-  const float* brow = b.p + (long long)(bh / nh) * b.sb + (long long)(bh % nh) * b.sh;
+  const int bi = (int)(bh / nh), h = (int)(bh % nh);
+  const float* brow = b.p + (long long)bi * b.sb + (long long)h * b.sh;
+  const unsigned long long site_bh =
+      (unsigned long long)(blk.row0 + bi) * blk.heads + blk.head0 + h;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int q = q0 + r;
     site[r].valid = q < sq;
     site[r].off = ((long long)bh * sq + q) * sk;
+    site[r].n0 = (site_bh * sq + q) * sk;
     site[r].bias = brow + (long long)q * b.sq;
   }
 }
@@ -220,29 +237,94 @@ __device__ __forceinline__ void softmax_rows(float x[R][NE]) {
     for (int i = 0; i < NE; ++i) x[r][i] = __fmul_rn(x[r][i], s[r]);
 }
 
-template <typename TL, typename TO, int W, int NC>
-__global__ void __launch_bounds__(256)
-attn_softmax_fwd(const TL* __restrict__ l, Bias bias,
-                 const uint8_t* __restrict__ keep, TO* __restrict__ y, int nh,
-                 int sq, int sk, unsigned chunks, float inv_scale,
-                 float inv_keep_p, bool round_logits) {
-  constexpr int NE = W * NC, R = rows_per_warp<NE>();
-  const int lane = threadIdx.x & 31;
-  Site site[R];
-  locate<R>(bias, nh, sq, sk, chunks, site);
-  float p[R][NE];
-  load_logits<W, NC, R>(l, site, bias.sk, sk, lane, inv_scale, round_logits, p);
-  bool kept[R][NE];
+// The keep bits of the warp's rows at 8 or 16 bits with four-key chunks,
+// when Sk is a multiple of a call's M = 128 / NBITS masks: the G = M / 4
+// lanes whose chunks one call covers share it. Lane p of a group evaluates
+// the group's calls p, p + G, ... (one per row chunk: R * NC of them) and
+// each lane takes its words of every call by shuffles, so a warp evaluates
+// ceil(R * NC / G) calls where each lane would evaluate R * NC.
+template <int NBITS, int NC, int R>
+__device__ __forceinline__ void keep_rows_shared(const dropout_rng::Site& drop,
+                                                 const Site site[R], int lane,
+                                                 uint32_t kept[R]) {
+  constexpr int M = 128 / NBITS, G = M / 4, C = R * NC, S = (C + G - 1) / G;
+  constexpr int PER = 32 / NBITS;   // masks a word
+  const int p = lane & (G - 1), base = lane & ~(G - 1);
+  uint32_t words[S][4];
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int k = 0; k < S; ++k) {
+    const int c = p + G * k;        // the group's call this lane evaluates
+    // site[c / NC].n0 by selects: an index known only at run time would
+    // put the whole site array in local memory.
+    unsigned long long n0 = site[0].n0;
+#pragma unroll
+    for (int r = 1; r < R; ++r)
+      if (c / NC == r) n0 = site[r].n0;
+    if (c < C)
+      dropout_rng::call_words(drop, (n0 + (unsigned long long)key_of<4>(base, c % NC)) / M,
+                              words[k]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) kept[r] = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = __shfl_sync(0xffffffffu, words[c / G][i], base | (c % G));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // this lane's chunk: masks 4p .. 4p + 3
+      const uint32_t word = dropout_rng::pick(w, p * (4 / PER) + i / PER);
+      kept[c / NC] |= dropout_rng::kept<NBITS>(word >> (NBITS * (i % PER)), drop.t)
+                      << (4 * (c % NC) + i);
+    }
+  }
+}
+
+// kept[r]: bit W j + k keeps key W (lane + 32 j) + k of the warp's row r
+// (set past Sk or Sq).
+template <int W, int NC, int R>
+__device__ __forceinline__ void keep_rows(const dropout_rng::Site& drop,
+                                          const Site site[R], int sk, int lane,
+                                          uint32_t kept[R]) {
+  if constexpr (W == 4) {   // warp-uniform branches
+    if (drop.nbits == 8 && sk % 16 == 0) {
+      keep_rows_shared<8, NC, R>(drop, site, lane, kept);
+      return;
+    }
+    if (drop.nbits == 16 && sk % 8 == 0) {
+      keep_rows_shared<16, NC, R>(drop, site, lane, kept);
+      return;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    kept[r] = 0xFFFFFFFFu;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int e = key_of<W>(lane, j);
-#pragma unroll
-      for (int k = 0; k < W; ++k) kept[r][W * j + k] = true;
-      if (keep != nullptr && site[r].valid && e < sk)
-        load_keep<W>(keep + site[r].off + e, &kept[r][W * j]);
+      if (site[r].valid && e < sk)
+        kept[r] = (kept[r] & ~(((1u << W) - 1u) << (W * j))) |
+                  dropout_rng::keep_run<W>(drop, site[r].n0 + e) << (W * j);
     }
+  }
+}
+
+// DROP: the call has a dropout site (a kernel without one holds no
+// generator code, so it keeps the registers the chain alone needs).
+template <typename TL, typename TO, int W, int NC, bool DROP>
+__global__ void __launch_bounds__(256)
+attn_softmax_fwd(const TL* __restrict__ l, Bias bias, dropout_rng::Site drop,
+                 Block blk, TO* __restrict__ y, int nh, int sq, int sk,
+                 unsigned chunks, float inv_scale, bool round_logits) {
+  constexpr int NE = W * NC, R = rows_per_warp<NE>();
+  const int lane = threadIdx.x & 31;
+  Site site[R];
+  locate<R>(bias, blk, nh, sq, sk, chunks, site);
+  float p[R][NE];
+  load_logits<W, NC, R>(l, site, bias.sk, sk, lane, inv_scale, round_logits, p);
+  uint32_t kept[R];
+  if constexpr (DROP) keep_rows<W, NC, R>(drop, site, sk, lane, kept);
   softmax_rows<NE, R>(p);
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -254,43 +336,44 @@ attn_softmax_fwd(const TL* __restrict__ l, Bias bias,
 #pragma unroll
         for (int k = 0; k < W; ++k) {
           v[k] = round_to<TO>(p[r][W * j + k]);
-          if (keep != nullptr)
-            v[k] = kept[r][W * j + k] ? round_to<TO>(__fmul_rn(v[k], inv_keep_p)) : 0.0f;
+          if constexpr (DROP)
+            v[k] = (kept[r] >> (W * j + k)) & 1u
+                       ? round_to<TO>(__fmul_rn(v[k], drop.inv_keep_p)) : 0.0f;
         }
         store_w<W>(y + site[r].off + e, v);
       }
     }
 }
 
-template <typename TL, typename TO, int W, int NC>
+template <typename TL, typename TO, int W, int NC, bool DROP>
 __global__ void __launch_bounds__(256)
-attn_softmax_bwd(const TL* __restrict__ l, Bias bias,
-                 const uint8_t* __restrict__ keep, const TO* __restrict__ g,
-                 TL* __restrict__ dl, int nh, int sq, int sk, unsigned chunks,
-                 float inv_scale, float inv_keep_p) {
+attn_softmax_bwd(const TL* __restrict__ l, Bias bias, dropout_rng::Site drop,
+                 Block blk, const TO* __restrict__ g, TL* __restrict__ dl, int nh,
+                 int sq, int sk, unsigned chunks, float inv_scale) {
   constexpr int NE = W * NC, R = rows_per_warp<NE>();
   const int lane = threadIdx.x & 31;
   Site site[R];
-  locate<R>(bias, nh, sq, sk, chunks, site);
+  locate<R>(bias, blk, nh, sq, sk, chunks, site);
   float p[R][NE], t[R][NE];
   load_logits<W, NC, R>(l, site, bias.sk, sk, lane, inv_scale, false, p);
+  uint32_t kept[R];
+  if constexpr (DROP) keep_rows<W, NC, R>(drop, site, sk, lane, kept);
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int e = key_of<W>(lane, j);
       float gv[W];
-      bool kk[W];
 #pragma unroll
-      for (int k = 0; k < W; ++k) { gv[k] = 0.0f; kk[k] = true; }
-      if (site[r].valid && e < sk) {
-        load_w<W>(g + site[r].off + e, gv);
-        if (keep != nullptr) load_keep<W>(keep + site[r].off + e, kk);
+      for (int k = 0; k < W; ++k) gv[k] = 0.0f;
+      if (site[r].valid && e < sk) load_w<W>(g + site[r].off + e, gv);
+#pragma unroll
+      for (int k = 0; k < W; ++k) {   // gd
+        t[r][W * j + k] = gv[k];
+        if constexpr (DROP)
+          t[r][W * j + k] = (kept[r] >> (W * j + k)) & 1u
+              ? round_to<TO>(__fmul_rn(gv[k], drop.inv_keep_p)) : 0.0f;
       }
-#pragma unroll
-      for (int k = 0; k < W; ++k)   // gd
-        t[r][W * j + k] = keep == nullptr ? gv[k]
-            : kk[k] ? round_to<TO>(__fmul_rn(gv[k], inv_keep_p)) : 0.0f;
     }
   softmax_rows<NE, R>(p);
 #pragma unroll
@@ -326,27 +409,34 @@ template <int NE> unsigned chunks_for(int sq) {
 struct Args {
   const void* l;
   Bias b;
-  const uint8_t* keep;
+  dropout_rng::Site drop;
+  Block blk;
   const void* g;   // backward
   void* out;       // y or dl
   long long rows;
   int nh, sq, sk;
-  float inv_scale, inv_keep_p;
+  float inv_scale;
   bool round_logits;
 };
 
-template <typename TL, typename TO, int W, int NC>
-cudaError_t launch(const Args& a, bool backward, cudaStream_t st) {
+template <typename TL, typename TO, int W, int NC, bool DROP>
+void launch_drop(const Args& a, bool backward, cudaStream_t st) {
   const unsigned chunks = chunks_for<W * NC>(a.sq);
   const unsigned blocks = (unsigned)(a.rows / a.sq * chunks);
   if (backward)
-    attn_softmax_bwd<TL, TO, W, NC><<<blocks, 32 * kWarps, 0, st>>>(
-        static_cast<const TL*>(a.l), a.b, a.keep, static_cast<const TO*>(a.g),
-        static_cast<TL*>(a.out), a.nh, a.sq, a.sk, chunks, a.inv_scale, a.inv_keep_p);
+    attn_softmax_bwd<TL, TO, W, NC, DROP><<<blocks, 32 * kWarps, 0, st>>>(
+        static_cast<const TL*>(a.l), a.b, a.drop, a.blk, static_cast<const TO*>(a.g),
+        static_cast<TL*>(a.out), a.nh, a.sq, a.sk, chunks, a.inv_scale);
   else
-    attn_softmax_fwd<TL, TO, W, NC><<<blocks, 32 * kWarps, 0, st>>>(
-        static_cast<const TL*>(a.l), a.b, a.keep, static_cast<TO*>(a.out), a.nh,
-        a.sq, a.sk, chunks, a.inv_scale, a.inv_keep_p, a.round_logits);
+    attn_softmax_fwd<TL, TO, W, NC, DROP><<<blocks, 32 * kWarps, 0, st>>>(
+        static_cast<const TL*>(a.l), a.b, a.drop, a.blk, static_cast<TO*>(a.out),
+        a.nh, a.sq, a.sk, chunks, a.inv_scale, a.round_logits);
+}
+
+template <typename TL, typename TO, int W, int NC>
+cudaError_t launch(const Args& a, bool backward, cudaStream_t st) {
+  if (a.drop.nbits != 0) launch_drop<TL, TO, W, NC, true>(a, backward, st);
+  else launch_drop<TL, TO, W, NC, false>(a, backward, st);
   return cudaGetLastError();
 }
 
@@ -358,7 +448,7 @@ template <typename TL, typename TO>
 bool vector_ok(const Args& a) {
   return a.sk % 4 == 0 && a.b.sk == 1 && a.b.sb % 4 == 0 && a.b.sh % 4 == 0 &&
          a.b.sq % 4 == 0 && aligned(a.b.p, 16) && aligned(a.l, 4 * sizeof(TL)) &&
-         aligned(a.keep, 4) && (a.g == nullptr || aligned(a.g, 4 * sizeof(TO))) &&
+         (a.g == nullptr || aligned(a.g, 4 * sizeof(TO))) &&
          aligned(a.out, 4 * (a.g == nullptr ? sizeof(TO) : sizeof(TL)));
 }
 
@@ -396,29 +486,43 @@ bool shape_ok(long long rows, int nh, int sq, int sk) {
          rows % ((long long)nh * sq) == 0 && rows / sq * sq < (1LL << 31);
 }
 
+// The dropout site of a call: no dropout when nbits is 0; else the key,
+// threshold and keep probability, and the block's place in the site (its
+// heads within the site's `heads`).
+bool drop_ok(int nbits, long long row0, int head0, int heads, int nh) {
+  return nbits == 0 || ((nbits == 8 || nbits == 16 || nbits == 32) && row0 >= 0 &&
+                        head0 >= 0 && head0 + nh <= heads);
+}
+
 }  // namespace
 
-// Plain C entry points (bound with ctypes). l (and y, g, dl, keep) are
-// contiguous (B, nh, Sq, Sk), rows = B * nh * Sq, Sk <= 1,024; bias is f32,
-// read at bias[b * sb + h * sh + q * sq + k * sk]; keep (bool bytes) is null
-// without dropout; dtype ids 0 float32, 1 bfloat16 (l, out: bf16, bf16;
-// bf16, f32; or f32, f32); scale is the divisor
-// (sqrt(head_dim)), keep_p the dropout's keep probability. Each launches on
-// `stream` without synchronising and returns cudaGetLastError() of its
-// launch (cudaErrorInvalidValue for what it does not take).
+// Plain C entry points (bound with ctypes). l (and y, g, dl) are contiguous
+// (B, nh, Sq, Sk), rows = B * nh * Sq, Sk <= 1,024; bias is f32, read at
+// bias[b * sb + h * sh + q * sq + k * sk]; dtype ids 0 float32, 1 bfloat16
+// (l, out: bf16, bf16; bf16, f32; or f32, f32); scale is the divisor
+// (sqrt(head_dim)). The dropout site: nbits 0 (none), 8, 16 or 32; the
+// seed's two words, the integer threshold and keep_p (dropout_rng.cuh); the
+// call's block of the site's (B', heads, Sq, Sk): first row row0, first
+// head head0. Each launches on `stream` without synchronising and returns
+// cudaGetLastError() of its launch (cudaErrorInvalidValue for what it does
+// not take).
 
 extern "C" int attn_softmax_forward(const void* l, const void* bias,
                                     long long sb, long long sh, long long sq_,
-                                    long long sk_, const void* keep, void* y,
-                                    long long rows, int nh, int sq, int sk,
-                                    int l_dtype, int out_dtype, float scale,
-                                    float keep_p, int round_logits,
+                                    long long sk_, void* y, long long rows, int nh,
+                                    int sq, int sk, int l_dtype, int out_dtype,
+                                    float scale, int round_logits,
+                                    unsigned seed_lo, unsigned seed_hi, int nbits,
+                                    unsigned threshold, float keep_p,
+                                    long long row0, int head0, int heads,
                                     void* stream) {
-  if (!shape_ok(rows, nh, sq, sk) || l == nullptr || bias == nullptr || y == nullptr)
+  if (!shape_ok(rows, nh, sq, sk) || l == nullptr || bias == nullptr ||
+      y == nullptr || !drop_ok(nbits, row0, head0, heads, nh))
     return (int)cudaErrorInvalidValue;
   const Args a{l, Bias{static_cast<const float*>(bias), sb, sh, sq_, sk_},
-               static_cast<const uint8_t*>(keep), nullptr, y, rows, nh, sq, sk,
-               1.0f / scale, 1.0f / keep_p, round_logits != 0};
+               dropout_rng::make_site(seed_lo, seed_hi, nbits, threshold, keep_p),
+               Block{row0, head0, heads}, nullptr, y, rows, nh, sq, sk,
+               1.0f / scale, round_logits != 0};
   return (int)by_dtype(a, l_dtype, out_dtype, false, (cudaStream_t)stream);
 }
 
@@ -426,16 +530,19 @@ extern "C" int attn_softmax_forward(const void* l, const void* bias,
 // only (no round_logits).
 extern "C" int attn_softmax_backward(const void* l, const void* bias,
                                      long long sb, long long sh, long long sq_,
-                                     long long sk_, const void* keep,
-                                     const void* g, void* dl, long long rows,
-                                     int nh, int sq, int sk, int l_dtype,
-                                     int out_dtype, float scale, float keep_p,
+                                     long long sk_, const void* g, void* dl,
+                                     long long rows, int nh, int sq, int sk,
+                                     int l_dtype, int out_dtype, float scale,
+                                     unsigned seed_lo, unsigned seed_hi, int nbits,
+                                     unsigned threshold, float keep_p,
+                                     long long row0, int head0, int heads,
                                      void* stream) {
   if (!shape_ok(rows, nh, sq, sk) || l == nullptr || bias == nullptr ||
-      g == nullptr || dl == nullptr)
+      g == nullptr || dl == nullptr || !drop_ok(nbits, row0, head0, heads, nh))
     return (int)cudaErrorInvalidValue;
   const Args a{l, Bias{static_cast<const float*>(bias), sb, sh, sq_, sk_},
-               static_cast<const uint8_t*>(keep), g, dl, rows, nh, sq, sk,
-               1.0f / scale, 1.0f / keep_p, false};
+               dropout_rng::make_site(seed_lo, seed_hi, nbits, threshold, keep_p),
+               Block{row0, head0, heads}, g, dl, rows, nh, sq, sk, 1.0f / scale,
+               false};
   return (int)by_dtype(a, l_dtype, out_dtype, true, (cudaStream_t)stream);
 }

@@ -7,19 +7,27 @@
 //
 //   F1  y = act(round_out(h + b))           act: none, erf (F.gelu), poly
 //       dh = round_h(round_out(g * act'(pre))), db = sum over rows of the same
-//   F2  s = round(x + r), y = (s - mean) * rstd * scale + bias (f32 stats)
+//   F2  s = round(x + drop(r)), y = (s - mean) * rstd * scale + bias (f32 stats)
 //       ds = rstd * (g*scale - mean(g*scale) - xhat * mean(g*scale*xhat)),
-//       dscale = sum over rows of g * xhat, dbias = sum over rows of g
+//       dscale = sum over rows of g * xhat, dbias = sum over rows of g,
+//       dr = drop(ds) (= ds without dropout)
+//   drop(v) = keep ? round(v * (1 / keep_p)) : 0, the hidden dropout sites'
+//       `_rng_dropout` (models/bert.py); the site kernel applies it alone
+//       (the embedding output, forward and backward)
 //
 // What bounds them on an H100: bytes. F1 moves 4 bytes an element forward
 // (bf16 in and out) and 6 backward (g and h in, dh out; for "none" with h
 // in g's dtype only g is read, as dh is g); F2 8 forward (x, r
-// in; y, s out) and 6 backward (g, s in; ds out), against at most ~60 fp32
-// operations an element (poly-GeLU's backward): at 3.35 TB/s and 67 TFLOP/s
-// every kernel is memory-bound. The design therefore reads each input once
-// and writes each output once, in 16-byte vectors of 8 elements (two for
-// f32), and keeps every intermediate of the chain in registers: where the
-// op-by-op chain wrote and re-read an f32 tensor at each step.
+// in; y, s out) and 6 backward (g, s in; ds out; 8 with dr), against at most
+// ~60 fp32 operations an element (poly-GeLU's backward): at 3.35 TB/s and 67
+// TFLOP/s every kernel is memory-bound. The dropout mask is not read: F2 and
+// the site kernel evaluate it in registers (dropout_rng.cuh) from the site's
+// seed and each element's flat index in the site (the wrapper passes the
+// block's first index), ~25 integer operations an element at 32 bits and ~6
+// at 8, which fit under the bytes' time. The design therefore reads each
+// input once and writes each output once, in 16-byte vectors of 8 elements
+// (two for f32), and keeps every intermediate of the chain in registers:
+// where the op-by-op chain wrote and re-read an f32 tensor at each step.
 //
 // F1's forward is a grid-stride loop over vectors; F2's forward and
 // backward hold a row in a warp's registers (w <= 4,096), so the backward
@@ -40,6 +48,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dropout_rng.cuh"
 
 namespace {
 
@@ -252,29 +262,35 @@ column_sum(const float* __restrict__ partial, int n, int w, float* __restrict__ 
 
 // ---- F2 ----------------------------------------------------------------------
 
-// s = round(x + r) at row offset `off` (x alone when r is null).
-template <typename TX>
-__device__ __forceinline__ void row_sum8(const TX* x, const TX* r, long long off,
-                                         float v[kVec]) {
-  load8(x + off, v);
-  if (r != nullptr) {
-    float rv[kVec];
-    load8(r + off, rv);
+// drop(v) of an 8-element vector at flat site index n (n % 8 == 0), in
+// place: v * (1 / keep_p) rounded to T where kept, else 0.
+template <typename T>
+__device__ __forceinline__ void drop8(const dropout_rng::Site& drop,
+                                      unsigned long long n, float v[kVec]) {
+  const uint32_t keep = dropout_rng::keep_run<kVec>(drop, n);
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) v[k] = round_to<TX>(__fadd_rn(v[k], rv[k]));
-  }
+  for (int k = 0; k < kVec; ++k)
+    v[k] = (keep >> k) & 1u ? round_to<T>(__fmul_rn(v[k], drop.inv_keep_p)) : 0.0f;
 }
 
 // A warp a row, the row held in registers: lane l owns vectors l, l + 32,
-// ... (at most NV, so w <= 256 * NV), loaded once, each rounded sum
-// written to s; then the mean, the variance about it and the normalized
-// row from those registers. Sums run in the order of the vectors.
-template <typename TX, typename TO, int NV>
+// ... (at most NV, so w <= 256 * NV), loaded once; each rounded sum s =
+// round(x + drop(r)) is written to s (unless s is null: a call whose sum
+// no backward needs), then the mean, the variance about it and the
+// normalized row come from those registers. Sums run in the order of the
+// vectors. `n_off` is the flat site index of x's first element (a hidden
+// dropout site is (B, S, H), and x a run of its rows). Two rows a warp
+// (their loads issued before either row's reductions) and cache-streaming
+// hints were slower or no faster at the W5M train shape (PERF.md §6).
+// DROP: the call has a dropout site (a kernel without one holds no
+// generator code, so it keeps the registers the chain alone needs).
+template <typename TX, typename TO, int NV, bool DROP>
 __global__ void __launch_bounds__(256)
 add_ln_fwd(const TX* __restrict__ x, const TX* __restrict__ r,
            const float* __restrict__ scale, const float* __restrict__ bias,
            TO* __restrict__ y, TX* __restrict__ s, float* __restrict__ mean,
-           float* __restrict__ rstd, long long rows, int w, float eps) {
+           float* __restrict__ rstd, long long rows, int w, float eps,
+           dropout_rng::Site drop, unsigned long long n_off) {
   const int lane = threadIdx.x & 31;
   const int w_vec = w / kVec;
   const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
@@ -287,8 +303,15 @@ add_ln_fwd(const TX* __restrict__ x, const TX* __restrict__ r,
     for (int j = 0; j < NV; ++j) {
       const int cv = lane + 32 * j;
       if (cv < w_vec) {
-        row_sum8(x, r, base + cv * kVec, v[j]);
-        if (r != nullptr) store8(s + base + cv * kVec, v[j]);
+        load8(x + base + cv * kVec, v[j]);
+        if (r != nullptr) {
+          float rv[kVec];
+          load8(r + base + cv * kVec, rv);
+          if constexpr (DROP) drop8<TX>(drop, n_off + base + cv * kVec, rv);
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) v[j][k] = round_to<TX>(__fadd_rn(v[j][k], rv[k]));
+          if (s != nullptr) store8(s + base + cv * kVec, v[j]);
+        }
 #pragma unroll
         for (int k = 0; k < kVec; ++k) sum += v[j][k];
       }
@@ -332,13 +355,16 @@ add_ln_fwd(const TX* __restrict__ x, const TX* __restrict__ r,
 // dscale and dbias partials, in the order of the warp's rows (r0 + warp,
 // r0 + warp + 8, ...). Then the block's warps add their partials in warp
 // order through shared memory, a vector index at a time, into the chunk's
-// partial row (dscale in columns [0, w), dbias in [w, 2w)).
-template <typename TS, typename TG, int NV>
+// partial row (dscale in columns [0, w), dbias in [w, 2w)). With dropout
+// (DROP) the branch's gradient dr = drop(round(ds)) is written beside ds,
+// its mask evaluated again from the seed.
+template <typename TS, typename TG, int NV, bool DROP>
 __global__ void __launch_bounds__(256, 2)
 add_ln_bwd(const TG* __restrict__ g, const TS* __restrict__ s,
            const float* __restrict__ mean, const float* __restrict__ rstd,
            const float* __restrict__ scale, TS* __restrict__ ds,
-           float* __restrict__ partial, long long rows, int w, int chunk) {
+           TS* __restrict__ dr, float* __restrict__ partial, long long rows,
+           int w, int chunk, dropout_rng::Site drop, unsigned long long n_off) {
   constexpr int kWarps = 8;
   __shared__ float stage[kWarps][32][2 * kVec];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -382,8 +408,12 @@ add_ln_bwd(const TG* __restrict__ g, const TS* __restrict__ s,
       if (cv < w_vec) {
 #pragma unroll
         for (int k = 0; k < kVec; ++k)
-          gs[j][k] = rs * (gs[j][k] - c1 - xh[j][k] * c2);
+          gs[j][k] = round_to<TS>(rs * (gs[j][k] - c1 - xh[j][k] * c2));
         store8(ds + base + cv * kVec, gs[j]);
+        if constexpr (DROP) {
+          drop8<TS>(drop, n_off + base + cv * kVec, gs[j]);
+          store8(dr + base + cv * kVec, gs[j]);
+        }
       }
     }
   }
@@ -461,57 +491,90 @@ cudaError_t f1_bwd(int act, const void* g, const void* h, const float* b,
   return cudaGetLastError();
 }
 
+// F2's launches carry the dropout site and the call's first flat index in
+// it (no dropout: nbits 0).
+struct Drop {
+  dropout_rng::Site site;
+  unsigned long long n_off;
+};
+
 template <typename TX, typename TO, int NV>
 void f2_fwd_nv(const void* x, const void* r, const float* scale,
                const float* bias, void* y, void* s, float* mean, float* rstd,
-               long long rows, int w, float eps, cudaStream_t st) {
+               long long rows, int w, float eps, const Drop& d, cudaStream_t st) {
   long long blocks = (rows + 7) / 8;   // 8 warps a block, a warp a row
   if (blocks > 65536) blocks = 65536;
-  add_ln_fwd<TX, TO, NV><<<(int)blocks, 256, 0, st>>>(
+  const auto kernel = d.site.nbits != 0 ? add_ln_fwd<TX, TO, NV, true>
+                                        : add_ln_fwd<TX, TO, NV, false>;
+  kernel<<<(int)blocks, 256, 0, st>>>(
       static_cast<const TX*>(x), static_cast<const TX*>(r), scale, bias,
-      static_cast<TO*>(y), static_cast<TX*>(s), mean, rstd, rows, w, eps);
+      static_cast<TO*>(y), static_cast<TX*>(s), mean, rstd, rows, w, eps, d.site,
+      d.n_off);
 }
 
 // The fewest vectors a lane that hold the row: 3 at H 768, 4 at H 1024.
 template <typename TX, typename TO>
 cudaError_t f2_fwd(const void* x, const void* r, const float* scale,
                    const float* bias, void* y, void* s, float* mean, float* rstd,
-                   long long rows, int w, float eps, cudaStream_t st) {
+                   long long rows, int w, float eps, const Drop& d, cudaStream_t st) {
   const int per_lane = (w / kVec + 31) / 32;
-  if (per_lane <= 1) f2_fwd_nv<TX, TO, 1>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, st);
-  else if (per_lane <= 2) f2_fwd_nv<TX, TO, 2>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, st);
-  else if (per_lane <= 3) f2_fwd_nv<TX, TO, 3>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, st);
-  else if (per_lane <= 4) f2_fwd_nv<TX, TO, 4>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, st);
-  else if (per_lane <= 8) f2_fwd_nv<TX, TO, 8>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, st);
-  else if (per_lane <= 16) f2_fwd_nv<TX, TO, 16>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, st);
+  if (per_lane <= 1) f2_fwd_nv<TX, TO, 1>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, d, st);
+  else if (per_lane <= 2) f2_fwd_nv<TX, TO, 2>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, d, st);
+  else if (per_lane <= 3) f2_fwd_nv<TX, TO, 3>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, d, st);
+  else if (per_lane <= 4) f2_fwd_nv<TX, TO, 4>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, d, st);
+  else if (per_lane <= 8) f2_fwd_nv<TX, TO, 8>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, d, st);
+  else if (per_lane <= 16) f2_fwd_nv<TX, TO, 16>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, d, st);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
 template <typename TS, typename TG, int NV>
 void f2_bwd_nv(const void* g, const void* s, const float* mean,
-               const float* rstd, const float* scale, void* ds, float* partial,
-               long long rows, int w, int chunk, cudaStream_t st) {
+               const float* rstd, const float* scale, void* ds, void* dr,
+               float* partial, long long rows, int w, int chunk, const Drop& d,
+               cudaStream_t st) {
   const int n_chunks = (int)((rows + chunk - 1) / chunk);
-  add_ln_bwd<TS, TG, NV><<<n_chunks, 256, 0, st>>>(
+  const auto kernel = d.site.nbits != 0 ? add_ln_bwd<TS, TG, NV, true>
+                                        : add_ln_bwd<TS, TG, NV, false>;
+  kernel<<<n_chunks, 256, 0, st>>>(
       static_cast<const TG*>(g), static_cast<const TS*>(s), mean, rstd, scale,
-      static_cast<TS*>(ds), partial, rows, w, chunk);
+      static_cast<TS*>(ds), static_cast<TS*>(dr), partial, rows, w, chunk, d.site,
+      d.n_off);
 }
 
 template <typename TS, typename TG>
 cudaError_t f2_bwd(const void* g, const void* s, const float* mean,
-                   const float* rstd, const float* scale, void* ds,
-                   float* partial, long long rows, int w, int chunk,
+                   const float* rstd, const float* scale, void* ds, void* dr,
+                   float* partial, long long rows, int w, int chunk, const Drop& d,
                    cudaStream_t st) {
   const int per_lane = (w / kVec + 31) / 32;
-  if (per_lane <= 1) f2_bwd_nv<TS, TG, 1>(g, s, mean, rstd, scale, ds, partial, rows, w, chunk, st);
-  else if (per_lane <= 2) f2_bwd_nv<TS, TG, 2>(g, s, mean, rstd, scale, ds, partial, rows, w, chunk, st);
-  else if (per_lane <= 3) f2_bwd_nv<TS, TG, 3>(g, s, mean, rstd, scale, ds, partial, rows, w, chunk, st);
-  else if (per_lane <= 4) f2_bwd_nv<TS, TG, 4>(g, s, mean, rstd, scale, ds, partial, rows, w, chunk, st);
-  else if (per_lane <= 8) f2_bwd_nv<TS, TG, 8>(g, s, mean, rstd, scale, ds, partial, rows, w, chunk, st);
-  else if (per_lane <= 16) f2_bwd_nv<TS, TG, 16>(g, s, mean, rstd, scale, ds, partial, rows, w, chunk, st);
+  if (per_lane <= 1) f2_bwd_nv<TS, TG, 1>(g, s, mean, rstd, scale, ds, dr, partial, rows, w, chunk, d, st);
+  else if (per_lane <= 2) f2_bwd_nv<TS, TG, 2>(g, s, mean, rstd, scale, ds, dr, partial, rows, w, chunk, d, st);
+  else if (per_lane <= 3) f2_bwd_nv<TS, TG, 3>(g, s, mean, rstd, scale, ds, dr, partial, rows, w, chunk, d, st);
+  else if (per_lane <= 4) f2_bwd_nv<TS, TG, 4>(g, s, mean, rstd, scale, ds, dr, partial, rows, w, chunk, d, st);
+  else if (per_lane <= 8) f2_bwd_nv<TS, TG, 8>(g, s, mean, rstd, scale, ds, dr, partial, rows, w, chunk, d, st);
+  else if (per_lane <= 16) f2_bwd_nv<TS, TG, 16>(g, s, mean, rstd, scale, ds, dr, partial, rows, w, chunk, d, st);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
+}
+
+// ---- the site kernel ---------------------------------------------------------
+
+// y = drop(x) over n_vec vectors of 8 (a grid-stride loop), x's first
+// element at flat index n_off of its dropout site: the embedding output's
+// dropout, and its backward on the cotangent.
+template <typename T>
+__global__ void __launch_bounds__(256)
+site_dropout(const T* __restrict__ x, T* __restrict__ y, long long n_vec,
+             dropout_rng::Site drop, unsigned long long n_off) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_vec; i += stride) {
+    float v[kVec];
+    load8(x + i * kVec, v);
+    drop8<T>(drop, n_off + (unsigned long long)i * kVec, v);
+    store8(y + i * kVec, v);
+  }
 }
 
 cudaError_t column_sums(const float* partial, int n, int w, float* out,
@@ -520,13 +583,25 @@ cudaError_t column_sums(const float* partial, int n, int w, float* out,
   return cudaGetLastError();
 }
 
+// The dropout site of a call (dropout_rng.cuh): nbits 0 (none), 8, 16 or 32.
+bool drop_ok(int nbits) { return nbits == 0 || nbits == 8 || nbits == 16 || nbits == 32; }
+
+Drop drop_of(unsigned seed_lo, unsigned seed_hi, int nbits, unsigned threshold,
+             float keep_p, unsigned long long n_off) {
+  return Drop{dropout_rng::make_site(seed_lo, seed_hi, nbits, threshold, keep_p),
+              n_off};
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Tensors are contiguous (rows, w)
 // row-major, 16-byte aligned, w a multiple of 8; dtype ids 0 float32, 1
-// bfloat16; act 0 none, 1 erf, 2 poly; b, r may be null. Each launches on
-// `stream` without synchronising and returns cudaGetLastError() of its
-// launches (cudaErrorInvalidValue for shapes or alignments it does not take).
+// bfloat16; act 0 none, 1 erf, 2 poly; b, r may be null. A dropout site is
+// nbits (0: none, 8, 16, 32), the seed's two words, the integer threshold
+// and keep_p (dropout_rng.cuh), and the flat index in the site of the
+// call's first element. Each launches on `stream` without synchronising and
+// returns cudaGetLastError() of its launches (cudaErrorInvalidValue for
+// shapes or alignments it does not take).
 
 extern "C" int bias_act_forward(const void* h, const void* b, void* y,
                                 long long rows, int w, int h_dtype,
@@ -570,53 +645,91 @@ extern "C" int bias_act_backward(const void* g, const void* h, const void* b,
                           static_cast<float*>(db), st);
 }
 
-// r and s null together (LN of x alone); mean, rstd (rows,) f32 out; w at
-// most 4,096 (16 vectors a lane).
+// r null: LN of x alone (s null, no dropout); s null with r: the sum is
+// not kept (no backward needs it). mean, rstd (rows,) f32 out; w at most
+// 4,096 (16 vectors a lane). With dropout r is the site's block.
 extern "C" int add_layer_norm_forward(const void* x, const void* r,
                                       const void* scale, const void* bias,
                                       void* y, void* s, void* mean, void* rstd,
                                       long long rows, int w, int x_dtype,
-                                      int out_dtype, float eps, void* stream) {
-  if (!shape_ok(rows, w) || (r == nullptr) != (s == nullptr) ||
+                                      int out_dtype, float eps, unsigned seed_lo,
+                                      unsigned seed_hi, int nbits,
+                                      unsigned threshold, float keep_p,
+                                      unsigned long long n_off, void* stream) {
+  if (!shape_ok(rows, w) || (r == nullptr && s != nullptr) ||
       !aligned16(x) || !aligned16(r) || !aligned16(scale) || !aligned16(bias) ||
-      !aligned16(y) || !aligned16(s))
+      !aligned16(y) || !aligned16(s) || !drop_ok(nbits) ||
+      (nbits != 0 && r == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   float* mu = static_cast<float*>(mean);
   float* rs = static_cast<float*>(rstd);
-  if (x_dtype == kBF16 && out_dtype == kBF16) return (int)f2_fwd<bf16, bf16>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, st);
-  if (x_dtype == kF32 && out_dtype == kBF16) return (int)f2_fwd<float, bf16>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, st);
-  if (x_dtype == kBF16 && out_dtype == kF32) return (int)f2_fwd<bf16, float>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, st);
-  if (x_dtype == kF32 && out_dtype == kF32) return (int)f2_fwd<float, float>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, st);
+  const Drop d = drop_of(seed_lo, seed_hi, nbits, threshold, keep_p, n_off);
+  if (x_dtype == kBF16 && out_dtype == kBF16) return (int)f2_fwd<bf16, bf16>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, d, st);
+  if (x_dtype == kF32 && out_dtype == kBF16) return (int)f2_fwd<float, bf16>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, d, st);
+  if (x_dtype == kBF16 && out_dtype == kF32) return (int)f2_fwd<bf16, float>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, d, st);
+  if (x_dtype == kF32 && out_dtype == kF32) return (int)f2_fwd<float, float>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, d, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // g: the cotangent of y (g_dtype); partial ((rows + chunk - 1) / chunk, 2w)
-// f32 scratch; dsb (2w,) f32 out: dscale, then dbias.
+// f32 scratch; dsb (2w,) f32 out: dscale, then dbias; dr (s's dtype) the
+// dropout branch's gradient, null without dropout.
 extern "C" int add_layer_norm_backward(const void* g, const void* s,
                                        const void* mean, const void* rstd,
-                                       const void* scale, void* ds,
+                                       const void* scale, void* ds, void* dr,
                                        void* partial, void* dsb, long long rows,
                                        int w, int s_dtype, int g_dtype,
-                                       int chunk, void* stream) {
+                                       int chunk, unsigned seed_lo,
+                                       unsigned seed_hi, int nbits,
+                                       unsigned threshold, float keep_p,
+                                       unsigned long long n_off, void* stream) {
   if (!shape_ok(rows, w) || chunk <= 0 || (rows + chunk - 1) / chunk > (1LL << 30) ||
       !aligned16(g) || !aligned16(s) || !aligned16(scale) || !aligned16(ds) ||
-      !aligned16(partial))
+      !aligned16(dr) || !aligned16(partial) || !drop_ok(nbits) ||
+      (nbits != 0) != (dr != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* mu = static_cast<const float*>(mean);
   const float* rs = static_cast<const float*>(rstd);
   const float* sc = static_cast<const float*>(scale);
   float* pp = static_cast<float*>(partial);
+  const Drop d = drop_of(seed_lo, seed_hi, nbits, threshold, keep_p, n_off);
   cudaError_t err;
-  if (s_dtype == kBF16 && g_dtype == kBF16) err = f2_bwd<bf16, bf16>(g, s, mu, rs, sc, ds, pp, rows, w, chunk, st);
-  else if (s_dtype == kF32 && g_dtype == kBF16) err = f2_bwd<float, bf16>(g, s, mu, rs, sc, ds, pp, rows, w, chunk, st);
-  else if (s_dtype == kBF16 && g_dtype == kF32) err = f2_bwd<bf16, float>(g, s, mu, rs, sc, ds, pp, rows, w, chunk, st);
-  else if (s_dtype == kF32 && g_dtype == kF32) err = f2_bwd<float, float>(g, s, mu, rs, sc, ds, pp, rows, w, chunk, st);
+  if (s_dtype == kBF16 && g_dtype == kBF16) err = f2_bwd<bf16, bf16>(g, s, mu, rs, sc, ds, dr, pp, rows, w, chunk, d, st);
+  else if (s_dtype == kF32 && g_dtype == kBF16) err = f2_bwd<float, bf16>(g, s, mu, rs, sc, ds, dr, pp, rows, w, chunk, d, st);
+  else if (s_dtype == kBF16 && g_dtype == kF32) err = f2_bwd<bf16, float>(g, s, mu, rs, sc, ds, dr, pp, rows, w, chunk, d, st);
+  else if (s_dtype == kF32 && g_dtype == kF32) err = f2_bwd<float, float>(g, s, mu, rs, sc, ds, dr, pp, rows, w, chunk, d, st);
   else return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   return (int)column_sums(pp, (int)((rows + chunk - 1) / chunk), 2 * w,
                           static_cast<float*>(dsb), st);
+}
+
+// y = drop(x) (x and y: n elements, n a multiple of 8, of dtype `dtype`):
+// the site kernel, for a dropout site that no fused kernel takes (nbits 8,
+// 16 or 32).
+extern "C" int site_dropout_apply(const void* x, void* y, long long n, int dtype,
+                                  unsigned seed_lo, unsigned seed_hi, int nbits,
+                                  unsigned threshold, float keep_p,
+                                  unsigned long long n_off, void* stream) {
+  if (n <= 0 || n % kVec || !aligned16(x) || !aligned16(y) || x == nullptr ||
+      y == nullptr || nbits == 0 || !drop_ok(nbits))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Drop d = drop_of(seed_lo, seed_hi, nbits, threshold, keep_p, n_off);
+  const long long n_vec = n / kVec;
+  long long blocks = (n_vec + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  if (dtype == kBF16)
+    site_dropout<bf16><<<(int)blocks, 256, 0, st>>>(
+        static_cast<const bf16*>(x), static_cast<bf16*>(y), n_vec, d.site, d.n_off);
+  else if (dtype == kF32)
+    site_dropout<float><<<(int)blocks, 256, 0, st>>>(
+        static_cast<const float*>(x), static_cast<float*>(y), n_vec, d.site, d.n_off);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

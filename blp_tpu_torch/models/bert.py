@@ -20,23 +20,26 @@ rounding, inside the bf16 noise class.
 Both layers, and the embedding LayerNorm, run their elementwise chains
 through ops/fused_layer.py and ops/attn_softmax.py, where XLA fuses them in
 the TPU package: F1 (`bias_act`: each GEMM's bias add, with the GeLU after
-ffn_in), F2 (`add_layer_norm`: the residual add with its LayerNorm) and F3
-(`attn_softmax`: the logits' scale and mask bias, the softmax and the
-attention dropout), CUDA kernels on the card and their plain versions on the
-CPU. They save only the GEMM output, the rounded residual sum with its row
-statistics and the logits, where the op-by-op chains saved an f32 tensor at
-every step.
+ffn_in), F2 (`add_layer_norm`: the hidden dropout of the residual branch and
+the residual add with its LayerNorm) and F3 (`attn_softmax`: the logits'
+scale and mask bias, the softmax and the attention dropout), CUDA kernels on
+the card and their plain versions on the CPU. They save only the GEMM
+output, the rounded residual sum with its row statistics and the logits,
+where the op-by-op chains saved an f32 tensor at every step.
 
 Training (`deterministic=False`) runs the exact layer with dropout at the
 TPU package's four sites (embedding output, attention probabilities,
 attention output, FFN output) and builds an autograd graph; the inference
-path runs under `no_grad`. Each dropout mask is drawn from a generator
-seeded by a per-site integer derived from the step's `dropout_seed`, and the
-backward regenerates it from that seed (`_RngDropout`, the JAX custom_vjp's
-counterpart). The masks therefore do not depend on the global RNG, so the
-recomputed forward of `torch.utils.checkpoint` (`remat`) draws the same masks
-as the first one. The weights are cast to the compute dtype inside the graph,
-so gradients land on the f32 master weights.
+path runs under `no_grad`. Each site's mask is a function of a per-site seed
+derived from the step's `dropout_seed` and of each element's index in the
+site (ops/dropout_rng.py, a counter-based generator): F3 applies the
+attention site's, F2 the two hidden sites', and the embedding output's goes
+through the site kernel (`_rng_dropout`, the JAX custom_vjp's counterpart);
+each evaluates the mask again in its backward, and no mask is stored. The
+masks therefore do not depend on the global RNG, so the recomputed forward
+of `torch.utils.checkpoint` (`remat`) applies the same masks as the first
+one. The weights are cast to the compute dtype inside the graph, so
+gradients land on the f32 master weights.
 
 `remat` takes the TPU package's values: True (every layer recomputed), an int
 k (the first k layers), "dots" (save the matmul outputs, recompute the rest)
@@ -51,9 +54,9 @@ stash, and "dots" also the GEMMs of the backward's recompute.
 
 Parallel training passes a `Part` (see `Part`): the layer runs its share of
 the heads and FFN columns under tensor parallelism (Megatron's column- and
-row-parallel pair) and draws each dropout mask as the slice of the mask one
-device draws for the whole batch, so a step split over data, model or
-pipeline ranks drops the same elements as the one-device step.
+row-parallel pair) and gives each dropout site its block's place in the
+site one device sees for the whole batch, so a step split over data, model
+or pipeline ranks drops the same elements as the one-device step.
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from blp_tpu_torch.ops.attn_softmax import attn_softmax
-from blp_tpu_torch.ops.fused_layer import add_layer_norm, bias_act
+from blp_tpu_torch.ops.fused_layer import add_layer_norm, bias_act, site_dropout
 from blp_tpu_torch.ops.fused_layer import poly_gelu  # noqa: F401  (public name)
 from blp_tpu_torch.parallel import comm
 from blp_tpu_torch.utils import fold_seed
@@ -88,8 +91,8 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
-    # Width of the random draw behind each dropout mask (32: f32-uniform
-    # bernoulli; 16/8: integer threshold compare, see _dropout_keep).
+    # Width of the random field behind each dropout mask (32: f32-uniform
+    # bernoulli; 16/8: integer threshold compare, see ops/dropout_rng.py).
     dropout_bits: int = 32
     initializer_range: float = 0.02
     compute_dtype: Any = torch.float32
@@ -190,72 +193,12 @@ def restack_layers(bert_params: dict) -> dict:
     return out
 
 
-def _dropout_threshold(rate: float, nbits: int) -> tuple[int | None, float]:
-    """(threshold t, keep probability) of a dropout mask. nbits=32: a
-    bernoulli draw with keep probability 1 - rate (t is None). nbits=8/16:
-    keep iff bits >= t with t = min(round(rate·2^n), 2^n - 1), so the drop
-    probability quantizes to t/2^n and the keep rescale uses the quantized
-    1 - t/2^n (E[dropout(x)] == x stays exact; the clamp keeps rate -> 1
-    from dropping everything)."""
-    if nbits == 32:
-        return None, 1.0 - rate
-    if nbits not in (8, 16):
-        raise ValueError(f"dropout_bits must be 8, 16 or 32, got {nbits}")
-    levels = 1 << nbits
-    t = min(int(round(rate * levels)), levels - 1)
-    return t, 1.0 - t / levels
-
-
-def _dropout_keep(generator: torch.Generator, rate: float, nbits: int, shape):
-    """(keep mask, keep probability), drawn from `generator` on its device.
-    16-bit draws are int32 values in [0, 65536) (torch's uint16 has no
-    comparisons); 8-bit draws are uint8."""
-    t, keep_p = _dropout_threshold(rate, nbits)
-    dev = generator.device
-    if t is None:
-        return torch.rand(shape, generator=generator, device=dev) < keep_p, keep_p
-    dtype = torch.uint8 if nbits == 8 else torch.int32
-    bits = torch.randint(0, 1 << nbits, shape, generator=generator, device=dev,
-                         dtype=dtype)
-    return bits >= t, keep_p
-
-
-def _site_generator(seed: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(seed)
-
-
-def _site_keep(seed: int, rate: float, nbits: int, shape, device, block):
-    """The keep mask of a dropout site. `block` is None when the tensor is
-    the whole site, else (whole shape, index): the mask is drawn at the
-    whole shape and the tensor's block taken from it."""
-    gen = _site_generator(seed, device)
-    if block is None:
-        return _dropout_keep(gen, rate, nbits, shape)
-    whole, index = block
-    keep, keep_p = _dropout_keep(gen, rate, nbits, whole)
-    return keep[index], keep_p
-
-
-class _RngDropout(torch.autograd.Function):
-    """Dropout that saves only its seed: the backward regenerates the mask
-    from it (the TPU package's `_rng_dropout` custom_vjp), so no mask is
-    stashed and a recomputed forward draws the same mask."""
-
-    @staticmethod
-    def forward(ctx, x, seed: int, rate: float, nbits: int, block=None):
-        ctx.seed, ctx.rate, ctx.nbits, ctx.block = seed, rate, nbits, block
-        keep, keep_p = _site_keep(seed, rate, nbits, x.shape, x.device, block)
-        return torch.where(keep, x / keep_p, 0.0)
-
-    @staticmethod
-    def backward(ctx, g):
-        keep, keep_p = _site_keep(ctx.seed, ctx.rate, ctx.nbits, g.shape,
-                                  g.device, ctx.block)
-        return torch.where(keep, g / keep_p, 0.0), None, None, None, None
-
-
 def _rng_dropout(x, seed: int, rate: float, nbits: int = 32, block=None):
-    return _RngDropout.apply(x, seed, rate, nbits, block)
+    """Dropout of the site (seed, rate, nbits, block) that no fused kernel
+    takes: the site kernel (ops/fused_layer.py `site_dropout`), which saves
+    nothing and evaluates the mask again in the backward (the TPU package's
+    `_rng_dropout` custom_vjp)."""
+    return site_dropout(x, (seed, rate, nbits, block))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,21 +217,19 @@ class Part:
     model: Any = None
 
     def block(self, x, heads: int | None = None):
-        """(whole shape, index) of x's block of its dropout site, or None
-        when x is the whole site. `heads`: the whole site's head count, for
-        the attention probabilities (B, heads, S, S) under tensor
-        parallelism."""
-        index, whole = [slice(None)] * x.dim(), list(x.shape)
+        """(whole shape, start) of x's block of its dropout site: the site's
+        shape and the index of x's first element along each dimension (its
+        first row, and its first head), or None when x is the whole site.
+        `heads`: the whole site's head count, for the attention
+        probabilities (B, heads, S, S) under tensor parallelism."""
+        start, whole = [0] * x.dim(), list(x.shape)
         if self.rows is not None:
-            start, total = self.rows
-            index[0], whole[0] = slice(start, start + x.shape[0]), total
+            start[0], whole[0] = self.rows
         if heads is not None and self.model is not None:
-            h = x.shape[1]
-            index[1], whole[1] = slice(self.model.rank * h,
-                                       (self.model.rank + 1) * h), heads
+            start[1], whole[1] = self.model.rank * x.shape[1], heads
         if tuple(whole) == tuple(x.shape):
             return None
-        return tuple(whole), tuple(index)
+        return tuple(whole), tuple(start)
 
 
 @torch.library.custom_op("blp_tpu_torch::checkpoint_name", mutates_args=())
@@ -436,11 +377,16 @@ def _encoder_layer(cfg: BertConfig, x, mask_bias, lp: dict, seeds=None,
 
     od = dt if mp else None
     attn_out = _dense(ctx, lp["attn_out_w"], lp["attn_out_b"], dt, od, model)
-    if seeds is not None and rate > 0.0:
-        attn_out = _rng_dropout(attn_out, seeds[1], rate, cfg.dropout_bits,
-                                part.block(attn_out))
+
+    def hidden_drop(r, site: int):
+        # F2 takes the hidden sites' dropout of its residual branch.
+        if seeds is None or rate <= 0.0:
+            return None
+        return seeds[site], rate, cfg.dropout_bits, part.block(r)
+
     x = add_layer_norm(x, attn_out, lp["attn_ln_scale"], lp["attn_ln_bias"],
-                       cfg.layer_norm_eps, res_dt)
+                       cfg.layer_norm_eps, res_dt,
+                       dropout=hidden_drop(attn_out, 1))
     xin = comm.copy_to(x, model) if model is not None else x
     act = "poly" if cfg.fast_train and dt != torch.float32 else "erf"
     if names:
@@ -451,11 +397,9 @@ def _encoder_layer(cfg: BertConfig, x, mask_bias, lp: dict, seeds=None,
     else:
         ffn = _dense(xin, lp["ffn_in_w"], lp["ffn_in_b"], dt, dt, act=act)
     ffn = _dense(ffn, lp["ffn_out_w"], lp["ffn_out_b"], dt, od, model)
-    if seeds is not None and rate > 0.0:
-        ffn = _rng_dropout(ffn, seeds[2], rate, cfg.dropout_bits,
-                           part.block(ffn))
     return add_layer_norm(x, ffn, lp["ffn_ln_scale"], lp["ffn_ln_bias"],
-                          cfg.layer_norm_eps, res_dt)
+                          cfg.layer_norm_eps, res_dt,
+                          dropout=hidden_drop(ffn, 2))
 
 
 def embed_inputs(params: dict, input_ids, attention_mask, cfg: BertConfig):

@@ -7,8 +7,10 @@ C interface, loaded with ``ctypes``:
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 No ``--use_fast_math``: K1's exactness rests on IEEE fp32 adds in a fixed
-order. The library name carries a hash of the source and the flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is. The first
+order. The library name carries a hash of the source, of the headers beside
+it (``csrc/*.cuh``, such as the dropout generator every kernel with a mask
+includes) and of the flags, so a changed source or header is rebuilt and an
+unchanged one is loaded as it is. The first
 ``load`` builds every stale source at once, one ``nvcc`` process each, all
 started together. Without ``nvcc`` it raises: there is no fallback on the
 card. Nothing here runs at import time.
@@ -47,8 +49,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the shared library of `csrc/<name>.cu` lives for its current
-    source and flags."""
+    source, headers and flags."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 

@@ -15,19 +15,22 @@ broadcastable to it, scale the divisor sqrt(head_dim), out_dtype the dtype
 of y. `round_logits` (the inference layer) rounds the scaled, biased logits
 to bf16 first (-10000 becomes -9984) and takes the max over those values,
 then exp(f32 - max) / sum. `dropout` is a dropout site's (seed, rate, nbits,
-block): drop(y) = where(keep, y / keep_p, 0) in out_dtype, with `keep` drawn
-by models/bert.py `_site_keep`, so the masks are the ones `_RngDropout`
-draws. The backward saves only l (3 KB a token in bf16), recomputes the
-row's f32 softmax from it, redraws `keep` from the seed and returns dl in
-l's dtype, rounding where the op-by-op chain's backward rounds.
+block): drop(y) = where(keep, y / keep_p, 0) in out_dtype, with `keep` the
+site's mask of ops/dropout_rng.py (`block`: None, or the (whole shape,
+start) of this call's rows and heads in the site), so the masks are the ones
+`_rng_dropout` applies. The backward saves only l (3 KB a token in bf16),
+recomputes the row's f32 softmax from it, the same `keep` from the seed,
+and returns dl in l's dtype, rounding where the op-by-op chain's backward
+rounds.
 
 The CUDA kernel (csrc/attn_softmax.cu) holds a row in a warp's registers
-(Sk <= MAX_SK) and sums within the row, without atomics, so two calls give
-the same bits. `attn_softmax_plain` is the arithmetic of the unfused layer.
-On CPU tensors the forward runs it, and the backward recomputes it from l
-and differentiates it with torch.autograd, so CPU results equal the unfused
-chain's bit for bit while saving only l; CUDA tensors launch the kernel or
-raise. The wrapper allocates with torch ops and launches on the current
+(Sk <= MAX_SK), sums within the row, without atomics, so two calls give the
+same bits, and evaluates the keep bits in registers (csrc/dropout_rng.cuh):
+no mask is drawn or stored. `attn_softmax_plain` is the arithmetic of the
+unfused layer. On CPU tensors the forward runs it, and the backward
+recomputes it from l and differentiates it with torch.autograd, so CPU
+results equal the unfused chain's bit for bit while saving only l; CUDA
+tensors launch the kernel or raise. The wrapper allocates with torch ops and launches on the current
 stream, so the selective checkpoint policies (models/bert.py) recompute it.
 """
 
@@ -37,7 +40,7 @@ import ctypes
 
 import torch
 
-from blp_tpu_torch.ops import _cuda, fused_layer
+from blp_tpu_torch.ops import _cuda, dropout_rng, fused_layer
 
 #: The longest row (keys) the kernel holds in a warp's registers.
 MAX_SK = 1024
@@ -64,15 +67,6 @@ def _check_sk(l) -> None:
                          "(the kernel holds a row in one warp's registers)")
 
 
-def _keep(dropout, shape, device):
-    """(keep, keep_p) of the dropout site (seed, rate, nbits, block)."""
-    # models/bert.py imports this module.
-    from blp_tpu_torch.models.bert import _site_keep
-
-    seed, rate, nbits, block = dropout
-    return _site_keep(seed, rate, nbits, shape, device, block)
-
-
 def _softmax_plain(l, mask_bias, scale: float, out_dtype, round_logits: bool):
     """The chain before the dropout, op by op as the unfused layer runs it."""
     x = l.to(torch.float32) / scale + mask_bias
@@ -90,20 +84,21 @@ def attn_softmax_plain(l, mask_bias, scale: float, out_dtype,
                        round_logits: bool = False, dropout=None):
     """F3's function in plain PyTorch (see the module doc)."""
     p = _softmax_plain(l, mask_bias, scale, out_dtype, round_logits)
-    if dropout is None:
-        return p
-    keep, keep_p = _keep(dropout, p.shape, p.device)
-    return torch.where(keep, p / keep_p, 0.0)
+    return p if dropout is None else fused_layer.site_dropout_plain(p, dropout)
 
 
 # -- the kernel ----------------------------------------------------------------
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _L, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float, ctypes.c_uint)
+#: The dropout site's arguments: seed words, nbits, threshold, keep_p, first
+#: row, first head, the site's heads.
+_DROP = [_U, _U, _I, _U, _F, _L, _I, _I]
 _SIGNATURES = {
-    "attn_softmax_forward": [_P, _P] + [_L] * 4 + [_P, _P, _L] + [_I] * 5
-                            + [_F, _F, _I, _P],
-    "attn_softmax_backward": [_P, _P] + [_L] * 4 + [_P, _P, _P, _L] + [_I] * 5
-                             + [_F, _F, _P],
+    "attn_softmax_forward": [_P, _P] + [_L] * 4 + [_P, _L] + [_I] * 5 + [_F, _I]
+                            + _DROP + [_P],
+    "attn_softmax_backward": [_P, _P] + [_L] * 4 + [_P, _P, _L] + [_I] * 5 + [_F]
+                             + _DROP + [_P],
 }
 _entry: dict = {}
 
@@ -120,20 +115,23 @@ def _bound(name: str):
     return fn
 
 
-def _operands(l, mask_bias, out_dtype, dropout, mask):
-    """l contiguous, the bias broadcast to l's shape (f32; the kernel reads
-    it through its strides), and the keep mask (None without dropout) with
-    keep_p: `mask` when given, else drawn from `dropout`."""
+def _operands(l, mask_bias, out_dtype):
+    """l contiguous and the bias broadcast to l's shape (f32; the kernel
+    reads it through its strides)."""
     if not l.is_cuda:
         raise ValueError("attn_softmax: logits are not on a CUDA device")
     if (l.dtype, out_dtype) not in _PAIRS:
         raise TypeError(f"attn_softmax: logits {l.dtype} with output {out_dtype} "
                         "is not one of bf16->bf16, bf16->f32, f32->f32")
-    bias = mask_bias.to(l.device, torch.float32).expand(l.shape)
-    if dropout is None:
-        return l.contiguous(), bias, None, 1.0
-    keep, keep_p = mask or _keep(dropout, l.shape, l.device)
-    return l.contiguous(), bias, keep.contiguous(), keep_p
+    return l.contiguous(), mask_bias.to(l.device, torch.float32).expand(l.shape)
+
+
+def _drop_args(dropout, shape) -> tuple:
+    """The kernel's dropout arguments: the generator's, then the call's
+    first row and head in the site and the site's heads."""
+    block = (0, 0, shape[1]) if dropout is None else dropout_rng.head_block(
+        shape, dropout[3])
+    return (*dropout_rng.kernel_args(dropout), *block)
 
 
 def _dims(l):
@@ -151,18 +149,16 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _forward_kernel(l, mask_bias, scale, out_dtype, round_logits, dropout,
-                    mask=None):
-    """y; `mask`: the site's (keep, keep_p) when already drawn."""
+def _forward_kernel(l, mask_bias, scale, out_dtype, round_logits, dropout):
     global launches
-    l, bias, keep, keep_p = _operands(l, mask_bias, out_dtype, dropout, mask)
+    l, bias = _operands(l, mask_bias, out_dtype)
+    drop = _drop_args(dropout, l.shape)
     y = torch.empty(l.shape, dtype=out_dtype, device=l.device)
     if l.numel() == 0:      # an empty grid is not a valid launch
         return y
     err = _bound("attn_softmax_forward")(
-        l.data_ptr(), bias.data_ptr(), *bias.stride(),
-        None if keep is None else keep.data_ptr(), y.data_ptr(), *_dims(l),
-        _DTYPES[l.dtype], _DTYPES[out_dtype], scale, keep_p, int(round_logits),
+        l.data_ptr(), bias.data_ptr(), *bias.stride(), y.data_ptr(), *_dims(l),
+        _DTYPES[l.dtype], _DTYPES[out_dtype], scale, int(round_logits), *drop,
         _stream(l.device))
     _cuda.check(err, "attn_softmax launch")
     launches += 1
@@ -171,18 +167,18 @@ def _forward_kernel(l, mask_bias, scale, out_dtype, round_logits, dropout,
     return y
 
 
-def _backward_kernel(g, l, mask_bias, scale, dropout, mask=None):
+def _backward_kernel(g, l, mask_bias, scale, dropout):
     """dl from the cotangent g of y (the training variant)."""
     global backward_launches
-    l, bias, keep, keep_p = _operands(l, mask_bias, g.dtype, dropout, mask)
+    l, bias = _operands(l, mask_bias, g.dtype)
+    drop = _drop_args(dropout, l.shape)
     g = g.contiguous()
     dl = torch.empty(l.shape, dtype=l.dtype, device=l.device)
     if l.numel() == 0:
         return dl
     err = _bound("attn_softmax_backward")(
-        l.data_ptr(), bias.data_ptr(), *bias.stride(),
-        None if keep is None else keep.data_ptr(), g.data_ptr(), dl.data_ptr(),
-        *_dims(l), _DTYPES[l.dtype], _DTYPES[g.dtype], scale, keep_p,
+        l.data_ptr(), bias.data_ptr(), *bias.stride(), g.data_ptr(), dl.data_ptr(),
+        *_dims(l), _DTYPES[l.dtype], _DTYPES[g.dtype], scale, *drop,
         _stream(l.device))
     _cuda.check(err, "attn_softmax backward launch")
     backward_launches += 1
@@ -218,12 +214,11 @@ class _AttnSoftmax(torch.autograd.Function):
                                  "the training variant (round_logits=False)")
             dl = _backward_kernel(g, l, ctx.mask_bias, scale, dropout)
             return dl, None, None, None, None, None
-        # The unfused chain's backward: _RngDropout's, then autograd's
+        # The unfused chain's backward: `_rng_dropout`'s, then autograd's
         # through the chain recomputed from l; the same ops, hence the same
         # bits.
         if dropout is not None:
-            keep, keep_p = _keep(dropout, g.shape, g.device)
-            g = torch.where(keep, g / keep_p, 0.0)
+            g = fused_layer.site_dropout_plain(g, dropout)
         with torch.enable_grad():
             ll = l.detach().requires_grad_()
             p = _softmax_plain(ll, ctx.mask_bias, scale, out_dtype, round_logits)

@@ -21,16 +21,27 @@ kernel only sums db. For "poly", act' is the derivative autograd takes
 of `poly_gelu` (the clamps pass gradient on their closed ranges, as torch's
 `clamp`), not the exact erf derivative.
 
-F2, `add_layer_norm(x, r, scale, bias, eps, out_dtype)`: y = LN(round(x + r))
-with f32 mean and variance, f32 scale and bias (r None: LN(x)). It saves the
-rounded sum s in its own dtype and the per-row f32 mean and rstd; the
-backward returns ds for both x and r, and dscale and dbias as f32 sums over
-rows.
+F2, `add_layer_norm(x, r, scale, bias, eps, out_dtype, dropout)`: y =
+LN(round(x + drop(r))) with f32 mean and variance, f32 scale and bias (r
+None: LN(x)). `dropout` is None or a hidden dropout site's (seed, rate,
+nbits, block), r being the site's tensor: drop(r) = where(keep, round_r(r /
+keep_p), 0), with `keep` the site's mask (ops/dropout_rng.py), which is what
+models/bert.py `_rng_dropout` computes before an unfused add. It saves the
+rounded sum s in its own dtype and the per-row f32 mean and rstd (the
+kernel writes s only when a gradient will be taken); the backward returns
+ds for x and dr = drop(round_r(ds)) for r (ds without dropout), and dscale
+and dbias as f32 sums over rows.
 
-The CUDA kernels (csrc/fused_layer.cu) read and write 16-byte vectors and
+The site kernel, `site_dropout(x, dropout)`: drop(x) alone, for the one
+dropout site no fused kernel takes (the embedding output), forward and, on
+the cotangent, backward.
+
+The CUDA kernels (csrc/fused_layer.cu) read and write 16-byte vectors,
 reduce db, dscale and dbias over rows in a fixed order, without atomics, so
-two calls give the same bits. `bias_act_plain` and `add_layer_norm_plain`
-are the arithmetic of the unfused layer. On CPU tensors the forwards run
+two calls give the same bits, and evaluate dropout masks in registers
+(csrc/dropout_rng.cuh): no mask is drawn or stored. `bias_act_plain`,
+`add_layer_norm_plain` and `site_dropout_plain` are the arithmetic of the
+unfused layer. On CPU tensors the forwards run
 them, and the backwards recompute them from the saved set and differentiate
 them with torch.autograd, so CPU results equal the unfused chain's bit for
 bit while saving only the small set; CUDA tensors launch the kernels or
@@ -49,7 +60,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from blp_tpu_torch.ops import _cuda
+from blp_tpu_torch.ops import _cuda, dropout_rng
 
 #: Activation ids of the C entry points.
 ACTS = {"none": 0, "erf": 1, "poly": 2}
@@ -66,11 +77,13 @@ MAX_LN_WIDTH = 4096
 #: Kernel launches since the last reset, per wrapper (plain counters;
 #: chip_smoke.py reads them), and the same launches by kernel and variant:
 #: ("bias_act", "<act> <h dtype>-><out dtype>"), ("add_layer_norm",
-#: "<x+r or x> <x dtype>-><out dtype>") and their "... backward" kernels.
+#: "<x+r, x+drop<nbits>(r) or x> <x dtype>-><out dtype>"), their "...
+#: backward" kernels, and ("site_dropout", "<dtype> drop<nbits>").
 bias_act_launches = 0
 bias_act_backward_launches = 0
 add_layer_norm_launches = 0
 add_layer_norm_backward_launches = 0
+site_dropout_launches = 0
 launches_by_variant: collections.Counter = collections.Counter()
 
 
@@ -128,9 +141,21 @@ def _layer_norm_stats(s, scale, bias, eps: float, out_dtype):
     return (out.to(out_dtype) if out_dtype is not None else out), mean, rstd
 
 
-def add_layer_norm_plain(x, r, scale, bias, eps: float, out_dtype=None):
-    """F2's function in plain PyTorch: LayerNorm of x + r (of x when r is
-    None) with float32 statistics."""
+def site_dropout_plain(x, dropout):
+    """drop(x) of the dropout site (seed, rate, nbits, block) in plain
+    PyTorch: x / keep_p where the plain generator's mask keeps, 0
+    elsewhere, in x's dtype."""
+    seed, rate, nbits, block = dropout
+    keep, keep_p = dropout_rng.site_keep(seed, rate, nbits, x.shape, block, x.device)
+    return torch.where(keep, x / keep_p, 0.0)
+
+
+def add_layer_norm_plain(x, r, scale, bias, eps: float, out_dtype=None,
+                         dropout=None):
+    """F2's function in plain PyTorch: LayerNorm of x + drop(r) (of x when r
+    is None) with float32 statistics."""
+    if dropout is not None:
+        r = site_dropout_plain(r, dropout)
     s = x if r is None else x + r
     return _layer_norm_stats(s, scale, bias, eps, out_dtype)[0]
 
@@ -138,12 +163,16 @@ def add_layer_norm_plain(x, r, scale, bias, eps: float, out_dtype=None):
 # -- the kernels ---------------------------------------------------------------
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+#: A dropout site's arguments (dropout_rng.kernel_args, then the call's first
+#: flat index in the site).
+_DROP = [ctypes.c_uint, ctypes.c_uint, _I, ctypes.c_uint, _F, ctypes.c_ulonglong]
 #: ctypes signatures of the C entry points, bound once at first use.
 _SIGNATURES = {
     "bias_act_forward": [_P] * 3 + [_L] + [_I] * 4 + [_P],
     "bias_act_backward": [_P] * 6 + [_L] + [_I] * 6 + [_P],
-    "add_layer_norm_forward": [_P] * 8 + [_L] + [_I] * 3 + [_F, _P],
-    "add_layer_norm_backward": [_P] * 8 + [_L] + [_I] * 4 + [_P],
+    "add_layer_norm_forward": [_P] * 8 + [_L] + [_I] * 3 + [_F] + _DROP + [_P],
+    "add_layer_norm_backward": [_P] * 9 + [_L] + [_I] * 4 + _DROP + [_P],
+    "site_dropout_apply": [_P, _P, _L, _I] + _DROP + [_P],
 }
 _entry: dict = {}
 
@@ -209,6 +238,13 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _drop_args(dropout, shape) -> tuple:
+    """A kernel's dropout arguments for a tensor of `shape` that is its site
+    or a block of whole rows of it."""
+    offset = 0 if dropout is None else dropout_rng.row_offset(shape, dropout[3])
+    return (*dropout_rng.kernel_args(dropout), offset)
+
+
 def _bias_act_kernel(h, b, act: str, out_dtype):
     global bias_act_launches
     w = h.shape[-1]
@@ -260,20 +296,26 @@ def _bias_act_backward_kernel(g, h, b, act: str, h_dtype, with_db: bool):
     return dh, db
 
 
-def _add_layer_norm_kernel(x, r, scale, bias, eps: float, out_dtype):
+def _add_layer_norm_kernel(x, r, scale, bias, eps: float, out_dtype,
+                           dropout=None, keep_sum: bool = True):
     """(y, s, mean, rstd); x and r share a dtype (r may be None, s is then
-    x)."""
+    x; `dropout` applies to r). keep_sum False: no backward needs the sum,
+    which is then not written (s is None)."""
     global add_layer_norm_launches
     w = x.shape[-1]
     if w > MAX_LN_WIDTH:
         raise ValueError(f"fused_layer: width {w} of x is above {MAX_LN_WIDTH} "
                          "(add_layer_norm holds a row in one warp's registers)")
+    if dropout is not None and r is None:
+        raise ValueError("fused_layer: add_layer_norm's dropout applies to r")
     x2 = _rows(x, w, "x")
     r2 = None if r is None else _rows(r, w, "r")
     scale = _vector(scale, w, x.device, "scale")
     bias = _vector(bias, w, x.device, "bias")
+    drop = _drop_args(dropout, x.shape)
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    s = x if r is None else torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    s = x if r is None else (torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                             if keep_sum else None)
     stat = dict(dtype=torch.float32, device=x.device)
     mean = torch.empty(x.shape[:-1] + (1,), **stat)
     rstd = torch.empty(x.shape[:-1] + (1,), **stat)
@@ -281,18 +323,22 @@ def _add_layer_norm_kernel(x, r, scale, bias, eps: float, out_dtype):
         return y, s, mean, rstd
     err = _bound("add_layer_norm_forward")(
         x2.data_ptr(), _ptr(r2), scale.data_ptr(), bias.data_ptr(),
-        y.data_ptr(), None if r is None else s.data_ptr(), mean.data_ptr(),
+        y.data_ptr(), None if r is None else _ptr(s), mean.data_ptr(),
         rstd.data_ptr(), x2.shape[0], w, _dtype_id(x.dtype, "x"),
-        _dtype_id(out_dtype, "out_dtype"), eps, _stream(x.device))
+        _dtype_id(out_dtype, "out_dtype"), eps, *drop, _stream(x.device))
     _cuda.check(err, "add_layer_norm launch")
     add_layer_norm_launches += 1
-    launches_by_variant["add_layer_norm", f"{'x' if r is None else 'x+r'} "
-                        f"{_NAMES[x.dtype]}->{_NAMES[out_dtype]}"] += 1
+    what = ("x" if r is None else
+            ("x+r" if dropout is None else f"x+drop{dropout[2]}(r)")
+            + ("" if keep_sum else " no s"))
+    launches_by_variant["add_layer_norm",
+                        f"{what} {_NAMES[x.dtype]}->{_NAMES[out_dtype]}"] += 1
     return y, s, mean, rstd
 
 
-def _add_layer_norm_backward_kernel(g, s, mean, rstd, scale):
-    """(ds, dscale, dbias) from the cotangent g of y."""
+def _add_layer_norm_backward_kernel(g, s, mean, rstd, scale, dropout=None):
+    """(ds, dr, dscale, dbias) from the cotangent g of y; dr (s's dtype) is
+    None without dropout."""
     global add_layer_norm_backward_launches
     w = s.shape[-1]
     g2 = _rows(g, w, "g")
@@ -300,23 +346,43 @@ def _add_layer_norm_backward_kernel(g, s, mean, rstd, scale):
     rows = s2.shape[0]
     mean, rstd = mean.contiguous(), rstd.contiguous()
     scale = _vector(scale, w, s.device, "scale")
+    drop = _drop_args(dropout, s.shape)
     ds = torch.empty(s.shape, dtype=s.dtype, device=s.device)
+    dr = None if dropout is None else torch.empty_like(ds)
     n_chunks = -(-rows // chunk_rows(rows))
     f32 = dict(dtype=torch.float32, device=s.device)
     partial = torch.empty((n_chunks, 2 * w), **f32)
     dsb = torch.zeros(2 * w, **f32)        # dscale, then dbias
     if rows == 0:
-        return ds, dsb[:w], dsb[w:]
+        return ds, dr, dsb[:w], dsb[w:]
     err = _bound("add_layer_norm_backward")(
         g2.data_ptr(), s2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        scale.data_ptr(), ds.data_ptr(), partial.data_ptr(), dsb.data_ptr(),
-        rows, w, _dtype_id(s.dtype, "s"), _dtype_id(g.dtype, "g"),
-        chunk_rows(rows), _stream(s.device))
+        scale.data_ptr(), ds.data_ptr(), _ptr(dr), partial.data_ptr(),
+        dsb.data_ptr(), rows, w, _dtype_id(s.dtype, "s"), _dtype_id(g.dtype, "g"),
+        chunk_rows(rows), *drop, _stream(s.device))
     _cuda.check(err, "add_layer_norm backward launch")
     add_layer_norm_backward_launches += 1
+    kind = "" if dropout is None else f" drop{dropout[2]}"
     launches_by_variant["add_layer_norm backward",
-                        f"{_NAMES[s.dtype]}->{_NAMES[g.dtype]}"] += 1
-    return ds, dsb[:w], dsb[w:]
+                        f"{_NAMES[s.dtype]}->{_NAMES[g.dtype]}{kind}"] += 1
+    return ds, dr, dsb[:w], dsb[w:]
+
+
+def _site_dropout_kernel(x, dropout):
+    """drop(x) by the site kernel."""
+    global site_dropout_launches
+    x2 = _rows(x, x.shape[-1], "x")
+    drop = _drop_args(dropout, x.shape)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x2.numel() == 0:
+        return y
+    err = _bound("site_dropout_apply")(
+        x2.data_ptr(), y.data_ptr(), x2.numel(), _dtype_id(x.dtype, "x"), *drop,
+        _stream(x.device))
+    _cuda.check(err, "site_dropout launch")
+    site_dropout_launches += 1
+    launches_by_variant["site_dropout", f"{_NAMES[x.dtype]} drop{dropout[2]}"] += 1
+    return y
 
 
 # -- autograd ------------------------------------------------------------------
@@ -356,20 +422,28 @@ class _BiasAct(torch.autograd.Function):
 
 class _AddLayerNorm(torch.autograd.Function):
     """F2. Saves the rounded sum s, the per-row mean and rstd, and scale and
-    bias (parameters, not activations)."""
+    bias (parameters, not activations); with dropout only the site's seed
+    besides, as the mask is evaluated again in the backward."""
 
     @staticmethod
-    def forward(ctx, x, r, scale, bias, eps, out_dtype):
-        ctx.eps, ctx.out_dtype = eps, out_dtype
+    def forward(ctx, x, r, scale, bias, eps, out_dtype, dropout, keep_sum):
+        ctx.eps, ctx.out_dtype, ctx.dropout = eps, out_dtype, dropout
         ctx.dtypes = (x.dtype, None if r is None else r.dtype)
         if x.is_cuda:
             if r is not None and r.dtype != x.dtype:
                 # x + r in its promoted dtype: both cast up exactly first.
+                # The kernel drops r in that dtype, so a dropped r must be
+                # the wider one, as the layer's always is.
                 st = torch.promote_types(x.dtype, r.dtype)
+                if dropout is not None and r.dtype != st:
+                    raise TypeError(f"fused_layer: a dropped r ({r.dtype}) "
+                                    f"narrower than x ({x.dtype})")
                 x, r = x.to(st), r.to(st)
-            y, s, mean, rstd = _add_layer_norm_kernel(x, r, scale, bias, eps,
-                                                      out_dtype)
+            y, s, mean, rstd = _add_layer_norm_kernel(
+                x, r, scale, bias, eps, out_dtype, dropout, keep_sum)
         else:
+            if dropout is not None:
+                r = site_dropout_plain(r, dropout)
             s = x if r is None else x + r
             y, mean, rstd = _layer_norm_stats(s, scale, bias, eps, out_dtype)
         ctx.save_for_backward(s, mean, rstd, scale, bias)
@@ -378,11 +452,13 @@ class _AddLayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         s, mean, rstd, scale, bias = ctx.saved_tensors
+        x_dt, r_dt = ctx.dtypes
         if g.is_cuda:
-            ds, dscale, dbias = _add_layer_norm_backward_kernel(g, s, mean,
-                                                                rstd, scale)
+            ds, dr, dscale, dbias = _add_layer_norm_backward_kernel(
+                g, s, mean, rstd, scale, ctx.dropout)
         else:
-            # The unfused LayerNorm's backward on the saved sum.
+            # The unfused LayerNorm's backward on the saved sum, then the
+            # dropout's (`_rng_dropout`'s) on the branch.
             need = ctx.needs_input_grad
             with torch.enable_grad():
                 s_ = s.detach().requires_grad_()
@@ -394,9 +470,29 @@ class _AddLayerNorm(torch.autograd.Function):
                 ds = next(got)
                 dscale = next(got) if need[2] else None
                 dbias = next(got) if need[3] else None
-        x_dt, r_dt = ctx.dtypes
-        return (ds.to(x_dt), None if r_dt is None else ds.to(r_dt),
-                dscale, dbias, None, None)
+            dr = (None if ctx.dropout is None
+                  else site_dropout_plain(ds.to(r_dt), ctx.dropout))
+        dr = ds if dr is None else dr        # without dropout, r's is ds
+        return (ds.to(x_dt), None if r_dt is None else dr.to(r_dt),
+                dscale, dbias, None, None, None, None)
+
+
+class _SiteDropout(torch.autograd.Function):
+    """The site kernel as a Function: drop(x) forward, drop(g) backward, the
+    mask evaluated again from the seed (nothing saved)."""
+
+    @staticmethod
+    def forward(ctx, x, dropout):
+        ctx.dropout = dropout
+        if x.is_cuda:
+            return _site_dropout_kernel(x, dropout)
+        return site_dropout_plain(x, dropout)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.is_cuda:
+            return _site_dropout_kernel(g, ctx.dropout), None
+        return site_dropout_plain(g, ctx.dropout), None
 
 
 def bias_act(h, b, act: str = "none", out_dtype=torch.float32):
@@ -412,12 +508,28 @@ def bias_act(h, b, act: str = "none", out_dtype=torch.float32):
     return _BiasAct.apply(h, b, act, out_dtype)
 
 
-def add_layer_norm(x, r, scale, bias, eps: float, out_dtype=None):
-    """F2: LayerNorm of x + r (of x when r is None) with float32 statistics,
-    differentiable in x, r, scale and bias; out_dtype None is float32.
+def add_layer_norm(x, r, scale, bias, eps: float, out_dtype=None, dropout=None):
+    """F2: LayerNorm of x + drop(r) (of x when r is None) with float32
+    statistics, differentiable in x, r, scale and bias; out_dtype None is
+    float32.
 
-    x, r: (..., H) float32 or bfloat16; scale, bias: (H,). The kernel on
-    CUDA tensors (H a multiple of 8 up to 4,096, 16-byte aligned rows; it
-    raises otherwise), the plain version on CPU tensors."""
+    x, r: (..., H) float32 or bfloat16; scale, bias: (H,); dropout: None or
+    r's dropout site (seed, rate, nbits, block), block None or the (whole
+    shape, start) of a run of whole rows of the site. The kernel on CUDA
+    tensors (H a multiple of 8 up to 4,096, 16-byte aligned rows; it raises
+    otherwise), the plain version on CPU tensors."""
+    # Without a gradient to take (an encode) the kernel does not write the
+    # sum the backward would read.
+    keep_sum = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, r, scale, bias))
     return _AddLayerNorm.apply(x, r, scale, bias, eps,
-                               torch.float32 if out_dtype is None else out_dtype)
+                               torch.float32 if out_dtype is None else out_dtype,
+                               dropout, keep_sum)
+
+
+def site_dropout(x, dropout):
+    """drop(x) for the dropout site (seed, rate, nbits, block) (block None or
+    a run of whole rows of the site), differentiable: the site kernel on
+    CUDA tensors (the last dimension a multiple of 8, 16-byte aligned), the
+    plain version on CPU tensors."""
+    return _SiteDropout.apply(x, dropout)

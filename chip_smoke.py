@@ -176,6 +176,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    backward must occur); (c) phase 4's 4,096 entities at L 32 encoded with
    `fused_attention=False`, the CLI's layer (F3's inference variant, no
    K2), best of 5, held within 1e-2 of the K2 table, with both rates.
+15. The dropout masks inside the kernels, after phase 14, before the
+   timings of phase 7. (a) At the W5M train step's shapes and each
+   dropout_bits (8, 16, 32), on blocks of larger sites (rows and heads
+   offset): F3's masks, forward (y != 0 where kept, uniform probabilities)
+   and backward (the sign of dl under a unit cotangent), equal to the plain
+   generator's (ops/dropout_rng.py); F2's s = x + drop(r) and dr = drop(ds)
+   bit-equal to the plain chain; the site kernel's drop(x) and drop(g)
+   bit-equal to the plain version. Then, with every count set to 0: (b)
+   phase 6 (c)'s W5M step (remat=8, 32-bit masks) and the bench --w5m
+   point's step (remat=4, fast_train, 8-bit masks), each after warm-up,
+   profiled by kernel name with shapes recorded: no torch draw and no
+   `where` on a dropout site's shape, and no more RNG kernels than the
+   sampler's two draws; F2, F3, their backwards and the site kernel
+   launched.
 7. Time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function, at the main path's shapes
    (K3's backward: the kernel with its index bookkeeping against the plain
@@ -185,7 +199,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the sum of the counts read after phases 4-5 (inference), after phase 6
    (train) and after phase 8 (word models), each path driven with every
    count (K3's forward and backward each have one) set to 0 just before it,
-   plus phase 9's to 14's.
+   plus phase 9's to 15's.
    K1's record also counts its launches by variant and width (every
    main-path launch must take the "tma" variant, at d 128, 300 and 768),
    reads the SM clock right after its timing with the kernel running, and
@@ -196,12 +210,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    TPU package) have a record each for forward and backward, with their
    launches by variant, at the W5M train step's shapes (F1 poly at 131,072
    x 3072, and none at 768 under `at_w768_none`; F2 at 131,072 x 768) and,
-   forward, at the encode chunk's (`at_encode`); F3 at the W5M train
-   shape with 8-bit masks (the kernel alone, the mask drawn before;
-   `with_mask_draw_ms` the call with its draw) and, forward, its inference variant at the
+   forward, at the encode chunk's (`at_encode`), F2 also with 8- and
+   32-bit masks (`at_drop8`, `at_drop32`; its backward with 8-bit masks, dr
+   beside ds, and `at_drop32`, `at_no_dropout`); F3 at the W5M train
+   shape with 8-bit masks (`at_drop32`: 32-bit), each mask evaluated in
+   the kernel, and, forward, its inference variant at the
    encode chunk's (`at_encode`) and L 32's rows (`at_l32`), its
    `library_ms` torch.softmax (or aten._softmax_backward_data) on the f32
-   logits; F1's and F2's `library_ms` is
+   logits; the site kernel (the embedding output's dropout) at the W5M
+   step's 131,072 x 768 with 32-bit masks (`at_drop8`: 8-bit), its
+   `library_ms` F.dropout (torch's own mask); a bound's operations count
+   the generator's (~100 integer operations a Philox call, shared by the
+   call's 4, 8 or 16 masks). F1's and F2's `library_ms` is
    F.gelu or F.layer_norm (or their backward) on the already-added input,
    which covers part of the function (`library_covers`), and for F1's
    backward at "none" (db alone: dh is g) g's f32 column sum, all of it.
@@ -240,7 +260,7 @@ from blp_tpu_torch.data.loader import epoch_batches, text_train_batch
 from blp_tpu_torch.data.synth import write_synth_dataset, write_tiny_glove
 from blp_tpu_torch.data.tokenizers import GloVeTokenizer, WordPieceTokenizer
 from blp_tpu_torch.models import bert, blp
-from blp_tpu_torch.ops import (_cuda, attn_softmax, fused_layer,
+from blp_tpu_torch.ops import (_cuda, attn_softmax, dropout_rng, fused_layer,
                                packed_attention, sddmm, transe_rank)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -290,7 +310,8 @@ COUNTERS = {"K1": (transe_rank, "launches"),
             "F2": (fused_layer, "add_layer_norm_launches"),
             "F2 backward": (fused_layer, "add_layer_norm_backward_launches"),
             "F3": (attn_softmax, "launches"),
-            "F3 backward": (attn_softmax, "backward_launches")}
+            "F3 backward": (attn_softmax, "backward_launches"),
+            "site dropout": (fused_layer, "site_dropout_launches")}
 #: Launch counts split by shape or variant (Counters).
 BY_KEYS = ("K1 by variant", "K2 by seg", "F by variant")
 
@@ -2729,7 +2750,7 @@ def f3_inputs(rows: int, seg, l_dt, out_dt, seed: int):
     return l, bias, gy
 
 
-def _f3_dropout(nbits, seed: int):
+def _dropout(nbits, seed: int):
     return None if nbits is None else (seed, 0.1, nbits, None)
 
 
@@ -2743,7 +2764,7 @@ def check_f3() -> dict:
     errs, scale = {}, math.sqrt(ATTN_HD)
     for i, (ld, od, rl, nbits, rows, seg, backward) in enumerate(F3_CASES):
         l, bias, gy = f3_inputs(rows, seg, F_DT[ld], F_DT[od], seed=70 + i)
-        drop = _f3_dropout(nbits, 1000 + i)
+        drop = _dropout(nbits, 1000 + i)
         ll = l.detach().requires_grad_(backward)
         with torch.set_grad_enabled(backward):
             want = attn_softmax.attn_softmax_plain(ll, bias, scale, F_DT[od], rl, drop)
@@ -2840,6 +2861,176 @@ def softmax_phase(data_dir: str, card: str) -> tuple[dict, dict]:
         launches[key] = step_launches[key] + enc_launches[key]
     stats["phase14_s"] = time.perf_counter() - t0
     log(f"phase 14: {stats['phase14_s']:.1f} s")
+    return stats, launches
+
+
+# -- phase 15: the dropout masks inside the kernels ------------------------------
+
+DROP_BITS = (8, 16, 32)
+#: The W5M train step's dropout sites after packing (1,024 rows of two
+#: 64-token segments): the hidden sites and the attention probabilities.
+W5M_ROWS = W5M_TOKENS // ATTN_SP
+W5M_SITES = ((W5M_ROWS, ATTN_SP, BERT_H), (W5M_ROWS, ATTN_HEADS, ATTN_SP, ATTN_SP))
+#: Kernel names of torch's generator (torch.profiler), and the ops that
+#: launch them.
+RNG_KERNELS = ("distribution", "randint", "bernoulli", "philox")
+RNG_OPS = ("aten::rand", "aten::randint", "aten::uniform_", "aten::random_",
+           "aten::bernoulli", "aten::bernoulli_", "aten::normal_",
+           "aten::rand_like", "aten::randint_like")
+#: The step's draws that are not dropout masks: the sampler's randint and
+#: rand (data/sampling.py).
+SAMPLER_DRAWS = 2
+
+
+def check_masks() -> dict:
+    """(a) of phase 15, at the W5M train step's shapes, each dropout_bits on
+    a block of a larger site: F3's masks, forward (y != 0 where kept, with
+    uniform probabilities) and backward (the sign of dl under a unit
+    cotangent), equal to the plain generator's; F2's s = x + drop(r) and dr
+    = drop(ds) bit-equal to the plain chain; the site kernel's drop(x) and
+    drop(g) bit-equal to the plain version."""
+    out = {}
+    eps = bert.BertConfig().layer_norm_eps
+    shape = (W5M_ROWS, ATTN_HEADS, ATTN_SP, ATTN_SP)
+    for nbits in DROP_BITS:
+        # F3: the second half of the rows and heads of a site twice as big.
+        block = ((2 * W5M_ROWS, 2 * ATTN_HEADS, ATTN_SP, ATTN_SP),
+                 (W5M_ROWS // 2, ATTN_HEADS, 0, 0))
+        drop = (0xF3F3F3F3F3 + nbits, 0.5, nbits, block)
+        l = torch.zeros(shape, device="cuda", dtype=torch.bfloat16,
+                        requires_grad=True)
+        bias = torch.zeros((W5M_ROWS, 1, 1, ATTN_SP), device="cuda")
+        y = attn_softmax.attn_softmax(l, bias, 8.0, torch.bfloat16, dropout=drop)
+        dl, = torch.autograd.grad(y, l, torch.ones_like(y))
+        keep = dropout_rng.site_keep(drop[0], 0.5, nbits, shape, block, "cuda")[0]
+        require(torch.equal(y != 0, keep) and torch.equal(dl.float() > 0, keep)
+                and not bool((dl == 0).any()),
+                f"F3's {nbits}-bit masks differ from the plain generator's")
+        kept = keep.float().mean().item()
+        del l, y, dl, keep
+        # F2: the rows past the first 4,096 of a hidden site.
+        first = W5M_TOKENS // 32
+        x, r, scale, bias_, gy = f2_inputs(W5M_TOKENS, True, torch.bfloat16,
+                                           torch.bfloat16, seed=80 + nbits)
+        drop = (0xF2F2F2F2F2 + nbits, 0.1, nbits,
+                ((W5M_TOKENS + first, BERT_H), (first, 0)))
+        _, s, mean, rstd = fused_layer._add_layer_norm_kernel(
+            x, r, scale, bias_, eps, torch.bfloat16, drop)
+        ok_s = torch.equal(s, x + fused_layer.site_dropout_plain(r, drop))
+        ds, dr, _, _ = fused_layer._add_layer_norm_backward_kernel(
+            gy, s, mean, rstd, scale, drop)
+        ok_dr = torch.equal(dr, fused_layer.site_dropout_plain(ds, drop))
+        require(ok_s and ok_dr, f"F2 with {nbits}-bit masks: s or dr differ from "
+                                "the plain chain")
+        del s, mean, rstd, ds, dr, r, scale, bias_
+        # The site kernel: the same rows, forward and backward.
+        xx = x.detach().requires_grad_()
+        yy = bert._rng_dropout(xx, drop[0], 0.1, nbits, drop[3])
+        dx, = torch.autograd.grad(yy, xx, gy)
+        require(torch.equal(yy, fused_layer.site_dropout_plain(x, drop))
+                and torch.equal(dx, fused_layer.site_dropout_plain(gy, drop)),
+                f"the site kernel with {nbits}-bit masks differs from the plain "
+                "version")
+        del x, xx, yy, dx, gy
+        torch.cuda.empty_cache()
+        out[nbits] = {"f3_kept": kept}
+        log(f"(a) {nbits}-bit masks at the W5M shapes (blocks of larger sites): "
+            f"F3 forward and backward, F2's s and dr, the site kernel's drop(x) "
+            f"and drop(g) equal the plain generator's; F3 kept {kept:.6f} "
+            f"(keep_p {dropout_rng.threshold(0.5, nbits)[1]})")
+    return out
+
+
+def rng_free_step(label: str, step, sites) -> dict:
+    """One step under torch.profiler (shapes recorded): its kernels by name,
+    and what it asks of torch's generator and of `where`. Requires no draw
+    and no `where` on a dropout site's shape (`sites`), and no more RNG
+    kernels than the sampler's two draws."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    rng = sum(c for n, _, c in kernels if any(k in n for k in RNG_KERNELS))
+    where = sum(c for n, _, c in kernels if "where_kernel" in n)
+    on_sites = [(e.name, e.input_shapes) for e in prof.events()
+                if (e.name in RNG_OPS or e.name == "aten::where")
+                and any(tuple(sh) in sites for sh in e.input_shapes or ())]
+    log(f"(b) {label}: profiled wall {wall_ms:.1f} ms, device busy {busy:.1f} ms; "
+        f"RNG kernels {rng}, where kernels {where}, draws or wheres on a dropout "
+        f"site {len(on_sites)}")
+    for name, ms, count in kernels[:25]:
+        log(f"    {ms:8.2f} ms x{count:<5d} {name[:110]}")
+    require(not on_sites, f"{label}: torch draws or selects on a dropout site: "
+                          f"{on_sites[:4]}")
+    require(rng <= SAMPLER_DRAWS, f"{label}: {rng} RNG kernels, more than the "
+                                  f"sampler's {SAMPLER_DRAWS}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "rng_kernels": rng,
+            "where_kernels": where,
+            "kernels": [(n[:200], round(ms, 3), c) for n, ms, c in kernels[:60]]}
+
+
+def w5m_steps_profiled(data_dir: str) -> tuple[dict, dict]:
+    """(b) of phase 15: phase 6 (c)'s W5M step (remat=8, 32-bit masks) and
+    the bench --w5m point's step (remat=4, fast_train, 8-bit masks), each
+    after warm-up steps, profiled by kernel name; the launches of both."""
+    from blp_tpu_torch import bench
+
+    stats = {}
+    cfg, params = train_model(12, remat=8)
+    opt = training.make_optimizer(5e-5, 1000)
+    state = opt.init(params)
+    step = training.make_train_step(cfg, opt, batch_size=1024, num_negatives=64,
+                                    device="cuda")
+    batches = train_batches(data_dir, 64, 1024, 3)
+    times = []
+    for i, batch in enumerate(batches):
+        (params, state, _), s = wall(lambda: step(params, state, (0, i), batch))  # noqa: B023
+        times.append(s * 1e3)
+    stats["w5m_step_ms"] = times
+    log(f"(b) W5M step (remat=8): {[round(t, 1) for t in times]} ms for steps 1-3")
+    stats["w5m_step_profile"] = rng_free_step(
+        "W5M step at remat=8", lambda: step(params, state, (0, 3), batches[0]),
+        W5M_SITES)
+    del params, state, step, batches
+    torch.cuda.empty_cache()
+    (B, L, K), _ = bench.W5M["shape"], bench.W5M["timing"]
+    step, params, state, batch = bench.setup(B, L, K, bench.model_config(bench.W5M),
+                                             DEVICE)
+    for i in range(3):
+        params, state, _ = step(params, state, (0, i), batch)
+    stats["bench_w5m_profile"] = rng_free_step(
+        "bench --w5m step (remat=4, fast_train, 8-bit masks)",
+        lambda: step(params, state, (0, 3), batch), W5M_SITES)
+    del params, state, step, batch
+    torch.cuda.empty_cache()
+    return stats
+
+
+def dropout_phase(data_dir: str) -> tuple[dict, dict]:
+    """Phase 15: (a) the masks against the plain generator (not counted);
+    then, with every count set to 0, (b) the W5M step and the bench --w5m
+    step, profiled. Returns the stats and (b)'s launches."""
+    t0 = time.perf_counter()
+    stats = {"mask_check": check_masks()}
+    torch.cuda.empty_cache()
+    reset_counts()
+    stats.update(w5m_steps_profiled(data_dir))
+    launches = read_counts()
+    require(all(launches[k] > 0 for k in ("F2", "F2 backward", "F3", "F3 backward",
+                                          "site dropout")),
+            f"a kernel that carries a dropout site was never launched: {launches}")
+    stats["phase15_s"] = time.perf_counter() - t0
+    log(f"phase 15: {stats['phase15_s']:.1f} s")
     return stats, launches
 
 
@@ -3168,24 +3359,34 @@ def time_f1(launches: int, backward_launches: int, by_variant: dict) -> list[dic
     return [fwd, bwd]
 
 
-def _time_f2_at(rows: int) -> dict:
-    """F2's forward (x + r, bf16) at (rows, 768): kernel and plain ms,
-    F.layer_norm on the added input (the library's nearest call: no add;
-    bf16 scale and bias), the bound (x, r, y, s in bf16, the row stats)."""
+def _f2_plain_blocks(x, r, scale, bias, eps, drop, rows):
+    """The plain F2 over row blocks, each its block of the dropout site."""
+    def block(i, j):
+        d = None if drop is None else (*drop[:3], ((rows, BERT_H), (i, 0)))
+        return fused_layer.add_layer_norm_plain(x[i:j], r[i:j], scale, bias, eps,
+                                                torch.bfloat16, d)
+    return _blockwise(block, rows)
+
+
+def _time_f2_at(rows: int, nbits=None, keep_sum: bool = True) -> dict:
+    """F2's forward (x + drop(r), bf16; no dropout when nbits is None) at
+    (rows, 768), writing the saved sum s (the training pass) or not
+    (keep_sum False: an encode): kernel and plain ms, F.layer_norm on the
+    added input (the library's nearest call: no add, no dropout; bf16 scale
+    and bias), the bound (x, r, y and s in bf16, the row stats; the
+    operations with the generator's)."""
     bf = torch.bfloat16
     eps = bert.BertConfig().layer_norm_eps
     x, r, scale, bias, _ = f2_inputs(rows, True, bf, bf, seed=52)
+    drop = _dropout(nbits, 9)
+    plain = _f2_plain_blocks(x, r, scale, bias, eps, drop, rows)
+    kernel = lambda: fused_layer._add_layer_norm_kernel(  # noqa: E731
+        x, r, scale, bias, eps, bf, drop, keep_sum)[0]
     with torch.no_grad():
-        got = fused_layer.add_layer_norm(x, r, scale, bias, eps, bf)
-        want = torch.cat(_blockwise(lambda i, j: fused_layer.add_layer_norm_plain(
-            x[i:j], r[i:j], scale, bias, eps, bf), rows)())
-        ok, err = f_close(got, want, rows_summed=True)
-        require(ok, f"F2 at {rows}: error {err}")
-        del got, want
-        ms = cuda_ms(lambda: fused_layer.add_layer_norm(x, r, scale, bias, eps, bf),
-                     reps=20, warmup=3)
-        plain_ms = cuda_ms(_blockwise(lambda i, j: fused_layer.add_layer_norm_plain(
-            x[i:j], r[i:j], scale, bias, eps, bf), rows), reps=3)
+        ok, err = f_close(kernel(), torch.cat(plain()), rows_summed=True)
+        require(ok, f"F2 at {rows}, dropout bits {nbits}: error {err}")
+        ms = cuda_ms(kernel, reps=20, warmup=3)
+        plain_ms = cuda_ms(plain, reps=3)
         s = x + r
         sc, bi = scale.to(bf), bias.to(bf)
         library_ms = cuda_ms(lambda: torch.nn.functional.layer_norm(
@@ -3193,37 +3394,47 @@ def _time_f2_at(rows: int) -> dict:
     del x, r, s
     torch.cuda.empty_cache()
     w = BERT_H
+    kind = ("x+r" if nbits is None else f"x+drop{nbits}(r)") + ("" if keep_sum
+                                                              else ", no saved sum")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **_bound(8.0 * rows * w + 8.0 * rows + 8.0 * w, float(F2_OPS) * rows * w),
+            **_bound((8.0 if keep_sum else 6.0) * rows * w + 8.0 * rows + 8.0 * w,
+                     (F2_OPS + _philox_ops(nbits)) * rows * w),
             "library_ms": library_ms, "library_covers":
                 "F.layer_norm on x + r (bf16 scale and bias): no residual add, "
-                "no saved sum",
-            "shape": f"{rows:,} x {w} x+r bf16->bf16"}
+                "no dropout, no saved sum",
+            "shape": f"{rows:,} x {w} {kind} bf16->bf16"}
 
 
-def _time_f2_backward_at(rows: int) -> dict:
-    """F2's backward kernel (ds, dscale, dbias) against the plain
-    LayerNorm's VJP from the saved sum and aten.native_layer_norm_backward."""
+def _time_f2_backward_at(rows: int, nbits=None) -> dict:
+    """F2's backward kernel (ds, dscale, dbias, and with dropout dr, its
+    mask evaluated again) against the plain LayerNorm's VJP from the saved
+    sum (then the plain dropout of ds) and aten.native_layer_norm_backward."""
     bf = torch.bfloat16
     eps = bert.BertConfig().layer_norm_eps
     x, r, scale, bias, gy = f2_inputs(rows, True, bf, bf, seed=53)
+    drop = _dropout(nbits, 10)
     with torch.no_grad():
         _, s, mean, rstd = fused_layer._add_layer_norm_kernel(x, r, scale, bias,
-                                                              eps, bf)
+                                                              eps, bf, drop)
     del x, r
 
     def plain_vjp():
         with torch.enable_grad():
             ins = [t.detach().requires_grad_() for t in (s, scale, bias)]
             y = fused_layer.add_layer_norm_plain(ins[0], None, ins[1], ins[2], eps, bf)
-            return torch.autograd.grad(y, ins, gy)
+            got = torch.autograd.grad(y, ins, gy)
+        dr = None if drop is None else fused_layer.site_dropout_plain(got[0], drop)
+        return got[0], dr, *got[1:]
 
     kernel = lambda: fused_layer._add_layer_norm_backward_kernel(  # noqa: E731
-        gy, s, mean, rstd, scale)
+        gy, s, mean, rstd, scale, drop)
     got, want = kernel(), plain_vjp()
     ok, err = f_close(got[0], want[0], rows_summed=True)
-    require(ok and all(sum_close(a, b)[0] for a, b in zip(got[1:], want[1:])),
-            f"F2 backward at {rows}: ds error {err}")
+    require(ok and all(sum_close(a, b)[0] for a, b in zip(got[2:], want[2:])),
+            f"F2 backward at {rows}, dropout bits {nbits}: ds error {err}")
+    require(drop is None or torch.equal(
+        got[1], fused_layer.site_dropout_plain(got[0], drop)),
+        f"F2 backward at {rows}: dr is not drop(ds) of the plain generator")
     del got, want
     ms = cuda_ms(kernel, reps=20, warmup=3)
     plain_ms = cuda_ms(plain_vjp, reps=3)
@@ -3234,31 +3445,87 @@ def _time_f2_backward_at(rows: int) -> dict:
     del s, gy
     torch.cuda.empty_cache()
     w = BERT_H
-    # g and s read, ds written (bf16); the row stats and scale read; dscale
-    # and dbias written.
+    # g and s read, ds (and dr) written (bf16); the row stats and scale read;
+    # dscale and dbias written.
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **_bound(6.0 * rows * w + 8.0 * rows + 12.0 * w,
-                     float(F2_BWD_OPS) * rows * w),
+            **_bound((6.0 if drop is None else 8.0) * rows * w + 8.0 * rows
+                     + 12.0 * w, (F2_BWD_OPS + _philox_ops(nbits)) * rows * w),
             "library_ms": library_ms, "library_covers":
                 "aten.native_layer_norm_backward (bf16 scale): the LayerNorm's "
-                "backward alone",
-            "shape": f"{rows:,} x {w} x+r bf16->bf16"}
+                "backward alone, no dropout",
+            "shape": f"{rows:,} x {w} bf16->bf16"
+                     + ("" if nbits is None else f", dr drop {nbits}")}
 
 
 def time_f2(launches: int, backward_launches: int, by_variant: dict) -> list[dict]:
-    """F2 at the W5M train step's rows (131,072 x 768) and, forward, at the
-    encode chunk's (786,432 x 768, under `at_encode`)."""
+    """F2 at the W5M train step's rows (131,072 x 768): forward without
+    dropout, writing the saved sum (as the kernel once always did), without it
+    (`at_no_sum`: an encode's call), with 8- and 32-bit masks (`at_drop8`,
+    `at_drop32`: the training layers') and at the encode chunk's 786,432
+    rows (`at_encode`, no saved sum); backward with 8-bit masks (dr beside
+    ds), 32-bit ones and none (`at_drop32`, `at_no_dropout`)."""
     common = {"route": "cuda", "source": "blp_tpu_torch/csrc/fused_layer.cu",
               "replaces": "blp_tpu/models/bert.py:270",
               "xla_fusion": "no Pallas kernel: XLA fuses the residual add with "
-                            "_layer_norm (:270)"}
+                            "_layer_norm (:270) and the hidden sites' "
+                            "_rng_dropout (:453-456, :472-475)"}
     return [{"name": "add_layer_norm (F2)", **common, "launches": launches,
              "launches_by_variant": by_variant.get("add_layer_norm", {}),
-             **_time_f2_at(W5M_TOKENS), "at_encode": _time_f2_at(ENCODE_TOKENS)},
+             **_time_f2_at(W5M_TOKENS),
+             "at_no_sum": _time_f2_at(W5M_TOKENS, keep_sum=False),
+             "at_drop8": _time_f2_at(W5M_TOKENS, 8),
+             "at_drop32": _time_f2_at(W5M_TOKENS, 32),
+             "at_encode": _time_f2_at(ENCODE_TOKENS, keep_sum=False)},
             {"name": "add_layer_norm backward (F2)", **common,
              "launches": backward_launches,
              "launches_by_variant": by_variant.get("add_layer_norm backward", {}),
-             **_time_f2_backward_at(W5M_TOKENS)}]
+             **_time_f2_backward_at(W5M_TOKENS, 8),
+             "at_drop32": _time_f2_backward_at(W5M_TOKENS, 32),
+             "at_no_dropout": _time_f2_backward_at(W5M_TOKENS)}]
+
+
+def _time_site_dropout_at(rows: int, nbits: int) -> dict:
+    """The site kernel at (rows, 768) bf16 (the W5M step's embedding output)
+    against the plain dropout (the plain generator's mask, then where) and
+    F.dropout (torch's own generator: the same work, another mask)."""
+    bf = torch.bfloat16
+    x = torch.randn((rows, BERT_H), generator=torch.Generator(device="cuda")
+                    .manual_seed(54), device="cuda").to(bf)
+    drop = (11, 0.1, nbits, None)
+    kernel = lambda: fused_layer._site_dropout_kernel(x, drop)  # noqa: E731
+    plain = lambda: fused_layer.site_dropout_plain(x, drop)  # noqa: E731
+    got, want = kernel(), plain()
+    require(torch.equal(got, want), f"site dropout at {rows}, {nbits} bits: "
+                                    "differs from the plain version")
+    err = (got.float() - want.float()).abs().max().item()
+    del got, want
+    ms = cuda_ms(kernel, reps=20, warmup=3)
+    plain_ms = cuda_ms(plain, reps=3)
+    library_ms = cuda_ms(lambda: torch.nn.functional.dropout(x, 0.1, training=True),
+                         reps=20, warmup=3)
+    n = x.numel()
+    del x
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **_bound(4.0 * n, (1.0 + _philox_ops(nbits)) * n),
+            "library_ms": library_ms, "library_covers":
+                "F.dropout (torch's generator: the same work, another mask)",
+            "shape": f"{rows:,} x {BERT_H} bf16 drop {nbits}"}
+
+
+def time_site_dropout(launches: int, by_variant: dict) -> dict:
+    """The site kernel at the W5M train step's embedding output (131,072 x
+    768), 32-bit masks (phase 6's) and 8-bit ones (`at_drop8`)."""
+    return {"name": "site_dropout (the embedding output)", "route": "cuda",
+            "source": "blp_tpu_torch/csrc/fused_layer.cu",
+            "replaces": "blp_tpu/models/bert.py:208",
+            "xla_fusion": "no Pallas kernel: XLA fuses _rng_dropout's compare, "
+                          "scale and select (:208-221) into its consumers; the "
+                          "bits come from a separate rng-bit-generator op",
+            "launches": launches,
+            "launches_by_variant": by_variant.get("site_dropout", {}),
+            **_time_site_dropout_at(W5M_TOKENS, 32),
+            "at_drop8": _time_site_dropout_at(W5M_TOKENS, 8)}
 
 
 def _f3_bias_bytes(bias) -> float:
@@ -3266,17 +3533,27 @@ def _f3_bias_bytes(bias) -> float:
     return 4.0 * math.prod(n for n, st in zip(bias.shape, bias.stride()) if st)
 
 
+def _philox_ops(nbits) -> float:
+    """The dropout generator's operations an element (csrc/dropout_rng.cuh):
+    a Philox call's 10 rounds of two mulhi, two mullo, four xors and two key
+    adds shared by the call's masks, then a shift, mask and compare; 0
+    without dropout."""
+    if nbits is None:
+        return 0.0
+    return 100.0 / dropout_rng.MASKS_PER_CALL[nbits] + 3.0
+
+
 def _time_f3_at(rows: int, seg, round_logits: bool, nbits) -> dict:
-    """F3's forward at (rows, 12, 128, 128) bf16 -> bf16: the kernel alone
-    (the keep mask drawn before) and the plain chain with its draw (CUDA
+    """F3's forward at (rows, 12, 128, 128) bf16 -> bf16 (its mask evaluated
+    in the kernel) and the plain chain (the plain generator's mask; CUDA
     events), torch.softmax on the f32 scaled, biased logits (the library's
-    nearest call), the bound (l, keep, y and the bias once)."""
+    nearest call), the bound (l, y and the bias once; the operations with
+    the generator's)."""
     bf, scale = torch.bfloat16, math.sqrt(ATTN_HD)
     l, bias, _ = f3_inputs(rows, seg, bf, bf, seed=60)
-    drop = _f3_dropout(nbits, 7)
-    mask = None if drop is None else attn_softmax._keep(drop, l.shape, l.device)
+    drop = _dropout(nbits, 7)
     kernel = lambda: attn_softmax._forward_kernel(l, bias, scale, bf,  # noqa: E731
-                                                  round_logits, drop, mask)
+                                                  round_logits, drop)
     plain = lambda: attn_softmax.attn_softmax_plain(l, bias, scale, bf,  # noqa: E731
                                                     round_logits, drop)
     with torch.no_grad():
@@ -3285,18 +3562,16 @@ def _time_f3_at(rows: int, seg, round_logits: bool, nbits) -> dict:
         require(ok, f"F3 at {rows} rows: error {err}")
         ms = cuda_ms(kernel, reps=20, warmup=3)
         plain_ms = cuda_ms(plain, reps=3)
-        with_draw_ms = cuda_ms(lambda: attn_softmax.attn_softmax(
-            l, bias, scale, bf, round_logits, drop), reps=10, warmup=2)
         x = l.float() / scale + bias
         library_ms = cuda_ms(lambda: torch.softmax(x, dim=-1), reps=10, warmup=2)
     n = l.numel()
-    nbytes = 4.0 * n + (n if drop else 0) + _f3_bias_bytes(bias)
-    del l, bias, mask, x
+    nbytes = 4.0 * n + _f3_bias_bytes(bias)
+    del l, bias, x
     torch.cuda.empty_cache()
     kind = "round" if round_logits else f"drop {nbits}"
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "with_mask_draw_ms": with_draw_ms,
-            **_bound(nbytes, float(F3_OPS) * n), "library_ms": library_ms,
+            **_bound(nbytes, (F3_OPS + _philox_ops(nbits)) * n),
+            "library_ms": library_ms,
             "library_covers": "torch.softmax on the f32 scaled, biased logits: "
                               "no scale, bias, cast or dropout",
             "shape": f"{rows:,} x {ATTN_HEADS} x {ATTN_SP} x {ATTN_SP} bf16->bf16 "
@@ -3304,14 +3579,13 @@ def _time_f3_at(rows: int, seg, round_logits: bool, nbits) -> dict:
 
 
 def _time_f3_backward_at(rows: int, seg, nbits) -> dict:
-    """F3's backward kernel (the keep mask drawn before) against the plain
-    chain's VJP (forward and backward, as autograd runs it from l) and
-    aten._softmax_backward_data on f32 y and g (the library's nearest
-    call)."""
+    """F3's backward kernel (its mask evaluated again in the kernel) against
+    the plain chain's VJP (forward and backward, as autograd runs it from
+    l, with the plain generator's mask) and aten._softmax_backward_data on
+    f32 y and g (the library's nearest call)."""
     bf, scale = torch.bfloat16, math.sqrt(ATTN_HD)
     l, bias, gy = f3_inputs(rows, seg, bf, bf, seed=61)
-    drop = _f3_dropout(nbits, 8)
-    mask = None if drop is None else attn_softmax._keep(drop, l.shape, l.device)
+    drop = _dropout(nbits, 8)
 
     def plain_vjp():
         with torch.enable_grad():
@@ -3319,8 +3593,7 @@ def _time_f3_backward_at(rows: int, seg, nbits) -> dict:
             return torch.autograd.grad(attn_softmax.attn_softmax_plain(
                 ll, bias, scale, bf, False, drop), ll, gy)[0]
 
-    kernel = lambda: attn_softmax._backward_kernel(gy, l, bias, scale, drop,  # noqa: E731
-                                                   mask)
+    kernel = lambda: attn_softmax._backward_kernel(gy, l, bias, scale, drop)  # noqa: E731
     ok, err = f_close(kernel(), plain_vjp(), rows_summed=True)
     require(ok, f"F3 backward at {rows} rows: dl error {err}")
     ms = cuda_ms(kernel, reps=20, warmup=3)
@@ -3331,11 +3604,12 @@ def _time_f3_backward_at(rows: int, seg, nbits) -> dict:
     library_ms = cuda_ms(lambda: torch.ops.aten._softmax_backward_data(
         g32, y32, -1, torch.float32), reps=10, warmup=2)
     n = l.numel()
-    nbytes = 6.0 * n + n + _f3_bias_bytes(bias)    # l, g, dl; keep; bias
-    del l, bias, gy, mask, y32, g32
+    nbytes = 6.0 * n + _f3_bias_bytes(bias)    # l, g, dl; bias
+    del l, bias, gy, y32, g32
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **_bound(nbytes, float(F3_BWD_OPS) * n), "library_ms": library_ms,
+            **_bound(nbytes, (F3_BWD_OPS + _philox_ops(nbits)) * n),
+            "library_ms": library_ms,
             "library_covers": "aten._softmax_backward_data on f32 y and g: the "
                               "softmax's backward alone, no recompute, dropout or "
                               "casts",
@@ -3345,9 +3619,10 @@ def _time_f3_backward_at(rows: int, seg, nbits) -> dict:
 
 def time_f3(launches: int, backward_launches: int, by_variant: dict) -> list[dict]:
     """F3 at the W5M train step's shape (1,024 rows of two 64-token
-    segments, 8-bit masks as bench --w5m draws them) and, its inference
-    variant, at the W5M encode chunk (6,144 rows, `at_encode`) and at L 32
-    (1,024 rows of four segments, `at_l32`)."""
+    segments, 8-bit masks as bench --w5m takes them; 32-bit ones, phase 6's,
+    under `at_drop32`) and, its inference variant, at the W5M encode chunk
+    (6,144 rows, `at_encode`) and at L 32 (1,024 rows of four segments,
+    `at_l32`)."""
     common = {"route": "cuda", "source": "blp_tpu_torch/csrc/attn_softmax.cu",
               "replaces": "blp_tpu/models/bert.py:430",
               "xla_fusion": "no Pallas kernel: XLA fuses the scale, mask bias, "
@@ -3356,12 +3631,14 @@ def time_f3(launches: int, backward_launches: int, by_variant: dict) -> list[dic
     fwd = {"name": "attn_softmax (F3)", **common, "launches": launches,
            "launches_by_variant": by_variant.get("attn_softmax", {}),
            **_time_f3_at(1024, W5M_SEG, False, 8),
+           "at_drop32": _time_f3_at(1024, W5M_SEG, False, 32),
            "at_encode": _time_f3_at(W5M_K2_ROWS, W5M_SEG, True, None),
            "at_l32": _time_f3_at(1024, SEG, True, None)}
     bwd = {"name": "attn_softmax backward (F3)", **common,
            "launches": backward_launches,
            "launches_by_variant": by_variant.get("attn_softmax backward", {}),
-           **_time_f3_backward_at(1024, W5M_SEG, 8)}
+           **_time_f3_backward_at(1024, W5M_SEG, 8),
+           "at_drop32": _time_f3_backward_at(1024, W5M_SEG, 32)}
     return [fwd, bwd]
 
 
@@ -3473,9 +3750,15 @@ def main() -> int:
     softmax_stats, softmax_launches = softmax_phase(data_dir, card)
     log(f"main-path launches, the attention softmax chain (phase 14): "
         f"{softmax_launches}")
+    torch.cuda.empty_cache()
+
+    # reset inside: (a) holds the masks to the plain generator first
+    dropout_stats, dropout_launches = dropout_phase(data_dir)
+    log(f"main-path launches, the dropout masks in the kernels (phase 15): "
+        f"{dropout_launches}")
     phases = (infer_launches, train_launches, word_launches, mesh_launches,
               done_launches, w5m_launches, bench_launches, fused_launches,
-              softmax_launches)
+              softmax_launches, dropout_launches)
     launches = {k: sum(p[k] for p in phases) for k in COUNTERS}
     k1_counts = sum((p["K1 by variant"] for p in phases), collections.Counter())
     k1_by = {v: {d: c for (w, d), c in sorted(k1_counts.items()) if w == v}
@@ -3501,7 +3784,8 @@ def main() -> int:
                *time_k3(launches["K3"], launches["K3 backward"]),
                *time_f1(launches["F1"], launches["F1 backward"], f_by),
                *time_f2(launches["F2"], launches["F2 backward"], f_by),
-               *time_f3(launches["F3"], launches["F3 backward"], f_by)]
+               *time_f3(launches["F3"], launches["F3 backward"], f_by),
+               time_site_dropout(launches["site dropout"], f_by)]
     for kr in kernels:
         for rec in (kr, *(v for k, v in kr.items() if k.startswith("at_"))):
             log(f"{kr['name']}: {rec['ms']:.4f} ms (plain "
@@ -3525,7 +3809,7 @@ def main() -> int:
     log("summary: " + json.dumps({**serve_stats, **eval_stats, **train_stats,
                                   **word_stats, **mesh_stats, **done_stats,
                                   **w5m_stats, **bench_stats, **fused_stats,
-                                  **softmax_stats},
+                                  **softmax_stats, **dropout_stats},
                                  default=str))
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(card)   # name, power limit: nvidia-smi's own line

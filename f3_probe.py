@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""The attention softmax chain on one NVIDIA GPU: what it costs the main
-path, for the tree at --root (this checkout by default, or a `git archive`
-of another commit unpacked under build/, to compare two commits in one
-process launch each).
+"""The attention softmax chain and the dropout masks on one NVIDIA GPU: what
+they cost the main path, for the tree at --root (this checkout by default,
+or a `git archive` of another commit unpacked under build/, to compare two
+commits in one process launch each).
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 f3_probe.py --root build/parent --out build/f3_probe/parent.json
@@ -14,14 +14,21 @@ named otherwise:
     bias, torch.softmax, bf16 cast, `_rng_dropout`) at the W5M train shape
     (1,024 packed rows of two 64-token segments, 12 heads, 128 x 128, bf16
     logits), forward and forward+backward, with 32- and 8-bit masks, one
-    mask draw alone, and F3 (ops/attn_softmax.py) the same way where the
-    tree has it;
+    torch mask draw alone where the tree draws its masks with torch, and F3
+    (ops/attn_softmax.py) the same way where the tree has it;
 (2) chip_smoke's phase 6 (c) W5M step (B 1,024, L 64, K 64, remat=8): six
-    steps' wall ms, peak memory, and one step's device time by kernel name;
+    steps' wall ms, peak memory, and one step's device time by kernel name,
+    with the launches and device ms of torch's generator, of `where`, of
+    the scalar compares and of the copies summed;
 (3) phase 4's encode of 4,096 entities at L 32 with and without K2
     (`fused_attention`), best of 5, with its kernels;
 (4) `bench --w5m`'s point through chip_smoke's `w5m_point` (skip with
-    --skip-bench).
+    --skip-bench);
+(5) the flagship step (phase 6 (b): B 64, L 32): ms a step over 10 steps and
+    one step's device launches;
+(6) F2 and F3 through chip_smoke's timing functions at the W5M train shapes
+    (the tree's own kernels: F2's forward without dropout, and with 8- and
+    32-bit masks where its F2 takes them; F3 with 8- and 32-bit masks).
 Prints a summary and writes every table to --out (JSON).
 """
 
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -38,6 +46,10 @@ import time
 import torch
 
 B, NH, S, HD = 1024, 12, 128, 64
+#: Kernel-name groups of the W5M step summed in (2).
+GROUPS = {"torch RNG": ("distribution_", "randint", "bernoulli"),
+          "where": ("where_kernel",), "scalar compare": ("compare_scalar",),
+          "copies": ("direct_copy", "bfloat16_copy")}
 
 
 def kernel_table(fn) -> tuple[float, list]:
@@ -86,15 +98,17 @@ def chain_costs(res: dict) -> None:
                                                     reps=3)
         fb_ms, fb_n, fb_names = cs.device_ms(
             fwd_bwd(lambda ll: chain(ll, mask_bias, nbits)), reps=3)
-        keep_ms, _, _ = cs.device_ms(lambda: bert._site_keep(
-            1234, 0.1, nbits, l.shape, "cuda", None), reps=3)
+        keep_ms = None
+        if hasattr(bert, "_site_keep"):      # a tree that draws with torch
+            keep_ms, _, _ = cs.device_ms(lambda: bert._site_keep(
+                1234, 0.1, nbits, l.shape, "cuda", None), reps=3)
         res[f"chain{nbits}"] = {"fwd_ms": fwd_ms, "fwd_launches": fwd_n,
                                 "fwd_bwd_ms": fb_ms, "fwd_bwd_launches": fb_n,
                                 "mask_draw_ms": keep_ms, "fwd_names": fwd_names,
                                 "fwd_bwd_names": fb_names}
         print(f"op-by-op chain at {B}x{NH}x{S}x{S}, {nbits}-bit masks: forward "
               f"{fwd_ms:.3f} ms ({fwd_n:g} launches), forward+backward {fb_ms:.3f} "
-              f"ms ({fb_n:g}); one mask draw {keep_ms:.3f} ms", flush=True)
+              f"ms ({fb_n:g}); one torch mask draw {keep_ms} ms", flush=True)
         if F3 is None:
             continue
         drop = (1234, 0.1, nbits, None)
@@ -106,7 +120,7 @@ def chain_costs(res: dict) -> None:
             f_ms, _, _ = cs.device_ms(lambda: f3(l), reps=3)
         f_fb, _, _ = cs.device_ms(fwd_bwd(f3), reps=3)
         res[f"f3_{nbits}"] = {"fwd_ms": f_ms, "fwd_bwd_ms": f_fb}
-        print(f"  F3 (its mask draws included): forward {f_ms:.3f} ms, "
+        print(f"  F3 (its masks included): forward {f_ms:.3f} ms, "
               f"forward+backward {f_fb:.3f} ms", flush=True)
 
 
@@ -126,10 +140,16 @@ def w5m_step(res: dict, data_dir: str) -> None:
     peak = torch.cuda.max_memory_allocated()
     wall_ms, ks = kernel_table(lambda: step(params, state, (0, 9), batches[0]))
     busy = sum(k[1] for k in ks)
+    groups = {g: [sum(ms for n, ms, _ in ks if any(p in n for p in pats)),
+                  sum(c for n, _, c in ks if any(p in n for p in pats))]
+              for g, pats in GROUPS.items()}
     res["w5m_step"] = {"ms": times, "peak_gib": peak / 2**30, "prof_wall_ms": wall_ms,
-                       "busy_ms": busy, "kernels": [(n[:300], ms, c) for n, ms, c in ks[:80]]}
+                       "busy_ms": busy, "groups": groups,
+                       "kernels": [(n[:300], ms, c) for n, ms, c in ks]}
     print(f"W5M step remat=8: {[round(t, 1) for t in times]} ms, peak "
-          f"{peak / 2**30:.2f} GiB; profiled wall {wall_ms:.1f} busy {busy:.1f}", flush=True)
+          f"{peak / 2**30:.2f} GiB; profiled wall {wall_ms:.1f} busy {busy:.1f}; "
+          + ", ".join(f"{g} {ms:.2f} ms x{c}" for g, (ms, c) in groups.items()),
+          flush=True)
     for n, ms, c in ks[:30]:
         print(f"  {ms:9.2f} ms x{c:<6d} {n[:150]}", flush=True)
 
@@ -159,6 +179,48 @@ def encodes(res: dict, data_dir: str) -> None:
               f"{busy:.2f} ms", flush=True)
         for n, ms, cnt in ks[:12]:
             print(f"  {ms:8.3f} ms x{cnt:<5d} {n[:150]}", flush=True)
+
+
+def flagship(res: dict, data_dir: str) -> None:
+    """(5)."""
+    cfg, params = cs.train_model(12)
+    opt = training.make_optimizer(2e-5, 1000)
+    state = opt.init(params)
+    step = training.make_train_step(cfg, opt, batch_size=64, num_negatives=64,
+                                    device="cuda")
+    batches = cs.train_batches(data_dir, cs.SEG, 64, 13)
+    for i in range(3):
+        params, state, _ = step(params, state, (0, i), batches[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3, 13):
+        params, state, loss = step(params, state, (0, i), batches[i])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 10
+    wall_ms, ks = kernel_table(lambda: step(params, state, (0, 13), batches[0]))
+    n = sum(c for _, _, c in ks)
+    res["flagship"] = {"ms": ms, "launches": n, "prof_wall_ms": wall_ms,
+                       "busy_ms": sum(k[1] for k in ks)}
+    print(f"flagship step (B 64, L 32): {ms:.2f} ms a step over 10; one step "
+          f"{n} device launches, busy {res['flagship']['busy_ms']:.1f} of "
+          f"{wall_ms:.1f} ms", flush=True)
+
+
+def kernels(res: dict) -> None:
+    """(6)."""
+    out = {"f3_drop8": cs._time_f3_at(B, 64, False, 8),
+           "f3_drop32": cs._time_f3_at(B, 64, False, 32),
+           "f3_bwd_drop8": cs._time_f3_backward_at(B, 64, 8),
+           "f3_bwd_drop32": cs._time_f3_backward_at(B, 64, 32),
+           "f2": cs._time_f2_at(cs.W5M_TOKENS)}
+    if "nbits" in inspect.signature(cs._time_f2_at).parameters:
+        out["f2_drop8"] = cs._time_f2_at(cs.W5M_TOKENS, 8)
+        out["f2_drop32"] = cs._time_f2_at(cs.W5M_TOKENS, 32)
+    res["kernels"] = out
+    for k, v in out.items():
+        print(f"{k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.3f}, library "
+              f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by {v['bound_by']}; "
+              f"{v.get('with_mask_draw_ms', '-')} with a torch mask draw)", flush=True)
 
 
 def _import(root: str) -> None:
@@ -211,6 +273,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if not args.skip_bench:
         res.update(cs.w5m_point())
+    torch.cuda.empty_cache()
+    flagship(res, data_dir)
+    torch.cuda.empty_cache()
+    kernels(res)
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(res, f, indent=1, default=str)

@@ -11,7 +11,7 @@ version.
   JAX keeps f32, within one bf16 ulp of JAX's or 1e-5 of its largest value
   (the backward's t - p * sum(t) cancels).
 - The autograd.Function against the parent's op-by-op chain (the code the
-  layer ran before F3, written out below with `_RngDropout`), bit for bit,
+  layer ran before F3, written out below with `_rng_dropout`), bit for bit,
   forward and gradient, in every dtype pair the layer uses, with 8-, 16- and
   32-bit dropout masks and none, with packed and unpacked bias, a dropout
   block, and a row whose keys are all masked; and whole BERT layers, bit for
@@ -157,9 +157,9 @@ def test_function_equals_the_parent_chain(l_dt, out_dt, nbits, kind):
 
 def test_function_in_a_dropout_block_equals_the_parent_chain():
     """Rows 1-2 and heads 2-3 of a (4, 6, S, S) site, as a data- and
-    tensor-parallel rank draws its slice of the one-device mask."""
+    tensor-parallel rank takes its block of the one-device mask."""
     l, bias, g = _inputs("packed", "bf16", "bf16", seed=4, b=2, nh=2)
-    block = ((4, 6, 24, 24), (slice(1, 3), slice(2, 4), slice(None), slice(None)))
+    block = ((4, 6, 24, 24), (1, 2, 0, 0))
     args = (torch.from_numpy(l).to(torch.bfloat16), torch.from_numpy(bias),
             torch.from_numpy(g).to(torch.bfloat16), torch.bfloat16,
             (99, 0.1, 8, block))

@@ -29,11 +29,19 @@ softmax chain): y and dl within one bf16 ulp plus 1e-5 of the largest of the
 plain chain and its autograd VJP (f32: rtol 1e-5, atol 1e-5 of the largest),
 for the kernel's order of the row sums and its reciprocal of the sum where
 torch divides; a bf16 y with dropout within two ulps (the dropout's second
-rounding of a probability one ulp apart); identical across calls.
+rounding of a probability one ulp apart); identical across calls. The
+dropout masks that F3, F2 and the site kernel evaluate in registers equal
+the plain generator's (ops/dropout_rng.py) bit for bit, forward and
+backward, and so do s = x + drop(r) and dr = drop(ds): both are torch's
+CUDA ops (a division by a Python number multiplies by its f32 reciprocal,
+as the kernels do).
 """
 
+import ctypes
 import dataclasses
 import math
+import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -43,8 +51,8 @@ from blp_tpu_torch import checkpoint, evaluation, training
 from blp_tpu_torch.data import sampling
 from blp_tpu_torch.data.filtering import FilterIndex
 from blp_tpu_torch.models import bert, blp
-from blp_tpu_torch.ops import (attn_softmax, fused_layer, packed_attention, sddmm,
-                               transe_rank)
+from blp_tpu_torch.ops import (_cuda, attn_softmax, dropout_rng, fused_layer,
+                               packed_attention, sddmm, transe_rank)
 
 pytestmark = pytest.mark.cuda
 
@@ -1085,7 +1093,7 @@ def test_f3_inference_variant_matches_plain(seg):
 def test_f3_in_a_dropout_block_matches_plain():
     """A rank's block of the one-device site (rows 2-4, heads 4-7 of 12)."""
     l, bias, gy = _f3_inputs(3, 4, 64, 64, "bf16", "bf16", 32, seed=4)
-    block = ((8, 12, 64, 64), (slice(2, 5), slice(4, 8), slice(None), slice(None)))
+    block = ((8, 12, 64, 64), (2, 4, 0, 0))
     (y, dl), (y_p, dl_p) = _f3_case(l, bias, gy, "bf16", dropout=(5, 0.1, 8, block))
     assert _close(y, y_p, rows_summed=True, ulps=2) and _close(dl, dl_p, rows_summed=True)
 
@@ -1139,3 +1147,205 @@ def test_f3_refuses_what_its_kernel_does_not_take():
         y = attn_softmax.attn_softmax(ll, torch.zeros(1, 1, 1, 8, device="cuda"),
                                       8.0, torch.bfloat16, True)
         y.sum().backward()
+
+
+# -- the dropout masks evaluated inside the kernels -----------------------------
+
+#: (whole shape, start) blocks of a (3, 5, S, S) attention tensor: none, a
+#: rank's rows, and rows and heads under tensor parallelism.
+F3_BLOCKS = (None, ((11, 5), (7, 0)), ((4, 12), (1, 5)))
+
+
+def _f3_block(blk, sq, sk):
+    return None if blk is None else ((*blk[0], sq, sk), (*blk[1], 0, 0))
+
+
+@pytest.mark.parametrize("blk", F3_BLOCKS)
+@pytest.mark.parametrize("sk", [128, 100, 40, 33])
+@pytest.mark.parametrize("nbits", [8, 16, 32])
+def test_f3_masks_equal_the_plain_generator(nbits, sk, blk):
+    """Uniform probabilities (zero logits and bias: p = 1/Sk) and a unit
+    cotangent make the mask readable from both outputs: y != 0 where kept;
+    dl = p (gd - mean gd) / scale is above 0 where kept and below where
+    dropped (rate 0.5: no row keeps every key). Odd row and query counts;
+    Sk 128, 100 and 40 take four-key chunks (128 shares each call among
+    its lanes at 8 and 16 bits, 40 at 16), 33 one key a chunk."""
+    b, nh, sq = 3, 5, 7
+    block = _f3_block(blk, sq, sk)
+    drop = (0xDEADBEEF12345, 0.5, nbits, block)
+    l = torch.zeros((b, nh, sq, sk), device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    bias = torch.zeros((b, 1, 1, sk), device="cuda")
+    before = (attn_softmax.launches, attn_softmax.backward_launches)
+    y = attn_softmax.attn_softmax(l, bias, 8.0, torch.float32, dropout=drop)
+    dl, = torch.autograd.grad(y, l, torch.ones_like(y))
+    assert (attn_softmax.launches, attn_softmax.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    keep = dropout_rng.site_keep(drop[0], 0.5, nbits, l.shape, block, "cuda")[0]
+    assert 0 < keep.sum() < keep.numel()
+    assert torch.equal(y != 0, keep)
+    assert torch.equal(dl.float() > 0, keep) and not bool((dl == 0).any())
+    y_p = attn_softmax.attn_softmax_plain(l.detach(), bias, 8.0, torch.float32,
+                                          dropout=drop)
+    assert torch.equal(y, y_p)
+
+
+def _f2_dropout_case(x_dt, rows, w, nbits, block, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (1.0 + torch.randn((rows, 1, w), generator=g, device="cuda")).to(x_dt)
+    r = (0.5 * torch.randn((rows, 1, w), generator=g, device="cuda")).to(x_dt)
+    scale = 1.0 + 0.1 * torch.randn(w, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(w, generator=g, device="cuda")
+    gy = torch.randn((rows, 1, w), generator=g, device="cuda").to(x_dt)
+    return x, r, scale, bias, gy, (0x5EED0F5175 + seed, 0.1, nbits, block)
+
+
+@pytest.mark.parametrize("offset", [None, 999])
+@pytest.mark.parametrize("x_dt", ["bf16", "f32"])
+@pytest.mark.parametrize("nbits", [8, 16, 32])
+def test_f2_dropout_equals_the_plain_chain(nbits, x_dt, offset):
+    """997 rows of a (B, 1, 768) site (or rows 999.. of a larger one): the
+    sum s = x + drop(r) and dr = drop(ds) bit-equal to the plain chain on
+    the kernel's ds; y, ds, dscale and dbias within F2's tolerances."""
+    rows, w = 997, 768
+    block = None if offset is None else ((offset + rows + 3, 1, w), (offset, 0, 0))
+    x, r, scale, bias, gy, drop = _f2_dropout_case(DT[x_dt], rows, w, nbits, block, 1)
+    y, s, mean, rstd = fused_layer._add_layer_norm_kernel(x, r, scale, bias, 1e-12,
+                                                          DT[x_dt], drop)
+    r_drop = fused_layer.site_dropout_plain(r, drop)
+    assert torch.equal(s, x + r_drop)
+    y_p = fused_layer.add_layer_norm_plain(x, r, scale, bias, 1e-12, DT[x_dt], drop)
+    assert _close(y, y_p, rows_summed=True)
+    ds, dr, dscale, dbias = fused_layer._add_layer_norm_backward_kernel(
+        gy, s, mean, rstd, scale, drop)
+    assert torch.equal(dr, fused_layer.site_dropout_plain(ds, drop))
+    ins = [t.detach().requires_grad_() for t in (x, r, scale, bias)]
+    want = torch.autograd.grad(fused_layer.add_layer_norm_plain(
+        *ins, 1e-12, DT[x_dt], drop), ins, gy)
+    assert _close(ds, want[0], rows_summed=True)
+    assert _sum_close(dscale, want[2]) and _sum_close(dbias, want[3])
+    keep = dropout_rng.site_keep(drop[0], 0.1, nbits, r.shape, block, "cuda")[0]
+    assert torch.equal(dr == 0, ~keep | (ds == 0))
+
+
+def test_f2_dropout_function_matches_plain_and_counts():
+    """The Function: x + drop(r) forward and backward against autograd of
+    the plain chain, one launch each way, dx = ds and dr = drop(ds)."""
+    x, r, scale, bias, gy, drop = _f2_dropout_case(torch.bfloat16, 513, 768, 8,
+                                                   None, 2)
+    before = (fused_layer.add_layer_norm_launches,
+              fused_layer.add_layer_norm_backward_launches)
+    res = []
+    for fn in (fused_layer.add_layer_norm, fused_layer.add_layer_norm_plain):
+        ins = [t.detach().requires_grad_() for t in (x, r, scale, bias)]
+        y = fn(*ins, 1e-12, torch.bfloat16, drop)
+        res.append((y, *torch.autograd.grad(y, ins, gy)))
+    assert (fused_layer.add_layer_norm_launches,
+            fused_layer.add_layer_norm_backward_launches) == (before[0] + 1,
+                                                              before[1] + 1)
+    (y, dx, dr, dsc, dbi), (y_p, dx_p, dr_p, dsc_p, dbi_p) = res
+    assert _close(y, y_p, rows_summed=True) and _close(dx, dx_p, rows_summed=True)
+    assert torch.equal(dr, fused_layer.site_dropout_plain(dx, drop))
+    assert _sum_close(dsc, dsc_p) and _sum_close(dbi, dbi_p)
+
+
+@pytest.mark.parametrize("offset", [None, 24])
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("nbits", [8, 16, 32])
+def test_site_kernel_equals_the_plain_dropout(nbits, dt, offset):
+    """drop(x) and its backward drop(g) bit-equal to the plain version, at
+    an odd row count, on the whole site or a block of its rows."""
+    shape = (37, 12, 64)
+    block = None if offset is None else ((100, 12, 64), (offset, 0, 0))
+    drop = (77, 0.25, nbits, block)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(shape, generator=g, device="cuda").to(DT[dt]).requires_grad_()
+    gy = torch.randn(shape, generator=g, device="cuda").to(DT[dt])
+    before = fused_layer.site_dropout_launches
+    y = bert._rng_dropout(x, 77, 0.25, nbits, block)
+    dx, = torch.autograd.grad(y, x, gy)
+    assert fused_layer.site_dropout_launches == before + 2
+    assert torch.equal(y, fused_layer.site_dropout_plain(x.detach(), drop))
+    assert torch.equal(dx, fused_layer.site_dropout_plain(gy, drop))
+    keep = dropout_rng.site_keep(77, 0.25, nbits, shape, block, "cuda")[0]
+    assert torch.equal(y != 0, keep & (x != 0))
+
+
+def test_training_layer_draws_no_mask_with_torch():
+    """A bf16 training layer, forward and backward (dropout on at the
+    attention and both hidden sites): torch.profiler shows no RNG kernel
+    and no `where`; F2, F3 and their backwards carry the masks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = bert.BertConfig(num_layers=1, compute_dtype=torch.bfloat16,
+                          dropout_bits=8)
+    lp = {k: v.cuda().requires_grad_() for k, v in bert.unstack_layers(
+        bert.init_bert_params(cfg, torch.Generator().manual_seed(0)))["layers"][0].items()}
+    x = torch.randn((4, 128, 768), device="cuda").to(torch.bfloat16).requires_grad_()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = bert._encoder_layer(cfg, x, torch.zeros(4, 1, 1, 128, device="cuda"), lp,
+                                seeds=(1, 2, 3), rate=0.1)
+        y.float().sum().backward()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not [n for n in names if "distribution" in n or "randint" in n
+                or "where" in n], names
+    assert any("add_ln_fwd" in n for n in names) and any("attn_softmax_bwd" in n
+                                                          for n in names)
+
+
+_PHILOX_CHECK = r"""
+#include <curand_kernel.h>
+#include "dropout_rng.cuh"
+__global__ void both(const unsigned* in, unsigned* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned* c = in + 6 * i;
+  const uint4 a = dropout_rng::philox4x32_10(make_uint4(c[0], c[1], c[2], c[3]), c[4], c[5]);
+  const uint4 b = curand_Philox4x32_10(make_uint4(c[0], c[1], c[2], c[3]),
+                                       make_uint2(c[4], c[5]));
+  unsigned* o = out + 8 * i;
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+extern "C" int run(const void* in, void* out, int n) {
+  both<<<(n + 127) / 128, 128>>>((const unsigned*)in, (unsigned*)out, n);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def test_device_philox_equals_curand(tmp_path):
+    """The kernels' Philox4x32-10 (csrc/dropout_rng.cuh) against the
+    toolkit's curand_Philox4x32_10 on random counters and keys, and the
+    plain version against both: a test-only cross-check."""
+    nvcc = _cuda._nvcc()
+    cuda_home = os.path.dirname(os.path.dirname(os.path.realpath(nvcc)))
+    header = os.path.join(cuda_home, "include", "curand_philox4x32_x.h")
+    if not os.path.exists(header):
+        pytest.skip(f"no {header} in this toolkit")
+    src = tmp_path / "philox_check.cu"
+    src.write_text(_PHILOX_CHECK)
+    lib = tmp_path / "philox_check.so"
+    subprocess.run([nvcc, *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC_DIR), "-o",
+                    str(lib), str(src)], check=True, capture_output=True, timeout=600)
+    run = ctypes.CDLL(str(lib)).run
+    run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    n = 4096
+    words = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 1 << 32, (n, 6), dtype=np.uint64).astype(np.int64))
+    words[0] = 0
+    inp = words.to(torch.int32).cuda()                 # the same 32 bits
+    out = torch.empty((n, 8), dtype=torch.int32, device="cuda")
+    assert run(inp.data_ptr(), out.data_ptr(), n) == 0
+    got = out.cpu().to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(got[:, :4], got[:, 4:])
+    plain = torch.stack(dropout_rng.philox4x32(
+        tuple(words[:, i] for i in range(4)), (0, 0)), dim=-1)
+    assert torch.equal(plain[0], got[0, :4])            # key 0
+    for i in range(0, n, 512):                         # the plain version a key at a time
+        row = words[i]
+        want = dropout_rng.philox4x32(tuple(row[j:j + 1] for j in range(4)),
+                                      (int(row[4]), int(row[5])))
+        assert [int(w) for w in want] == got[i, :4].tolist()

@@ -2,9 +2,10 @@
 and rematerialisation, held against the JAX package where the two can be
 compared on the same inputs.
 
-The dropout RNG streams differ (threefry/rbg vs torch's generators), so the
-masks are held by their quantization (threshold and keep probability equal
-to JAX's), their keep fraction and the backward's regeneration; gradients
+The dropout RNG streams differ (threefry/rbg vs the port's counter-based
+generator, ops/dropout_rng.py), so the masks are held by their quantization
+(threshold and keep probability equal to JAX's), their keep fraction and
+the backward's regeneration; gradients
 are compared with JAX at dropout 0 (fp32: rtol 1e-4, atol 1e-6, fp32 sums in
 another order). `remat` must not change gradients with dropout on: the
 checkpointed layers draw the same masks again, so the gradients are
@@ -21,6 +22,7 @@ import torch
 from blp_tpu.models import bert as j_bert
 from blp_tpu_torch.models import bert as t_bert
 from blp_tpu_torch.models.blp import params_from_jax
+from blp_tpu_torch.ops import dropout_rng
 
 TINY = dict(vocab_size=128, hidden_size=32, num_layers=3, num_heads=4,
             intermediate_size=64, max_position_embeddings=64)
@@ -30,22 +32,20 @@ TINY = dict(vocab_size=128, hidden_size=32, num_layers=3, num_heads=4,
 @pytest.mark.parametrize("rate", [0.1, 0.999])
 def test_threshold_and_keep_probability_equal_jax(rate, nbits):
     _, want_keep_p = j_bert._dropout_keep(jax.random.key(0), rate, nbits, (4,))
-    t, keep_p = t_bert._dropout_threshold(rate, nbits)
+    t, keep_p = dropout_rng.threshold(rate, nbits)
     assert keep_p == want_keep_p
     if nbits == 32:
         assert t is None
     else:
         levels = 1 << nbits
         assert t == round((1.0 - want_keep_p) * levels) and 0 < t < levels
-    g = torch.Generator().manual_seed(0)
-    assert t_bert._dropout_keep(g, rate, nbits, (4,))[1] == want_keep_p
+    assert dropout_rng.site_keep(0, rate, nbits, (4,))[1] == want_keep_p
 
 
 @pytest.mark.parametrize("nbits", [8, 16, 32])
 def test_empirical_keep_fraction(nbits):
     n = 400_000
-    g = torch.Generator().manual_seed(nbits)
-    keep, keep_p = t_bert._dropout_keep(g, 0.1, nbits, (n,))
+    keep, keep_p = dropout_rng.site_keep(nbits, 0.1, nbits, (n,))
     assert keep.dtype == torch.bool
     sigma = (keep_p * (1 - keep_p) / n) ** 0.5
     assert abs(keep.float().mean().item() - keep_p) < 5 * sigma
@@ -59,8 +59,7 @@ def test_rng_dropout_forward_and_backward_use_one_mask(nbits):
     x = torch.from_numpy(rng.uniform(0.5, 1.5, (64, 33)).astype(np.float32))
     x.requires_grad_()
     y = t_bert._rng_dropout(x, 1234, 0.3, nbits)
-    keep, keep_p = t_bert._dropout_keep(t_bert._site_generator(1234, "cpu"),
-                                        0.3, nbits, x.shape)
+    keep, keep_p = dropout_rng.site_keep(1234, 0.3, nbits, x.shape)
     assert torch.equal(y, torch.where(keep, x / keep_p, 0.0))
     y.backward(torch.ones_like(y))
     assert torch.equal(x.grad, torch.where(keep, 1.0 / keep_p, 0.0))
