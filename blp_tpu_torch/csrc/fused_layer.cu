@@ -29,13 +29,22 @@
 // (two for f32), and keeps every intermediate of the chain in registers:
 // where the op-by-op chain wrote and re-read an f32 tensor at each step.
 //
-// F1's forward is a grid-stride loop over vectors; F2's forward and
-// backward hold a row in a warp's registers (w <= 4,096), so the backward
-// reads g and s once. F1's backward and F2's reduce db, dscale and dbias
-// without atomics: a block owns a chunk of rows (the wrapper's `chunk`, a
-// function of the row count) and writes one partial row per chunk, adding
-// its rows in a fixed order (F1: in row order; F2: each warp its rows in
-// order, then the block's warps in warp order); `column_sum` then adds the
+// F1 gives each thread one column vector for the whole call (its bias in
+// registers) and has it load several rows before the chain: the forward is
+// a grid-stride loop whose stride is a multiple of the row, the backward a
+// block for each (column tile, row chunk). Its forward writes y row-major
+// or, for q, k and v, head-major (B, nh, S, hd), so no transpose copy
+// follows; its backward reads the cotangent in either layout, or in the
+// (B, nh, hd, S) one that q k^T's backward leaves for k, and writes dh
+// row-major. F2's forward and backward hold a row in a warp's registers (w
+// <= 4,096), so the backward reads g and s once. F1's backward and F2's
+// reduce db, dscale and dbias without atomics on the values: a block owns a
+// chunk of rows (the wrapper's `chunk`, a function of the row count) and
+// writes one partial row per chunk, adding its rows in a fixed order (F1:
+// each row lane its rows in order, then the lanes in a fixed tree; F2: each
+// warp its rows in order, then the block's warps in warp order). F1 adds
+// the partials in the same launch: the block that takes a column tile's
+// last ticket adds them in a fixed order; F2's `column_sum` adds the
 // partials of each column in a fixed tree (32 strided streams, then the 32
 // stream sums in order). So a call gives the same bits every time.
 //
@@ -47,6 +56,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "dropout_rng.cuh"
@@ -176,68 +186,262 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---- F1 ----------------------------------------------------------------------
 
-template <typename TH, typename TO, int ACT>
+// Layouts of F1's output (forward) and cotangent (backward). kRows: (rows,
+// w) row-major. kHeads: rows = B * S, w = nh * hd, held as (B, nh, S, hd)
+// (q, k and v, head-major). kHeadsT: the same held as (B, nh, hd, S), the
+// cotangent of k as q k^T's backward leaves it (backward only).
+enum Layout { kRows = 0, kHeads = 1, kHeadsT = 2 };
+
+// The head-major geometry: S rows a batch element, nh heads of hd_vec
+// vectors.
+struct Heads {
+  int S, nh, hd_vec;
+};
+
+// F1's shapes, the fastest of the values timed on an H100 (PERF.md §6):
+// rows a forward thread loads before it computes ("none", and with an
+// activation) and the forward's blocks; the backward's tile, 8 column
+// vectors (64 columns: one head of q, k or v) and 256 / 8 row lanes, and
+// its blocks an SM (launch bounds: fewer registers) for a row-major
+// cotangent, and rows in flight and blocks an SM for q's layout and k's
+// (k's takes 8, its 8 x 8 transpose). A row-major backward has one block
+// shape for every activation, so db adds its rows in one order whether a
+// remat policy splits "none" + bias from the activation or not.
+constexpr int kF1FwdRows = 2, kF1FwdActRows = 1, kF1FwdGrid = 8192;
+constexpr int kF1TileV = 8;
+constexpr int kF1RowsMinBlocks = 4, kF1HeadsRows = 2, kF1HeadsMinBlocks = 4,
+              kF1HeadsTMinBlocks = 2;
+// A head-major row lane takes its 8-row groups R rows at a time.
+static_assert(8 % kF1HeadsRows == 0, "kF1HeadsRows divides 8");
+template <int ACT> __host__ __device__ constexpr int fwd_rows() {
+  return ACT == kNone ? kF1FwdRows : kF1FwdActRows;
+}
+template <int LAYOUT> __host__ __device__ constexpr int bwd_rows() {
+  return LAYOUT == kHeadsT ? 8 : LAYOUT == kHeads ? kF1HeadsRows : 1;
+}
+template <int LAYOUT> __host__ __device__ constexpr int bwd_min_blocks() {
+  return LAYOUT == kHeadsT ? kF1HeadsTMinBlocks
+         : LAYOUT == kHeads ? kF1HeadsMinBlocks : kF1RowsMinBlocks;
+}
+
+// Element offset of row r's vector cv in a head-major tensor: the vector
+// stays in head n = cv / hd_vec (hd % 8 == 0).
+__device__ __forceinline__ long long heads_off(int r, int n, int dv, const Heads& hs) {
+  const int bi = r / hs.S, s = r - bi * hs.S;
+  return (((long long)bi * hs.nh + n) * hs.S + s) * (hs.hd_vec * kVec) + dv * kVec;
+}
+
+// A grid-stride loop over the row-major vectors whose stride (the grid's
+// threads) is a multiple of w_vec: each thread keeps one column vector, its
+// bias in registers, and rows r, r + r_step, ...; it loads kFwdRows of
+// them before the chain and stores row-major or head-major.
+template <typename TH, typename TO, int ACT, bool HEADS>
 __global__ void __launch_bounds__(256)
 bias_act_fwd(const TH* __restrict__ h, const float* __restrict__ b,
-             TO* __restrict__ y, long long n_vec, int w_vec) {
+             TO* __restrict__ y, long long n_vec, int w_vec, Heads hs) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_vec; i += stride) {
-    float v[kVec];
-    load8(h + i * kVec, v);
-    if (b != nullptr) {
-      float bb[kVec];
-      load8(b + (i % w_vec) * kVec, bb);
+  if (t >= n_vec) return;
+  const int cv = (int)(t % w_vec);
+  const int r_step = (int)(stride / w_vec);
+  float bb[kVec];
+  if (b != nullptr) load8(b + cv * kVec, bb);
+  const int n = HEADS ? cv / hs.hd_vec : 0;
+  const int dv = HEADS ? cv - n * hs.hd_vec : 0;
+  int r = (int)(t / w_vec);
+  constexpr int kFwdRows = fwd_rows<ACT>();
+  for (long long i = t; i < n_vec; i += kFwdRows * stride, r += kFwdRows * r_step) {
+    float v[kFwdRows][kVec];
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) v[k] = __fadd_rn(v[k], bb[k]);
+    for (int j = 0; j < kFwdRows; ++j)
+      if (i + j * stride < n_vec) load8(h + (i + j * stride) * kVec, v[j]);
+#pragma unroll
+    for (int j = 0; j < kFwdRows; ++j) {
+      if (i + j * stride < n_vec) {
+        if (b != nullptr) {
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) v[j][k] = __fadd_rn(v[j][k], bb[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) v[j][k] = act_fwd<ACT>(round_to<TO>(v[j][k]));
+        store8(y + (HEADS ? heads_off(r + j * r_step, n, dv, hs) : (i + j * stride) * kVec),
+               v[j]);
+      }
     }
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) v[k] = act_fwd<ACT>(round_to<TO>(v[k]));
-    store8(y + i * kVec, v);
   }
 }
 
-// Block (cv tile, row chunk): thread cv walks the chunk's rows in order,
-// writes dh (unless dh is null: "none" with h in g's dtype, where dh is g
-// itself) and adds the rounded d/dpre into its chunk's partial of db.
-template <typename TH, typename TO, int ACT>
-__global__ void __launch_bounds__(128)
+// db for the kF1TileV * 8 columns of tile `tile`: the chunks' partial rows added
+// in a fixed order (strided streams of chunks, then the streams in order),
+// a float4 of columns a thread. Read through L2: other blocks wrote them.
+__device__ void tile_total(const float* __restrict__ partial, float* __restrict__ db,
+                           int tile, long long w, int n_chunks) {
+  constexpr int TV = kF1TileV;
+  constexpr int kQ = TV * kVec / 4 < 256 ? TV * kVec / 4 : 256;   // float4s a pass
+  constexpr int kStreams = 256 / kQ;
+  __shared__ float4 streams[kStreams][kQ];
+  const int q = threadIdx.x % kQ, st = threadIdx.x / kQ;
+  for (int q0 = 0; q0 < TV * kVec / 4; q0 += kQ) {
+    const long long col = (long long)tile * TV * kVec + (q0 + q) * 4;
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (col < w) {
+#pragma unroll 16
+      for (int c = st; c < n_chunks; c += kStreams) {
+        const float4 p = __ldcg(reinterpret_cast<const float4*>(partial + c * w + col));
+        s.x = __fadd_rn(s.x, p.x); s.y = __fadd_rn(s.y, p.y);
+        s.z = __fadd_rn(s.z, p.z); s.w = __fadd_rn(s.w, p.w);
+      }
+    }
+    streams[st][q] = s;
+    __syncthreads();
+    if (st == 0 && col < w) {
+      float4 t = streams[0][q];
+#pragma unroll
+      for (int k = 1; k < kStreams; ++k) {
+        t.x = __fadd_rn(t.x, streams[k][q].x); t.y = __fadd_rn(t.y, streams[k][q].y);
+        t.z = __fadd_rn(t.z, streams[k][q].z); t.w = __fadd_rn(t.w, streams[k][q].w);
+      }
+      *reinterpret_cast<float4*>(db + col) = t;
+    }
+    __syncthreads();
+  }
+}
+
+// Block (column tile, row chunk blockIdx.y). A warp is 8 column vectors x 4 row lanes, so a head-major
+// cotangent's loads are whole 32-byte sectors in every layout. A row lane
+// takes the chunk's rows R at a time (below): it loads their g (and h)
+// before the chain, writes dh row-major
+// (unless dh is null: "none" with h in g's dtype and g row-major, where dh
+// is g itself) and adds the rounded d/dpre into its column vector's sums
+// in row order. kHeadsT loads
+// a column vector's 8 head columns along S, 8 positions each, and
+// transposes the 8 x 8 block in registers. db: the row lanes' sums are
+// added in a fixed order (4 runs of 8 lanes, then the runs) into the
+// chunk's partial row; after a fence the block takes a ticket of its column
+// tile, and the block that takes the last one adds the tile's partials in a
+// fixed order (tile_total) and sets the ticket back to 0 for the next call.
+// So F1's backward is one launch, and gives the same bits on every call.
+template <typename TH, typename TO, int ACT, int LAYOUT>
+__global__ void __launch_bounds__(256, bwd_min_blocks<LAYOUT>())
 bias_act_bwd(const TO* __restrict__ g, const TH* __restrict__ h,
              const float* __restrict__ b, TH* __restrict__ dh,
-             float* __restrict__ partial, long long rows, int w_vec, int chunk) {
-  const int cv = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cv >= w_vec) return;
-  const long long r0 = (long long)blockIdx.y * chunk;
-  const long long r1 = r0 + chunk < rows ? r0 + chunk : rows;
+             float* __restrict__ partial, float* __restrict__ db,
+             unsigned* __restrict__ tickets, int rows, int w_vec, int chunk,
+             int n_chunks, Heads hs) {
+  constexpr int R = bwd_rows<LAYOUT>();
+  constexpr int TV = kF1TileV, kLanes = 256 / TV, kCols = TV * kVec;
+  constexpr int kRuns = kCols < 256 ? 256 / kCols : 1;   // runs of lanes summed apart
+  __shared__ float stage[kLanes][kCols + 1];
+  __shared__ float runs[kRuns][kCols];
+  __shared__ bool last;
+  const int cvt = threadIdx.x % TV;                      // vector in the tile
+  const int cv = blockIdx.x * TV + cvt;
+  const int rl = threadIdx.x / TV;                       // row lane
+  const bool on = cv < w_vec;
+  const long long w = (long long)w_vec * kVec;
   float bb[kVec];
 #pragma unroll
   for (int k = 0; k < kVec; ++k) bb[k] = 0.0f;
-  if (ACT != kNone && b != nullptr) load8(b + cv * kVec, bb);
+  if (ACT != kNone && b != nullptr && on) load8(b + cv * kVec, bb);
+  const int n = LAYOUT != kRows ? cv / hs.hd_vec : 0;
+  const int dv = LAYOUT != kRows ? cv - n * hs.hd_vec : 0;
+  const int c = blockIdx.y;
+  const int r0 = c * chunk, r1 = r0 + chunk < rows ? r0 + chunk : rows;
   float acc[kVec];
 #pragma unroll
   for (int k = 0; k < kVec; ++k) acc[k] = 0.0f;
-#pragma unroll 4
-  for (long long r = r0; r < r1; ++r) {
-    const long long off = (r * w_vec + cv) * kVec;
-    float d[kVec];
-    load8(g + off, d);
-    if (ACT != kNone) {
-      float x[kVec];
-      load8(h + off, x);
+  // R rows starting at rg: their g (and h) loaded before the chain, dh
+  // stored, and their d/dpre added into acc in row order.
+  const auto rows_from = [&](const int rg) {
+    float d[R][kVec];
+    if constexpr (LAYOUT == kHeadsT) {
+      // S % 8 == 0 and chunk % 8 == 0: the group is 8 positions of one
+      // sequence.
+      const int bi = rg / hs.S, s = rg - bi * hs.S;
+      const TO* p = g + (((long long)bi * hs.nh + n) * hs.hd_vec * kVec + dv * kVec) * hs.S + s;
+      float t[kVec][R];
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        const float pre = round_to<TO>(b != nullptr ? __fadd_rn(x[k], bb[k]) : x[k]);
-        d[k] = round_to<TO>(act_bwd<ACT>(pre, d[k]));
+      for (int i = 0; i < kVec; ++i) load8(p + (long long)i * hs.S, t[i]);
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) d[j][i] = t[i][j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if (rg + j < r1)
+          load8(g + (LAYOUT == kHeads ? heads_off(rg + j, n, dv, hs)
+                                      : (rg + j) * w + cv * kVec), d[j]);
+    }
+    if constexpr (ACT != kNone) {
+      float x[R][kVec];
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if (rg + j < r1) load8(h + (rg + j) * w + cv * kVec, x[j]);
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          const float pre = round_to<TO>(b != nullptr ? __fadd_rn(x[j][k], bb[k]) : x[j][k]);
+          d[j][k] = round_to<TO>(act_bwd<ACT>(pre, d[j][k]));
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (rg + j < r1) {
+        if (dh != nullptr) store8(dh + (rg + j) * w + cv * kVec, d[j]);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) acc[k] = __fadd_rn(acc[k], d[j][k]);
       }
     }
-    if (dh != nullptr) store8(dh + off, d);
-    if (partial != nullptr) {
+  };
+  if constexpr (LAYOUT == kRows) {
+    // Row lane rl takes rows rl, rl + kLanes, ...; unrolled, four rows'
+    // loads are in flight while each is computed.
+#pragma unroll 4
+    for (int rg = r0 + rl; on && rg < r1; rg += kLanes) rows_from(rg);
+  } else {
+    // Head-major: row lane rl owns the chunk's 8-row groups rl, rl +
+    // kLanes, ... and takes each R rows at a time, so its sums run in row
+    // order whatever R: db has the same bits for q's cotangent whether it
+    // comes contiguous or strided as k's.
+    for (int rg8 = r0 + rl * 8; on && rg8 < r1; rg8 += kLanes * 8)
+#pragma unroll 1
+      for (int sub = 0; sub < 8; sub += R) rows_from(rg8 + sub);
+  }
+  if (partial == nullptr) return;
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) acc[k] = __fadd_rn(acc[k], d[k]);
+  for (int k = 0; k < kVec; ++k) stage[rl][cvt * kVec + k] = acc[k];
+  __syncthreads();
+  for (int q = threadIdx.x % kCols, run = threadIdx.x / kCols; q < kCols; q += 256) {
+    float t = 0.0f;
+#pragma unroll
+    for (int l = 0; l < kLanes / kRuns; ++l)
+      t = __fadd_rn(t, stage[run * (kLanes / kRuns) + l][q]);
+    runs[run][q] = t;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < kCols; q += 256) {
+    if (blockIdx.x * TV + q / kVec < w_vec) {
+      float t = runs[0][q];
+#pragma unroll
+      for (int k = 1; k < kRuns; ++k) t = __fadd_rn(t, runs[k][q]);
+      partial[c * w + blockIdx.x * kCols + q] = t;
     }
   }
-  if (partial != nullptr)
-    store8(partial + (long long)blockIdx.y * w_vec * kVec + cv * kVec, acc);
+  // The barrier orders the block's partial writes before thread 0's fence
+  // (cumulative), so no other thread waits for its stores to drain.
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(&tickets[blockIdx.x], 1u) == (unsigned)(n_chunks - 1);
+  }
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    tile_total(partial, db, blockIdx.x, w, n_chunks);
+    if (threadIdx.x == 0) tickets[blockIdx.x] = 0u;
+  }
 }
 
 // out[c] = sum over k < n of partial[k, c], in a fixed order: thread (x, y)
@@ -446,48 +650,74 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 bool shape_ok(long long rows, int w) { return rows > 0 && w > 0 && w % kVec == 0; }
 
+int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+
+// The forward's grid: kF1FwdGrid blocks (a grid of what the card holds at
+// once ran slower, PERF.md §6), rounded down to a multiple of w_vec /
+// gcd(w_vec, 256) blocks (its threads then a multiple of w_vec), and no
+// more than the vectors need.
+template <typename TH, typename TO, int ACT, bool HEADS>
+void f1_fwd_launch(const void* h, const float* b, void* y, int rows, int w_vec,
+                   const Heads& hs, cudaStream_t st) {
+  const auto kernel = bias_act_fwd<TH, TO, ACT, HEADS>;
+  const long long n_vec = (long long)rows * w_vec;
+  const long long unit = w_vec / gcd(w_vec, 256);
+  const long long need = ((n_vec + 255) / 256 + unit - 1) / unit * unit;
+  long long blocks = kF1FwdGrid / unit * unit;
+  if (blocks < unit) blocks = unit;
+  if (blocks > need) blocks = need;
+  kernel<<<(unsigned)blocks, 256, 0, st>>>(static_cast<const TH*>(h), b,
+                                           static_cast<TO*>(y), n_vec, w_vec, hs);
+}
+
+// heads null: row-major; else head-major, "none" only (the layout of q, k
+// and v, which have no activation).
 template <typename TH, typename TO>
-cudaError_t f1_fwd(int act, const void* h, const float* b, void* y,
-                   long long rows, int w, cudaStream_t st) {
-  const int w_vec = w / kVec;
-  const long long n_vec = rows * w_vec;
-  const int threads = 256;
-  long long blocks = (n_vec + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;
-  const TH* hh = static_cast<const TH*>(h);
-  TO* yy = static_cast<TO*>(y);
+cudaError_t f1_fwd(int act, const void* h, const float* b, void* y, int rows,
+                   int w_vec, const Heads* heads, cudaStream_t st) {
+  const Heads hs = heads != nullptr ? *heads : Heads{1, 1, 1};
+  if (heads != nullptr) {
+    if (act != kNone) return cudaErrorInvalidValue;
+    f1_fwd_launch<TH, TO, kNone, true>(h, b, y, rows, w_vec, hs, st);
+    return cudaGetLastError();
+  }
   switch (act) {
-    case kNone: bias_act_fwd<TH, TO, kNone><<<(int)blocks, threads, 0, st>>>(hh, b, yy, n_vec, w_vec); break;
-    case kErf: bias_act_fwd<TH, TO, kErf><<<(int)blocks, threads, 0, st>>>(hh, b, yy, n_vec, w_vec); break;
-    case kPoly: bias_act_fwd<TH, TO, kPoly><<<(int)blocks, threads, 0, st>>>(hh, b, yy, n_vec, w_vec); break;
+    case kNone: f1_fwd_launch<TH, TO, kNone, false>(h, b, y, rows, w_vec, hs, st); break;
+    case kErf: f1_fwd_launch<TH, TO, kErf, false>(h, b, y, rows, w_vec, hs, st); break;
+    case kPoly: f1_fwd_launch<TH, TO, kPoly, false>(h, b, y, rows, w_vec, hs, st); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-// Column tiles of at most 128 threads, as even as whole warps allow.
-dim3 f1_bwd_block(int w_vec) {
-  const int tiles = (w_vec + 127) / 128;
-  const int per = (w_vec + tiles - 1) / tiles;
-  return dim3((per + 31) / 32 * 32);
+template <typename TH, typename TO, int ACT, int LAYOUT>
+void f1_bwd_launch(const void* g, const void* h, const float* b, void* dh,
+                   float* partial, float* db, unsigned* tickets, int rows,
+                   int w_vec, int chunk, const Heads& hs, cudaStream_t st) {
+  const auto kernel = bias_act_bwd<TH, TO, ACT, LAYOUT>;
+  const int tiles = (w_vec + kF1TileV - 1) / kF1TileV;
+  const int n_chunks = (rows + chunk - 1) / chunk;
+  const dim3 grid(tiles, n_chunks);
+  kernel<<<grid, 256, 0, st>>>(static_cast<const TO*>(g), static_cast<const TH*>(h), b,
+                               static_cast<TH*>(dh), partial, db, tickets, rows,
+                               w_vec, chunk, n_chunks, hs);
 }
 
 template <typename TH, typename TO>
-cudaError_t f1_bwd(int act, const void* g, const void* h, const float* b,
-                   void* dh, float* partial, long long rows, int w, int chunk,
-                   cudaStream_t st) {
-  const int w_vec = w / kVec;
-  const dim3 block = f1_bwd_block(w_vec);
-  const dim3 grid((w_vec + block.x - 1) / block.x, (unsigned)((rows + chunk - 1) / chunk));
-  const TO* gg = static_cast<const TO*>(g);
-  const TH* hh = static_cast<const TH*>(h);
-  TH* dd = static_cast<TH*>(dh);
-  switch (act) {
-    case kNone: bias_act_bwd<TH, TO, kNone><<<grid, block, 0, st>>>(gg, hh, b, dd, partial, rows, w_vec, chunk); break;
-    case kErf: bias_act_bwd<TH, TO, kErf><<<grid, block, 0, st>>>(gg, hh, b, dd, partial, rows, w_vec, chunk); break;
-    case kPoly: bias_act_bwd<TH, TO, kPoly><<<grid, block, 0, st>>>(gg, hh, b, dd, partial, rows, w_vec, chunk); break;
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t f1_bwd(int act, int layout, const void* g, const void* h,
+                   const float* b, void* dh, float* partial, float* db,
+                   unsigned* tickets, int rows, int w_vec, int chunk,
+                   const Heads& hs, cudaStream_t st) {
+  if (layout != kRows && act != kNone) return cudaErrorInvalidValue;
+#define F1_BWD(ACT, LAYOUT) f1_bwd_launch<TH, TO, ACT, LAYOUT>( \
+    g, h, b, dh, partial, db, tickets, rows, w_vec, chunk, hs, st)
+  if (layout == kHeads) F1_BWD(kNone, kHeads);
+  else if (layout == kHeadsT) F1_BWD(kNone, kHeadsT);
+  else if (act == kNone) F1_BWD(kNone, kRows);
+  else if (act == kErf) F1_BWD(kErf, kRows);
+  else if (act == kPoly) F1_BWD(kPoly, kRows);
+  else return cudaErrorInvalidValue;
+#undef F1_BWD
   return cudaGetLastError();
 }
 
@@ -603,46 +833,69 @@ Drop drop_of(unsigned seed_lo, unsigned seed_hi, int nbits, unsigned threshold,
 // returns cudaGetLastError() of its launches (cudaErrorInvalidValue for
 // shapes or alignments it does not take).
 
+// seq, head_dim: 0, 0 for a row-major y; else y is head-major (B, w /
+// head_dim, seq, head_dim) with rows = B * seq, head_dim a multiple of 8,
+// act none.
 extern "C" int bias_act_forward(const void* h, const void* b, void* y,
                                 long long rows, int w, int h_dtype,
-                                int out_dtype, int act, void* stream) {
-  if (!shape_ok(rows, w) || !aligned16(h) || !aligned16(b) || !aligned16(y))
+                                int out_dtype, int act, int seq, int head_dim,
+                                void* stream) {
+  if (!shape_ok(rows, w) || rows > INT_MAX || !aligned16(h) || !aligned16(b) ||
+      !aligned16(y))
+    return (int)cudaErrorInvalidValue;
+  if (head_dim != 0 && (head_dim < 0 || head_dim % kVec || w % head_dim ||
+                        seq <= 0 || rows % seq || act != kNone))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* bb = static_cast<const float*>(b);
-  if (h_dtype == kBF16 && out_dtype == kBF16) return (int)f1_fwd<bf16, bf16>(act, h, bb, y, rows, w, st);
-  if (h_dtype == kF32 && out_dtype == kBF16) return (int)f1_fwd<float, bf16>(act, h, bb, y, rows, w, st);
-  if (h_dtype == kBF16 && out_dtype == kF32) return (int)f1_fwd<bf16, float>(act, h, bb, y, rows, w, st);
-  if (h_dtype == kF32 && out_dtype == kF32) return (int)f1_fwd<float, float>(act, h, bb, y, rows, w, st);
+  const int r = (int)rows, wv = w / kVec;
+  const Heads hs{seq, head_dim != 0 ? w / head_dim : 1, head_dim / kVec};
+  const Heads* heads = head_dim != 0 ? &hs : nullptr;
+  if (h_dtype == kBF16 && out_dtype == kBF16) return (int)f1_fwd<bf16, bf16>(act, h, bb, y, r, wv, heads, st);
+  if (h_dtype == kF32 && out_dtype == kBF16) return (int)f1_fwd<float, bf16>(act, h, bb, y, r, wv, heads, st);
+  if (h_dtype == kBF16 && out_dtype == kF32) return (int)f1_fwd<bf16, float>(act, h, bb, y, r, wv, heads, st);
+  if (h_dtype == kF32 && out_dtype == kF32) return (int)f1_fwd<float, float>(act, h, bb, y, r, wv, heads, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// g: the cotangent of y (out dtype); h, b: read only for act != none; dh may
-// be null when with_db (db alone); with_db: partial ((rows + chunk - 1) /
-// chunk, w) f32 scratch and db (w,) f32 out.
+// g: the cotangent of y (out dtype) in layout g_layout (0 row-major; 1
+// (B, nh, seq, head_dim); 2 (B, nh, head_dim, seq), seq a multiple of 8;
+// both head-major ones "none" only, with dh written); h, b: read only for
+// act != none; dh (rows, w) may be null when with_db and g is row-major
+// (db alone); chunk a multiple of 8; with_db: partial ((rows + chunk - 1) /
+// chunk, w) f32 scratch, db (w,) f32 out, and n_tickets tickets, at least
+// one unsigned per 64 columns (kF1TileV vectors), 0 before the call and 0
+// after it.
 extern "C" int bias_act_backward(const void* g, const void* h, const void* b,
-                                 void* dh, void* partial, void* db,
+                                 void* dh, void* partial, void* db, void* tickets,
                                  long long rows, int w, int h_dtype,
                                  int out_dtype, int act, int chunk, int with_db,
-                                 void* stream) {
-  if (!shape_ok(rows, w) || chunk <= 0 || (rows + chunk - 1) / chunk > 65535 ||
-      !aligned16(g) || !aligned16(h) || !aligned16(b) || !aligned16(dh) ||
-      !aligned16(partial) || (act != kNone && h == nullptr) ||
-      (with_db && (partial == nullptr || db == nullptr)) ||
-      (!with_db && dh == nullptr))
+                                 int g_layout, int seq, int head_dim,
+                                 int n_tickets, void* stream) {
+  if (!shape_ok(rows, w) || rows > INT_MAX || chunk <= 0 || chunk % kVec ||
+      (rows + chunk - 1) / chunk > 65535 || !aligned16(g) || !aligned16(h) || !aligned16(b) || !aligned16(dh) ||
+      !aligned16(partial) || !aligned16(db) || (act != kNone && h == nullptr) ||
+      (with_db && (partial == nullptr || db == nullptr || tickets == nullptr ||
+                   (long long)n_tickets * kF1TileV * kVec < w)) ||
+      (!with_db && dh == nullptr) || g_layout < kRows || g_layout > kHeadsT)
+    return (int)cudaErrorInvalidValue;
+  if (g_layout != kRows &&
+      (act != kNone || dh == nullptr || head_dim <= 0 || head_dim % kVec ||
+       w % head_dim || seq <= 0 || rows % seq || (g_layout == kHeadsT && seq % kVec)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* bb = static_cast<const float*>(b);
   float* pp = with_db ? static_cast<float*>(partial) : nullptr;
-  cudaError_t err;
-  if (h_dtype == kBF16 && out_dtype == kBF16) err = f1_bwd<bf16, bf16>(act, g, h, bb, dh, pp, rows, w, chunk, st);
-  else if (h_dtype == kF32 && out_dtype == kBF16) err = f1_bwd<float, bf16>(act, g, h, bb, dh, pp, rows, w, chunk, st);
-  else if (h_dtype == kBF16 && out_dtype == kF32) err = f1_bwd<bf16, float>(act, g, h, bb, dh, pp, rows, w, chunk, st);
-  else if (h_dtype == kF32 && out_dtype == kF32) err = f1_bwd<float, float>(act, g, h, bb, dh, pp, rows, w, chunk, st);
-  else return (int)cudaErrorInvalidValue;
-  if (err != cudaSuccess || !with_db) return (int)err;
-  return (int)column_sums(pp, (int)((rows + chunk - 1) / chunk), w,
-                          static_cast<float*>(db), st);
+  float* dd = with_db ? static_cast<float*>(db) : nullptr;
+  unsigned* tt = static_cast<unsigned*>(tickets);
+  const int r = (int)rows, wv = w / kVec;
+  const Heads hs{g_layout != kRows ? seq : 1, g_layout != kRows ? w / head_dim : 1,
+                 g_layout != kRows ? head_dim / kVec : 1};
+  if (h_dtype == kBF16 && out_dtype == kBF16) return (int)f1_bwd<bf16, bf16>(act, g_layout, g, h, bb, dh, pp, dd, tt, r, wv, chunk, hs, st);
+  if (h_dtype == kF32 && out_dtype == kBF16) return (int)f1_bwd<float, bf16>(act, g_layout, g, h, bb, dh, pp, dd, tt, r, wv, chunk, hs, st);
+  if (h_dtype == kBF16 && out_dtype == kF32) return (int)f1_bwd<bf16, float>(act, g_layout, g, h, bb, dh, pp, dd, tt, r, wv, chunk, hs, st);
+  if (h_dtype == kF32 && out_dtype == kF32) return (int)f1_bwd<float, float>(act, g_layout, g, h, bb, dh, pp, dd, tt, r, wv, chunk, hs, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // r null: LN of x alone (s null, no dropout); s null with r: the sum is

@@ -283,12 +283,12 @@ def _dense(x, w, b, dtype, out_dtype=None, model=None, act: str = "none"):
     return bias_act(out, b, act, out_dtype or torch.float32)
 
 
-def _head_major(x, w, b, nh: int, hd: int, dt):
+def _head_major(x, w, b, hd: int, dt):
     """(B, S, H) @ (H, nh*hd) + b -> (B, nh, S, hd) in dt (the TPU package's
-    head-major projection einsum "bsh,hnd->bnsd")."""
-    B, S, _ = x.shape
-    out = bias_act(_matmul(x, w, dt), b, "none", dt)
-    return out.reshape(B, S, nh, hd).permute(0, 2, 1, 3).contiguous()
+    head-major projection einsum "bsh,hnd->bnsd"): F1 writes the head-major
+    layout itself, so no transpose copy follows, and its backward turns the
+    cotangent back into rows."""
+    return bias_act(_matmul(x, w, dt), b, "none", dt, head_dim=hd)
 
 
 def _encoder_layer_fast(cfg: BertConfig, x, mask_arg, lp: dict):
@@ -298,12 +298,12 @@ def _encoder_layer_fast(cfg: BertConfig, x, mask_arg, lp: dict):
     uses the key mask and segment length; the einsum path the bias."""
     mask_bias, key_mask, seg = mask_arg
     B, S, H = x.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
     dt = cfg.compute_dtype
 
-    q = _head_major(x, lp["q_w"], lp["q_b"], nh, hd, dt)
-    k = _head_major(x, lp["k_w"], lp["k_b"], nh, hd, dt)
-    v = _head_major(x, lp["v_w"], lp["v_b"], nh, hd, dt)
+    q = _head_major(x, lp["q_w"], lp["q_b"], hd, dt)
+    k = _head_major(x, lp["k_w"], lp["k_b"], hd, dt)
+    v = _head_major(x, lp["v_w"], lp["v_b"], hd, dt)
     if cfg.fused_attention:
         from blp_tpu_torch.ops import packed_attention
 
@@ -355,9 +355,9 @@ def _encoder_layer(cfg: BertConfig, x, mask_bias, lp: dict, seeds=None,
         xin = x
 
     if mp:
-        q = _head_major(xin, lp["q_w"], lp["q_b"], nh, hd, dt)
-        k = _head_major(xin, lp["k_w"], lp["k_b"], nh, hd, dt)
-        v = _head_major(xin, lp["v_w"], lp["v_b"], nh, hd, dt)
+        q = _head_major(xin, lp["q_w"], lp["q_b"], hd, dt)
+        k = _head_major(xin, lp["k_w"], lp["k_b"], hd, dt)
+        v = _head_major(xin, lp["v_w"], lp["v_b"], hd, dt)
     else:
         q, k, v = (_dense(xin, lp[f"{n}_w"], lp[f"{n}_b"], dt, dt)
                    .reshape(B, S, nh, hd).permute(0, 2, 1, 3)

@@ -19,7 +19,12 @@ dh = round_h(round_out(g * act'(pre))) and db, the f32 sum over rows of
 round_out(g * act'(pre)); for "none" with h in g's dtype, dh is g and the
 kernel only sums db. For "poly", act' is the derivative autograd takes
 of `poly_gelu` (the clamps pass gradient on their closed ranges, as torch's
-`clamp`), not the exact erf derivative.
+`clamp`), not the exact erf derivative. `head_dim` asks for y head-major:
+h (B, S, nh * hd) gives y (B, nh, S, hd), the layout the attention reads
+q, k and v in (the TPU package's projection einsum "bsh,hnd->bnsd"), so no
+transpose copy follows; the backward takes that layout's cotangent (or k's,
+(B, nh, hd, S) in memory, as q k^T's backward leaves it) and writes dh
+(B, S, nh * hd) in the launch that sums db.
 
 F2, `add_layer_norm(x, r, scale, bias, eps, out_dtype, dropout)`: y =
 LN(round(x + drop(r))) with f32 mean and variance, f32 scale and bias (r
@@ -37,8 +42,9 @@ dropout site no fused kernel takes (the embedding output), forward and, on
 the cotangent, backward.
 
 The CUDA kernels (csrc/fused_layer.cu) read and write 16-byte vectors,
-reduce db, dscale and dbias over rows in a fixed order, without atomics, so
-two calls give the same bits, and evaluate dropout masks in registers
+reduce db, dscale and dbias over rows in a fixed order (F1 within its
+launch: a ticket counter names the block that adds the partials), so two
+calls give the same bits, and evaluate dropout masks in registers
 (csrc/dropout_rng.cuh): no mask is drawn or stored. `bias_act_plain`,
 `add_layer_norm_plain` and `site_dropout_plain` are the arithmetic of the
 unfused layer. On CPU tensors the forwards run
@@ -68,17 +74,27 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: Elements a thread moves per step: 16 bytes of bf16.
 VEC = 8
-#: The backward kernels reduce over row chunks of at least this many rows,
-#: and into at most MAX_CHUNKS chunk partials.
+#: F2's backward reduces over row chunks of at least this many rows, and
+#: into at most MAX_CHUNKS chunk partials.
 MIN_CHUNK_ROWS, MAX_CHUNKS = 32, 1024
+#: F1's backward: a block a row chunk of a multiple of F1_CHUNK_ROWS rows,
+#: at most F1_MAX_CHUNKS chunks, whose partials the launch's last block of
+#: each column tile adds; a tile's ticket a F1_TILE_COLS columns (the kernel
+#: refuses a ticket buffer too short for its tiles).
+F1_CHUNK_ROWS, F1_MAX_CHUNKS, F1_TILE_COLS = 64, 256, 64
+#: Layouts of F1's cotangent (the C entry's ids): row-major (rows, w);
+#: head-major (B, nh, S, hd); and head-major held as (B, nh, hd, S), as q
+#: k^T's backward leaves k's.
+G_LAYOUTS = {"rows": 0, "heads": 1, "heads_t": 2}
 #: F2's kernel holds a row in one warp's registers: 16 vectors a lane.
 MAX_LN_WIDTH = 4096
 
 #: Kernel launches since the last reset, per wrapper (plain counters;
 #: chip_smoke.py reads them), and the same launches by kernel and variant:
-#: ("bias_act", "<act> <h dtype>-><out dtype>"), ("add_layer_norm",
+#: ("bias_act", "<act> <h dtype>-><out dtype>[ heads]"), ("add_layer_norm",
 #: "<x+r, x+drop<nbits>(r) or x> <x dtype>-><out dtype>"), their "...
-#: backward" kernels, and ("site_dropout", "<dtype> drop<nbits>").
+#: backward" kernels (F1's with its cotangent's layout, " heads" or
+#: " heads_t", when head-major), and ("site_dropout", "<dtype> drop<nbits>").
 bias_act_launches = 0
 bias_act_backward_launches = 0
 add_layer_norm_launches = 0
@@ -120,13 +136,28 @@ def _act_plain(pre, act: str):
     raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
 
 
-def bias_act_plain(h, b, act: str, out_dtype):
+def to_heads(y, head_dim: int):
+    """(B, S, nh * hd) -> (B, nh, S, hd), contiguous: the head-major layout
+    of q, k and v (the TPU package's einsum "bsh,hnd->bnsd")."""
+    B, S, w = y.shape
+    return y.reshape(B, S, w // head_dim, head_dim).permute(0, 2, 1, 3).contiguous()
+
+
+def from_heads(g):
+    """(B, nh, S, hd) -> (B, S, nh * hd): a head-major tensor's rows."""
+    B, nh, S, hd = g.shape
+    return g.permute(0, 2, 1, 3).reshape(B, S, nh * hd)
+
+
+def bias_act_plain(h, b, act: str, out_dtype, head_dim=None):
     """F1's function in plain PyTorch: the bias added in f32, rounded to
-    out_dtype, then the activation in f32 from the rounded value."""
+    out_dtype, then the activation in f32 from the rounded value; with
+    `head_dim`, h (B, S, nh * hd) gives y head-major (B, nh, S, hd)."""
     pre = h.to(torch.float32)
     if b is not None:
         pre = pre + b
-    return _act_plain(pre.to(out_dtype), act)
+    y = _act_plain(pre.to(out_dtype), act)
+    return y if head_dim is None else to_heads(y, head_dim)
 
 
 def _layer_norm_stats(s, scale, bias, eps: float, out_dtype):
@@ -168,8 +199,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _DROP = [ctypes.c_uint, ctypes.c_uint, _I, ctypes.c_uint, _F, ctypes.c_ulonglong]
 #: ctypes signatures of the C entry points, bound once at first use.
 _SIGNATURES = {
-    "bias_act_forward": [_P] * 3 + [_L] + [_I] * 4 + [_P],
-    "bias_act_backward": [_P] * 6 + [_L] + [_I] * 6 + [_P],
+    "bias_act_forward": [_P] * 3 + [_L] + [_I] * 6 + [_P],
+    "bias_act_backward": [_P] * 7 + [_L] + [_I] * 10 + [_P],
     "add_layer_norm_forward": [_P] * 8 + [_L] + [_I] * 3 + [_F] + _DROP + [_P],
     "add_layer_norm_backward": [_P] * 9 + [_L] + [_I] * 4 + _DROP + [_P],
     "site_dropout_apply": [_P, _P, _L, _I] + _DROP + [_P],
@@ -191,11 +222,19 @@ def _bound(name: str):
 
 
 def chunk_rows(rows: int) -> int:
-    """Rows a backward block reduces into one partial of db, dscale and
+    """Rows F2's backward block reduces into one partial of dscale and
     dbias: at least MIN_CHUNK_ROWS, and enough for at most MAX_CHUNKS
     chunks. A function of the row count alone, so the reduction order is
     too."""
     return max(MIN_CHUNK_ROWS, -(-rows // MAX_CHUNKS))
+
+
+def f1_chunk_rows(rows: int) -> int:
+    """Rows F1's backward reduces into one partial of db: a multiple of
+    F1_CHUNK_ROWS, enough for at most F1_MAX_CHUNKS chunks; a function of
+    the row count alone."""
+    per = -(-rows // F1_MAX_CHUNKS)
+    return max(F1_CHUNK_ROWS, -(-per // F1_CHUNK_ROWS) * F1_CHUNK_ROWS)
 
 
 def _dtype_id(t_dtype, what: str) -> int:
@@ -245,54 +284,124 @@ def _drop_args(dropout, shape) -> tuple:
     return (*dropout_rng.kernel_args(dropout), offset)
 
 
-def _bias_act_kernel(h, b, act: str, out_dtype):
+def _heads_shape(t, head_dim: int, what: str):
+    """(B, S, nh) of a (B, S, nh * head_dim) tensor; head_dim a multiple of
+    8 (the kernels' vectors stay in one head)."""
+    if t.dim() != 3 or head_dim <= 0 or t.shape[-1] % head_dim:
+        raise ValueError(f"fused_layer: {what} {tuple(t.shape)} is not (B, S, "
+                         f"heads x {head_dim})")
+    if head_dim % VEC:
+        raise ValueError(f"fused_layer: head_dim {head_dim} is not a multiple "
+                         f"of {VEC} (a kernel vector stays in one head)")
+    return t.shape[0], t.shape[1], t.shape[2] // head_dim
+
+
+def _bias_act_kernel(h, b, act: str, out_dtype, head_dim=None):
+    """y; with head_dim, head-major (B, nh, S, hd) from h (B, S, nh * hd)
+    ("none" only: the layout of q, k and v)."""
     global bias_act_launches
     w = h.shape[-1]
+    seq = 0
+    if head_dim is not None:
+        B, seq, nh = _heads_shape(h, head_dim, "h")
+        if act != "none":
+            raise ValueError("fused_layer: a head-major y takes act 'none'")
     h2 = _rows(h, w, "h")
     b = _vector(b, w, h.device, "b")
-    y = torch.empty(h.shape, dtype=out_dtype, device=h.device)
+    shape = h.shape if head_dim is None else (B, nh, seq, head_dim)
+    y = torch.empty(shape, dtype=out_dtype, device=h.device)
     if h2.numel() == 0:      # an empty grid is not a valid launch
         return y
     err = _bound("bias_act_forward")(
         h2.data_ptr(), _ptr(b), y.data_ptr(), h2.shape[0], w,
         _dtype_id(h.dtype, "h"), _dtype_id(out_dtype, "out_dtype"), ACTS[act],
-        _stream(h.device))
+        seq, head_dim or 0, _stream(h.device))
     _cuda.check(err, "bias_act launch")
     bias_act_launches += 1
-    launches_by_variant["bias_act", f"{act} {_NAMES[h.dtype]}->{_NAMES[out_dtype]}"] += 1
+    launches_by_variant["bias_act", f"{act} {_NAMES[h.dtype]}->{_NAMES[out_dtype]}"
+                        + ("" if head_dim is None else " heads")] += 1
     return y
 
 
-def _bias_act_backward_kernel(g, h, b, act: str, h_dtype, with_db: bool):
+#: Ticket counters of F1's backward by (device, stream): one per column
+#: tile, 0 between launches (the launch that uses them sets them back).
+_tickets: dict = {}
+
+
+def _ticket_buffer(device, tiles: int):
+    key = (device.index, _stream(device))
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = _tickets[key] = torch.zeros(max(tiles, 64), dtype=torch.int32,
+                                          device=device)
+    return buf
+
+
+def _g_layout(g, head_dim):
+    """(layout, g) of F1's cotangent: "rows"; "heads" for a contiguous
+    (B, nh, S, hd); "heads_t" for one held as (B, nh, hd, S) with S a
+    multiple of 8; any other head-major tensor is copied to "heads"."""
+    if head_dim is None:
+        return "rows", g
+    if g.dim() != 4 or g.shape[-1] != head_dim:
+        raise ValueError(f"fused_layer: a head-major g {tuple(g.shape)} is not "
+                         f"(B, heads, S, {head_dim})")
+    if g.is_contiguous():
+        return "heads", g
+    if g.transpose(-1, -2).is_contiguous() and g.shape[2] % VEC == 0:
+        return "heads_t", g
+    return "heads", g.contiguous()
+
+
+def _bias_act_backward_kernel(g, h, b, act: str, h_dtype, with_db: bool,
+                              head_dim=None):
     """(dh, db) from the cotangent g of y. h and b are read only to
     recompute the pre-activation (act != "none"); db is None unless
-    `with_db`. For "none" with h in g's dtype, dh is g itself (both rounds
-    are exact), and the kernel only reduces db."""
+    `with_db`. For "none" with h in g's dtype and g row-major, dh is g
+    itself (both rounds are exact), and the kernel only reduces db. With
+    head_dim, g is head-major (B, nh, S, hd) (as `_g_layout` takes it) and
+    dh is (B, S, nh * hd), written by the same launch that sums db."""
     global bias_act_backward_launches
-    dh_is_g = act == "none" and h_dtype == g.dtype
+    layout, g = _g_layout(g, head_dim)
+    dh_is_g = act == "none" and h_dtype == g.dtype and layout == "rows"
     if dh_is_g and not with_db:
         return g, None
-    w = g.shape[-1]
-    g2 = _rows(g, w, "g")
+    if layout == "rows":
+        w, seq = g.shape[-1], 0
+        g2 = _rows(g, w, "g")
+        dh_shape = g.shape
+    else:
+        if act != "none":
+            raise ValueError("fused_layer: a head-major g takes act 'none'")
+        B, nh, seq, _ = g.shape
+        w = nh * head_dim
+        g2 = g if layout == "heads" else g.transpose(-1, -2)
+        g2 = _rows(g2, g2.shape[-1], "g")
+        dh_shape = (B, seq, w)
     h2 = None if act == "none" else _rows(h, w, "h")
     b = None if act == "none" else _vector(b, w, g.device, "b")
-    dh = g if dh_is_g else torch.empty(g.shape, dtype=h_dtype, device=g.device)
-    rows = g2.shape[0]
-    n_chunks = -(-rows // chunk_rows(rows))
+    dh = g if dh_is_g else torch.empty(dh_shape, dtype=h_dtype, device=g.device)
+    rows = g2.numel() // w
+    chunk = f1_chunk_rows(rows)
+    n_chunks = -(-rows // chunk)
     f32 = dict(dtype=torch.float32, device=g.device)
-    partial = torch.empty((n_chunks, w), **f32) if with_db else None
-    db = torch.zeros(w, **f32) if with_db else None
     if rows == 0:
-        return dh, db
+        return dh, torch.zeros(w, **f32) if with_db else None
+    # The launch writes every column of db.
+    partial = torch.empty((n_chunks, w), **f32) if with_db else None
+    db = torch.empty(w, **f32) if with_db else None
+    tickets = _ticket_buffer(g.device, -(-w // F1_TILE_COLS)) if with_db else None
     err = _bound("bias_act_backward")(
         g2.data_ptr(), _ptr(h2), _ptr(b), None if dh_is_g else dh.data_ptr(),
-        _ptr(partial),
-        _ptr(db), rows, w, _dtype_id(h_dtype, "h"), _dtype_id(g.dtype, "g"),
-        ACTS[act], chunk_rows(rows), int(with_db), _stream(g.device))
+        _ptr(partial), _ptr(db), _ptr(tickets), rows, w, _dtype_id(h_dtype, "h"),
+        _dtype_id(g.dtype, "g"), ACTS[act], chunk, int(with_db), G_LAYOUTS[layout],
+        seq, head_dim or 0, 0 if tickets is None else tickets.numel(),
+        _stream(g.device))
     _cuda.check(err, "bias_act backward launch")
     bias_act_backward_launches += 1
     launches_by_variant["bias_act backward",
-                        f"{act} {_NAMES[h_dtype]}->{_NAMES[g.dtype]}"] += 1
+                        f"{act} {_NAMES[h_dtype]}->{_NAMES[g.dtype]}"
+                        + ("" if layout == "rows" else f" {layout}")] += 1
     return dh, db
 
 
@@ -391,13 +500,14 @@ class _BiasAct(torch.autograd.Function):
     """F1. Saves h and b (nothing for act "none")."""
 
     @staticmethod
-    def forward(ctx, h, b, act, out_dtype):
+    def forward(ctx, h, b, act, out_dtype, head_dim):
         ctx.act, ctx.h_dtype, ctx.out_dtype = act, h.dtype, out_dtype
+        ctx.head_dim = head_dim
         ctx.b_shape = None if b is None else b.shape
         ctx.save_for_backward(*(() if act == "none" else (h, b)))
         if h.is_cuda:
-            return _bias_act_kernel(h, b, act, out_dtype)
-        return bias_act_plain(h, b, act, out_dtype)
+            return _bias_act_kernel(h, b, act, out_dtype, head_dim)
+        return bias_act_plain(h, b, act, out_dtype, head_dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -405,19 +515,19 @@ class _BiasAct(torch.autograd.Function):
         with_db = ctx.b_shape is not None and ctx.needs_input_grad[1]
         if g.is_cuda:
             dh, db = _bias_act_backward_kernel(g, h, b, ctx.act, ctx.h_dtype,
-                                               with_db)
-            return dh, db, None, None
+                                               with_db, ctx.head_dim)
+            return dh, db, None, None, None
         # The unfused chain's backward, re-run on the recomputed
         # pre-activation: the same ops, hence the same bits.
-        dpre = g
+        dpre = g if ctx.head_dim is None else from_heads(g)
         if ctx.act != "none":
             with torch.enable_grad():
                 pre = bias_act_plain(h, b, "none", ctx.out_dtype)
                 pre = pre.detach().requires_grad_()
-                dpre, = torch.autograd.grad(_act_plain(pre, ctx.act), pre, g)
+                dpre, = torch.autograd.grad(_act_plain(pre, ctx.act), pre, dpre)
         d32 = dpre.to(torch.float32)
         db = d32.sum_to_size(ctx.b_shape) if with_db else None
-        return d32.to(ctx.h_dtype), db, None, None
+        return d32.to(ctx.h_dtype), db, None, None, None
 
 
 class _AddLayerNorm(torch.autograd.Function):
@@ -495,17 +605,19 @@ class _SiteDropout(torch.autograd.Function):
         return site_dropout_plain(g, ctx.dropout), None
 
 
-def bias_act(h, b, act: str = "none", out_dtype=torch.float32):
+def bias_act(h, b, act: str = "none", out_dtype=torch.float32, head_dim=None):
     """F1: act(round_out(h + b)), differentiable in h and b.
 
     h: (..., w) float32 or bfloat16 (the GEMM output); b: (w,) (f32 on the
     kernel), or None for no bias; act: "none", "erf" or "poly"; out_dtype:
-    float32 or bfloat16. The kernel on CUDA tensors (w a multiple of 8,
-    16-byte aligned rows; it raises otherwise), the plain version on CPU
-    tensors."""
+    float32 or bfloat16; head_dim: None for y in h's shape, or the head
+    width for y head-major (B, w / head_dim, S, head_dim) from h (B, S, w),
+    act "none" (q, k and v). The kernel on CUDA tensors (w and head_dim
+    multiples of 8, 16-byte aligned rows; it raises otherwise), the plain
+    version on CPU tensors."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
-    return _BiasAct.apply(h, b, act, out_dtype)
+    return _BiasAct.apply(h, b, act, out_dtype, head_dim)
 
 
 def add_layer_norm(x, r, scale, bias, eps: float, out_dtype=None, dropout=None):

@@ -156,7 +156,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the f32 order of its row sums), f32 outputs within rtol 1e-5, db,
    dscale and dbias within rtol 1e-4 (atol 1e-4 of the largest), every
    gradient identical across two backward calls; the plain references run
-   in row blocks of 16,384. Then, with every count set to 0 again: (b) the
+   in row blocks of 16,384. F1 head-major (q, k and v: y (B, 12, S, 64)
+   from (B, S, 768)) at the W5M train step's 1,024 x 128 with q's and k's
+   cotangents (k's held (B, 12, 64, S), as q k^T's backward leaves it) and,
+   forward, at the encode chunk's 6,144 x 128: y and dh bit-equal, db as
+   above. Then, with every count set to 0 again: (b) the
    TPU bench's W5M point (B 1,024, L 64, K 64, remat=4, fast_train, 8-bit
    masks) through `bench.measure` with 2 windows of 10 steps: ms a step,
    triples/s, peak memory below 80 GB; (c) phase 6 (c)'s remat=8 peak
@@ -189,7 +193,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    profiled by kernel name with shapes recorded: no torch draw and no
    `where` on a dropout site's shape, and no more RNG kernels than the
    sampler's two draws; F2, F3, their backwards and the site kernel
-   launched.
+   launched; the copy kernels by the launching op and its input shapes.
 7. Time each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function, at the main path's shapes
    (K3's backward: the kernel with its index bookkeeping against the plain
@@ -208,8 +212,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    times it again at the Wikidata5M phase-1 chunk (6,144 rows, seg 64)
    under `at_seg64`. F1 and F2 (no Pallas counterpart: XLA fusions in the
    TPU package) have a record each for forward and backward, with their
-   launches by variant, at the W5M train step's shapes (F1 poly at 131,072
-   x 3072, and none at 768 under `at_w768_none`; F2 at 131,072 x 768) and,
+   launches by variant (F1's by layout too), at the W5M train step's
+   shapes (F1 poly at 131,072 x 3072, and none at 768 under `at_w768_none`,
+   head-major under `at_w768_none_heads`, its backward from q's and k's
+   head-major cotangents under `at_heads_q`, `at_heads_k`; F2 at 131,072 x
+   768) and,
    forward, at the encode chunk's (`at_encode`), F2 also with 8- and
    32-bit masks (`at_drop8`, `at_drop32`; its backward with 8-bit masks, dr
    beside ds, and `at_drop32`, `at_no_dropout`); F3 at the W5M train
@@ -223,8 +230,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the generator's (~100 integer operations a Philox call, shared by the
    call's 4, 8 or 16 masks). F1's and F2's `library_ms` is
    F.gelu or F.layer_norm (or their backward) on the already-added input,
-   which covers part of the function (`library_covers`), and for F1's
-   backward at "none" (db alone: dh is g) g's f32 column sum, all of it.
+   which covers part of the function (`library_covers`); for F1 at "none"
+   h + b in bf16, all of it; for F1's backward at "none" (db alone: dh is
+   g) g's f32 column sum, all of it, and from a head-major cotangent its
+   permute copy alone.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -2468,6 +2477,13 @@ F1_CASES = (("none", "bf16", "bf16", W5M_TOKENS, BERT_H, True),
             ("none", "f32", "f32", F_CHECK_ROWS, BERT_H, True),
             ("erf", "f32", "f32", F_CHECK_ROWS, BERT_I, True),
             ("poly", "f32", "f32", F_CHECK_ROWS, BERT_I, True))
+#: F1's head-major checks (q, k and v): (packed rows B, S, cotangent,
+#: backward): the W5M train step's 1,024 rows of 128 (12 heads of 64) with
+#: q's cotangent (contiguous) and k's ((B, nh, hd, S) in memory, as q k^T's
+#: backward leaves it), and the encode chunk's 6,144 rows, forward.
+F1_HEAD_CASES = ((W5M_TOKENS // 128, 128, "q", True), (W5M_TOKENS // 128, 128, "k", True),
+                 (ENCODE_TOKENS // 128, 128, None, False))
+F1_HEAD_DIM = 64
 #: F2's checks: (with r, x dtype, out dtype, rows, backward): the layers'
 #: residual LayerNorms and the embedding LayerNorm (f32 sum, no r).
 F2_CASES = ((True, "bf16", "bf16", W5M_TOKENS, True),
@@ -2585,6 +2601,58 @@ def check_f1() -> dict:
     return errs
 
 
+def f1_head_cotangent(B: int, S: int, which: str, seed: int):
+    """A bf16 cotangent of a head-major (B, 12, S, 64) q ("q": contiguous)
+    or k ("k": held as (B, 12, 64, S), as q k^T's backward leaves it)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nh = BERT_H // F1_HEAD_DIM
+    if which == "k":
+        return torch.randn((B, nh, F1_HEAD_DIM, S), generator=g, device="cuda").to(
+            torch.bfloat16).transpose(-1, -2)
+    return torch.randn((B, nh, S, F1_HEAD_DIM), generator=g,
+                       device="cuda").to(torch.bfloat16)
+
+
+def check_f1_heads() -> dict:
+    """(a), F1 head-major (the q, k and v projections): y (B, 12, S, 64)
+    bit-equal to the plain version; dh bit-equal to the cotangent's rows,
+    db within sum_close of their f32 column sum, both identical across two
+    backward calls."""
+    errs, bf = {}, torch.bfloat16
+    for i, (B, S, which, backward) in enumerate(F1_HEAD_CASES):
+        g = torch.Generator(device="cuda").manual_seed(60 + i)
+        h = torch.randn((B, S, BERT_H), generator=g, device="cuda").to(bf)
+        b = torch.randn(BERT_H, generator=g, device="cuda")
+        hh, bb = h.detach().requires_grad_(backward), b.detach().requires_grad_(backward)
+        with torch.set_grad_enabled(backward):
+            got = fused_layer.bias_act(hh, bb, "none", bf, head_dim=F1_HEAD_DIM)
+        want = fused_layer.bias_act_plain(h, b, "none", bf, head_dim=F1_HEAD_DIM)
+        what = f"F1 none head-major at {B:,} x {S} x {BERT_H}" + (
+            f", {which}'s cotangent" if backward else "")
+        require(got.is_contiguous() and torch.equal(got, want),
+                f"{what}: y differs from the plain version")
+        rec = {"y_equal": True}
+        del want
+        if backward:
+            gy = f1_head_cotangent(B, S, which, seed=65 + i)
+            (dh, db), (dh2, db2) = [torch.autograd.grad(got, (hh, bb), gy,
+                                                        retain_graph=True)
+                                    for _ in range(2)]
+            require(torch.equal(dh, dh2) and torch.equal(db, db2),
+                    f"{what}: dh or db differ between two backward calls")
+            rows = fused_layer.from_heads(gy)
+            ok, rec["db"] = sum_close(db, rows.float().sum((0, 1)))
+            require(torch.equal(dh, rows) and ok,
+                    f"{what}: dh is not g's rows, or db differs ({rec['db']})")
+            rec["dh_equal"] = True
+            del dh, db, dh2, db2, gy, rows
+        log(f"F1 check {what}: " + ", ".join(f"{k} {v}" for k, v in rec.items()))
+        errs[what] = rec
+        del h, b, hh, bb, got
+        torch.cuda.empty_cache()
+    return errs
+
+
 def check_f2() -> dict:
     """(a), F2: each case's output, ds, dscale and dbias against the plain
     version; identical across two backward calls."""
@@ -2687,7 +2755,8 @@ def fused_phase(w5m_remat8_peak: int) -> tuple[dict, dict]:
     remat=8 peak beside its figure before, (d) the encode chunk. Returns the
     stats and the launches of (b) and (d)."""
     t0 = time.perf_counter()
-    stats = {"f1_check": check_f1(), "f2_check": check_f2()}
+    stats = {"f1_check": check_f1(), "f1_heads_check": check_f1_heads(),
+             "f2_check": check_f2()}
     torch.cuda.empty_cache()
     reset_counts()
     stats.update(w5m_point())
@@ -2941,6 +3010,25 @@ def check_masks() -> dict:
     return out
 
 
+#: Kernel names of torch's copies (casts, `contiguous`, permuted reshapes).
+COPY_KERNELS = ("direct_copy", "bfloat16_copy")
+
+
+def copies_by_shape(prof, source=None) -> list:
+    """[(op, input shapes, device ms, launches)] of the copy kernels in a
+    profile recorded with shapes, each charged to the op that launched it
+    (named `source(op)` where given, else by its name), by device time."""
+    rows = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        ks = [k for k in e.kernels if any(p in k.name for p in COPY_KERNELS)]
+        if ks:
+            r = rows[e.name if source is None else source(e), str(e.input_shapes)]
+            r[0] += sum(k.duration for k in ks) / 1e3
+            r[1] += len(ks)
+    return sorted(((n, sh, ms, c) for (n, sh), (ms, c) in rows.items()),
+                  key=lambda r: -r[2])
+
+
 def rng_free_step(label: str, step, sites) -> dict:
     """One step under torch.profiler (shapes recorded): its kernels by name,
     and what it asks of torch's generator and of `where`. Requires no draw
@@ -2965,9 +3053,13 @@ def rng_free_step(label: str, step, sites) -> dict:
     on_sites = [(e.name, e.input_shapes) for e in prof.events()
                 if (e.name in RNG_OPS or e.name == "aten::where")
                 and any(tuple(sh) in sites for sh in e.input_shapes or ())]
+    copies = copies_by_shape(prof)
     log(f"(b) {label}: profiled wall {wall_ms:.1f} ms, device busy {busy:.1f} ms; "
         f"RNG kernels {rng}, where kernels {where}, draws or wheres on a dropout "
         f"site {len(on_sites)}")
+    log(f"(b) {label}: copies {sum(c[2] for c in copies):.2f} ms x"
+        f"{sum(c[3] for c in copies)}; by shape: " + "; ".join(
+            f"{n} {sh} {ms:.2f} ms x{c}" for n, sh, ms, c in copies[:12]))
     for name, ms, count in kernels[:25]:
         log(f"    {ms:8.2f} ms x{count:<5d} {name[:110]}")
     require(not on_sites, f"{label}: torch draws or selects on a dropout site: "
@@ -2975,7 +3067,7 @@ def rng_free_step(label: str, step, sites) -> dict:
     require(rng <= SAMPLER_DRAWS, f"{label}: {rng} RNG kernels, more than the "
                                   f"sampler's {SAMPLER_DRAWS}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "rng_kernels": rng,
-            "where_kernels": where,
+            "where_kernels": where, "copies_by_shape": copies,
             "kernels": [(n[:200], round(ms, 3), c) for n, ms, c in kernels[:60]]}
 
 
@@ -3265,49 +3357,76 @@ def _blockwise(fn, rows: int, block: int = W5M_TOKENS):
     return lambda: [fn(i, min(i + block, rows)) for i in range(0, rows, block)]
 
 
-def _time_f1_at(act: str, rows: int, w: int) -> dict:
-    """F1's forward at (rows, w) bf16: kernel and plain ms (CUDA events),
-    F.gelu on the biased input (the library's nearest call: the erf
-    activation alone), the bound (h and y in bf16 and b, or its operations)."""
+def _time_f1_at(act: str, rows: int, w: int, head_dim=None) -> dict:
+    """F1's forward at (rows, w) bf16 (head_dim: y head-major, rows as
+    sequences of 128): kernel and plain ms (CUDA events), the library's
+    nearest call (for "none" h + b in bf16, the whole function row-major;
+    else F.gelu on the biased input: the erf activation alone), the bound
+    (h and y in bf16 and b, or its operations)."""
     bf = torch.bfloat16
     h, b, _ = f1_inputs(rows, w, bf, bf, seed=50)
+    if head_dim is not None:
+        h = h.view(rows // 128, 128, w)
     with torch.no_grad():
-        got = fused_layer.bias_act(h, b, act, bf)
-        want = torch.cat(_blockwise(lambda i, j: fused_layer.bias_act_plain(
-            h[i:j], b, act, bf), rows)())
+        got = fused_layer.bias_act(h, b, act, bf, head_dim=head_dim)
+        if head_dim is None:
+            want = torch.cat(_blockwise(lambda i, j: fused_layer.bias_act_plain(
+                h[i:j], b, act, bf), rows)())
+        else:
+            want = fused_layer.bias_act_plain(h, b, act, bf, head_dim=head_dim)
         err = (got.float() - want.float()).abs().max().item()
         require(within_ulp(got, want), f"F1 {act} at {rows} x {w}: error {err}")
         del got, want
-        ms = cuda_ms(lambda: fused_layer.bias_act(h, b, act, bf), reps=20, warmup=3)
-        plain_ms = cuda_ms(_blockwise(lambda i, j: fused_layer.bias_act_plain(
-            h[i:j], b, act, bf), rows), reps=3)
-        pre = fused_layer.bias_act_plain(h, b, "none", bf)
-        library_ms = cuda_ms(lambda: torch.nn.functional.gelu(pre), reps=20, warmup=3)
-    del h, pre
+        ms = cuda_ms(lambda: fused_layer.bias_act(h, b, act, bf, head_dim=head_dim),
+                     reps=20, warmup=3)
+        if head_dim is None:
+            plain_ms = cuda_ms(_blockwise(lambda i, j: fused_layer.bias_act_plain(
+                h[i:j], b, act, bf), rows), reps=3)
+        else:
+            plain_ms = cuda_ms(lambda: fused_layer.bias_act_plain(
+                h, b, act, bf, head_dim=head_dim), reps=3)
+        if act == "none":
+            b16 = b.to(bf)
+            library_ms = cuda_ms(lambda: h + b16, reps=20, warmup=3)
+            covers = "h + b in bf16: all of it, row-major"
+        else:
+            pre = fused_layer.bias_act_plain(h, b, "none", bf)
+            library_ms = cuda_ms(lambda: torch.nn.functional.gelu(pre), reps=20,
+                                 warmup=3)
+            covers = "F.gelu (erf) on the biased bf16 input: the activation alone"
+            del pre
+    del h
     torch.cuda.empty_cache()
+    layout = "" if head_dim is None else f", y head-major (B, {w // head_dim}, 128, {head_dim})"
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **_bound(4.0 * rows * w + 4.0 * w, float(F1_OPS[act]) * rows * w),
-            "library_ms": library_ms, "library_covers":
-                "F.gelu (erf) on the biased bf16 input: the activation alone",
-            "shape": f"{rows:,} x {w} {act} bf16->bf16"}
+            "library_ms": library_ms, "library_covers": covers,
+            "shape": f"{rows:,} x {w} {act} bf16->bf16{layout}"}
 
 
-def _time_f1_backward_at(act: str, rows: int, w: int) -> dict:
-    """F1's backward kernel (dh and db, the column sums included; for
-    "none", where dh is g, db alone) against the plain chain's VJP
-    (recomputed from h and b, as the CPU backward does) and the nearest
-    library call: aten.gelu_backward on the rounded pre-activation, or for
-    "none" g's f32 column sum, which is the whole function."""
+def _time_f1_backward_at(act: str, rows: int, w: int, cotangent=None) -> dict:
+    """F1's backward kernel (dh and db in one launch; for "none" with a
+    row-major cotangent, where dh is g, db alone; cotangent "q" or "k": a
+    head-major one, rows as sequences of 128, turned into dh's rows) against
+    the plain chain's VJP (recomputed from h and b, as the CPU backward
+    does) and the nearest library call: aten.gelu_backward on the rounded
+    pre-activation; for "none" g's f32 column sum, which is the whole
+    function; for a head-major cotangent its permute copy alone."""
     bf = torch.bfloat16
     h, b, gy = f1_inputs(rows, w, bf, bf, seed=51)
+    head_dim = None if cotangent is None else F1_HEAD_DIM
+    if cotangent is not None:
+        h = h.view(rows // 128, 128, w)
+        gy = f1_head_cotangent(rows // 128, 128, cotangent, seed=52)
 
     def plain_vjp():
         with torch.enable_grad():
             hh, bb = h.detach().requires_grad_(), b.detach().requires_grad_()
-            return torch.autograd.grad(fused_layer.bias_act_plain(hh, bb, act, bf),
-                                       (hh, bb), gy)
+            return torch.autograd.grad(fused_layer.bias_act_plain(
+                hh, bb, act, bf, head_dim=head_dim), (hh, bb), gy)
 
-    kernel = lambda: fused_layer._bias_act_backward_kernel(gy, h, b, act, bf, True)  # noqa: E731
+    kernel = lambda: fused_layer._bias_act_backward_kernel(  # noqa: E731
+        gy, h, b, act, bf, True, head_dim=head_dim)
     (dh, db), (dh_p, db_p) = kernel(), plain_vjp()
     err = (dh.float() - dh_p.float()).abs().max().item()
     require(within_ulp(dh, dh_p) and sum_close(db, db_p)[0],
@@ -3315,7 +3434,13 @@ def _time_f1_backward_at(act: str, rows: int, w: int) -> dict:
     del dh, db, dh_p, db_p
     ms = cuda_ms(kernel, reps=20, warmup=3)
     plain_ms = cuda_ms(plain_vjp, reps=2)
-    if act == "none":
+    if cotangent is not None:
+        library_ms = cuda_ms(lambda: gy.permute(0, 2, 1, 3).contiguous(), reps=20,
+                             warmup=3)
+        covers = "g.permute(0, 2, 1, 3).contiguous(): the copy to rows alone, no db"
+        # g read, dh written (bf16); db written (f32).
+        nbytes = 4.0 * rows * w + 4.0 * w
+    elif act == "none":
         library_ms = cuda_ms(lambda: gy.sum(0, dtype=torch.float32), reps=20,
                              warmup=3)
         covers = "g.sum(0, dtype=torch.float32): all of it (dh is g)"
@@ -3332,30 +3457,39 @@ def _time_f1_backward_at(act: str, rows: int, w: int) -> dict:
         nbytes = 6.0 * rows * w + 8.0 * w
     del h, gy
     torch.cuda.empty_cache()
+    layout = "" if cotangent is None else (
+        f", {cotangent}'s head-major cotangent" + (" held (B, nh, hd, S)"
+                                                    if cotangent == "k" else ""))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **_bound(nbytes, float(F1_BWD_OPS[act]) * rows * w),
             "library_ms": library_ms, "library_covers": covers,
-            "shape": f"{rows:,} x {w} {act} bf16->bf16"}
+            "shape": f"{rows:,} x {w} {act} bf16->bf16{layout}"}
 
 
 def time_f1(launches: int, backward_launches: int, by_variant: dict) -> list[dict]:
     """F1 at the W5M train step's FFN (131,072 x 3072, poly: fast_train),
-    and at 768 wide ("none": q, k, v, attn_out, ffn_out) and the encode
-    chunk's FFN (786,432 x 3072, forward) under `at_*`."""
+    and at 768 wide ("none": q, k, v, attn_out, ffn_out; q, k and v
+    head-major, forward and, backward, from q's and k's cotangents) and the
+    encode chunk's FFN (786,432 x 3072, forward) under `at_*`."""
     common = {"route": "cuda", "source": "blp_tpu_torch/csrc/fused_layer.cu",
               "replaces": "blp_tpu/models/bert.py:282",
               "xla_fusion": "no Pallas kernel: XLA fuses _dense's bias add "
-                            "(:282) with poly_gelu (:305) or jax.nn.gelu"}
+                            "(:282) with poly_gelu (:305) or jax.nn.gelu, and "
+                            "the head-major projections' (:411-415)"}
     fwd = {"name": "bias_act (F1)", **common, "launches": launches,
            "launches_by_variant": by_variant.get("bias_act", {}),
            **_time_f1_at("poly", W5M_TOKENS, BERT_I),
            "at_w768_none": _time_f1_at("none", W5M_TOKENS, BERT_H),
+           "at_w768_none_heads": _time_f1_at("none", W5M_TOKENS, BERT_H,
+                                             head_dim=F1_HEAD_DIM),
            "at_encode": _time_f1_at("poly", ENCODE_TOKENS, BERT_I)}
     bwd = {"name": "bias_act backward (F1)", **common,
            "launches": backward_launches,
            "launches_by_variant": by_variant.get("bias_act backward", {}),
            **_time_f1_backward_at("poly", W5M_TOKENS, BERT_I),
-           "at_w768_none": _time_f1_backward_at("none", W5M_TOKENS, BERT_H)}
+           "at_w768_none": _time_f1_backward_at("none", W5M_TOKENS, BERT_H),
+           "at_heads_q": _time_f1_backward_at("none", W5M_TOKENS, BERT_H, "q"),
+           "at_heads_k": _time_f1_backward_at("none", W5M_TOKENS, BERT_H, "k")}
     return [fwd, bwd]
 
 
@@ -3778,6 +3912,11 @@ def main() -> int:
             "a main-path K1 launch at d 128, 300 or 768 did not take the tma variant")
     require(sum(k2_by.values()) == launches["K2"] and set(k2_by) == set(K2_SEGS),
             f"K2's launches by segment length {k2_by} do not cover seg 32 and 64")
+    require(any(v.endswith(" heads") for v in f_by.get("bias_act", {}))
+            and all(any(v.endswith(f" {lay}") for v in f_by.get("bias_act backward", {}))
+                    for lay in ("heads", "heads_t")),
+            "the main path's q, k and v did not take F1's head-major layouts: "
+            f"{f_by.get('bias_act')}, {f_by.get('bias_act backward')}")
     torch.cuda.empty_cache()
 
     kernels = [time_k1(launches["K1"], k1_by), time_k2(launches["K2"], k2_by),

@@ -28,8 +28,21 @@ named otherwise:
     one step's device launches;
 (6) F2 and F3 through chip_smoke's timing functions at the W5M train shapes
     (the tree's own kernels: F2's forward without dropout, and with 8- and
-    32-bit masks where its F2 takes them; F3 with 8- and 32-bit masks).
-Prints a summary and writes every table to --out (JSON).
+    32-bit masks where its F2 takes them; F3 with 8- and 32-bit masks);
+(7) the copies of (2)'s step by source: one step profiled with shapes and
+    Python stacks recorded, each copy kernel charged (chip_smoke's
+    `copies_by_shape`, so a tree from PR 15 on) to the op that launched it,
+    named by that op's chain of parent ops (an autograd node names a
+    backward's source) and the innermost frames of this repository;
+(8) F1 (ops/fused_layer.py `bias_act`) through chip_smoke's timing functions
+    at the W5M train shapes and the encode chunk's, and the cotangent of a
+    head-major q (B, nh, S, hd) and of k (the same shape, strided as the
+    q k^T product's backward leaves it) turned into dh (B, S, H) and db:
+    the tree's kernel with the head-major layout where it takes one, else
+    the parent's path (the permute copy, then the kernel's db), with the
+    registers ptxas gives the tree's F1 kernels.
+Prints a summary and writes every table to --out (JSON). `--parts` picks
+some of them (default: all).
 """
 
 from __future__ import annotations
@@ -50,8 +63,7 @@ B, NH, S, HD = 1024, 12, 128, 64
 GROUPS = {"torch RNG": ("distribution_", "randint", "bernoulli"),
           "where": ("where_kernel",), "scalar compare": ("compare_scalar",),
           "copies": ("direct_copy", "bfloat16_copy")}
-
-
+PARTS = ("chain", "w5m", "encode", "bench", "flagship", "kernels", "copies", "f1")
 def kernel_table(fn) -> tuple[float, list]:
     """(wall ms, [(kernel name, device ms, count)] by device time) of one
     call of fn under torch.profiler."""
@@ -223,10 +235,126 @@ def kernels(res: dict) -> None:
               f"{v.get('with_mask_draw_ms', '-')} with a torch mask draw)", flush=True)
 
 
+def copy_source(e) -> str:
+    """The source of op e, which launched a copy: its chain of parent ops,
+    innermost first (an autograd node, "evaluate_function: <Node>", names a
+    backward's source), and the innermost frames of this repository's
+    packages on the Python stack of the nearest op that has one."""
+    chain, frames, p = [], [], e
+    while p is not None:     # python_function events carry the stack
+        if ".py(" in p.name:
+            if "blp_tpu_torch" in p.name or "chip_smoke" in p.name:
+                frames.append(p.name.split("blp_tpu_torch/")[-1])
+        elif not p.name.startswith("<built-in"):
+            chain.append(p.name)
+        frames.extend(f.split("blp_tpu_torch/")[-1] for f in (p.stack or [])
+                      if "blp_tpu_torch" in f)
+        p = p.cpu_parent
+    node = next((n for n in chain if "evaluate_function" in n), None)
+    names = chain[:4] + ([node] if node and node not in chain[:4] else [])
+    return " < ".join(names) + " | at " + " | ".join(frames[:3])
+
+
+def copy_sources(fn, top: int = 30) -> list:
+    """[(source, input shapes, device ms, launches)] of the copy kernels one
+    call of fn launches, by device time (`copy_source`), the rest summed."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True, with_stack=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = cs.copies_by_shape(prof, copy_source)
+    return out[:top] + ([("(the rest)", "", sum(r[2] for r in out[top:]),
+                          sum(r[3] for r in out[top:]))] if out[top:] else [])
+
+
+def copies(res: dict, data_dir: str) -> None:
+    """(7)."""
+    cfg, params = cs.train_model(12, remat=8)
+    opt = training.make_optimizer(5e-5, 1000)
+    state = opt.init(params)
+    step = training.make_train_step(cfg, opt, batch_size=1024, num_negatives=64,
+                                    device="cuda")
+    batches = cs.train_batches(data_dir, 64, 1024, 3)
+    for i, batch in enumerate(batches):
+        params, state, _ = step(params, state, (0, i), batch)
+    rows = copy_sources(lambda: step(params, state, (0, 9), batches[0]))
+    res["w5m_copies"] = rows
+    print(f"W5M step remat=8, copies by source: {sum(r[2] for r in rows):.2f} ms x"
+          f"{sum(r[3] for r in rows)}", flush=True)
+    for src, shapes, ms, n in rows:
+        print(f"  {ms:8.3f} ms x{n:<4d} {src[:400]}\n      shapes {shapes[:160]}",
+              flush=True)
+
+
+def f1(res: dict) -> None:
+    """(8)."""
+    at, bwd_at = cs._time_f1_at, cs._time_f1_backward_at
+    heads = "head_dim" in inspect.signature(at).parameters
+    out = {"fwd_none": at("none", cs.W5M_TOKENS, cs.BERT_H),
+           "fwd_poly": at("poly", cs.W5M_TOKENS, cs.BERT_I),
+           "fwd_poly_encode": at("poly", cs.ENCODE_TOKENS, cs.BERT_I),
+           "bwd_poly": bwd_at("poly", cs.W5M_TOKENS, cs.BERT_I),
+           "bwd_none": bwd_at("none", cs.W5M_TOKENS, cs.BERT_H)}
+    if heads:
+        out["fwd_none_heads"] = at("none", cs.W5M_TOKENS, cs.BERT_H, head_dim=HD)
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(52)
+    gq = torch.randn((B, NH, S, HD), generator=g, device="cuda").to(bf)
+    # k's cotangent: q k^T's backward leaves it (B, nh, hd, S) in memory.
+    gk = torch.randn((B, NH, HD, S), generator=g, device="cuda").to(bf).transpose(-1, -2)
+    b = torch.randn(NH * HD, generator=g, device="cuda")
+    kern = fused_layer._bias_act_backward_kernel
+    if "head_dim" in inspect.signature(kern).parameters:
+        call = lambda gg: kern(gg, None, b, "none", bf, True, head_dim=HD)  # noqa: E731
+    else:     # the parent's path: autograd's permute, a copy, then db
+        call = lambda gg: kern(gg.permute(0, 2, 1, 3).reshape(B, S, NH * HD),  # noqa: E731
+                               None, b, "none", bf, True)
+    for name, gg in (("q", gq), ("k", gk)):
+        dh, db = call(gg)
+        want = gg.permute(0, 2, 1, 3).reshape(B, S, NH * HD)
+        ok = torch.equal(dh, want) and cs.sum_close(db, want.float().sum((0, 1)))[0]
+        ms = cs.cuda_ms(lambda: call(gg), reps=20, warmup=3)  # noqa: B023
+        dev_ms, n, names = cs.device_ms(lambda: call(gg), reps=5)  # noqa: B023
+        out[f"bwd_heads_{name}"] = {"ms": ms, "device_ms": dev_ms, "launches": n,
+                                    "kernels": names, "equal": ok}
+        del dh, db, want
+    del gq, gk
+    torch.cuda.empty_cache()
+    log_path = _cuda.BUILD_DIR / "fused_layer.log"
+    if log_path.exists():
+        out["registers"] = f1_registers(log_path.read_text())
+        print(f"F1's kernels (bf16 -> bf16): registers {out['registers']}", flush=True)
+    res["f1"] = out
+    for k, v in out.items():
+        if k == "registers":
+            continue
+        extra = (f"bound {v['bound_ms']:.4f} ms, plain {v['plain_ms']:.3f}, library "
+                 f"{v['library_ms']:.4f}" if "bound_ms" in v else
+                 f"device {v['device_ms']:.4f} ms in {v['launches']:g} launches, "
+                 f"dh and db right: {v['equal']}; {v['kernels']}")
+        print(f"F1 {k}: {v['ms']:.4f} ms; {extra}", flush=True)
+
+
+def f1_registers(log_text: str) -> list:
+    """[(kernel, registers)] of F1's bf16 -> bf16 kernels in an nvcc -Xptxas
+    -v log."""
+    out, name = [], None
+    for line in log_text.splitlines():
+        if "Compiling entry" in line:
+            name = line.split("'")[1] if "bias_act" in line and "13__nv_bfloat16S1_" in line else None
+        elif name and "registers" in line:
+            short = name[name.index("bias_act"):].split("PK")[0].replace("13__nv_bfloat16S1_", "")
+            out.append((short, int(line.split("Used")[1].split("registers")[0])))
+            name = None
+    return out
+
+
 def _import(root: str) -> None:
     """The modules of the tree at `root`, as this module's globals."""
     global cs, serve, training, write_synth_dataset, WordPieceTokenizer, bert
-    global _cuda, F3
+    global _cuda, F3, fused_layer
     sys.path.insert(0, root)
     os.chdir(root)
     import chip_smoke as cs
@@ -234,7 +362,7 @@ def _import(root: str) -> None:
     from blp_tpu_torch.data.synth import write_synth_dataset
     from blp_tpu_torch.data.tokenizers import WordPieceTokenizer
     from blp_tpu_torch.models import bert
-    from blp_tpu_torch.ops import _cuda
+    from blp_tpu_torch.ops import _cuda, fused_layer
     try:
         from blp_tpu_torch.ops import attn_softmax as F3
     except ImportError:     # a tree from before F3
@@ -249,7 +377,14 @@ def main(argv=None) -> int:
                     help="JSON file for the tables (relative to the working "
                          "directory)")
     ap.add_argument("--skip-bench", action="store_true")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated parts to run, of {','.join(PARTS)}")
     args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
+    if args.skip_bench:
+        parts.discard("bench")
+    if parts - set(PARTS):
+        ap.error(f"unknown parts {sorted(parts - set(PARTS))}")
     out_path = os.path.abspath(args.out)
     root = os.path.abspath(args.root)
     if not torch.cuda.is_available():
@@ -262,21 +397,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _cuda.build_all()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    chain_costs(res)
-    torch.cuda.empty_cache()
+    if "chain" in parts:
+        chain_costs(res)
+        torch.cuda.empty_cache()
     data_dir = write_synth_dataset(os.path.join(cs.WORK_DIR, "synth4096"),
                                    num_entities=4096, num_relations=12,
                                    num_triples=8000, seed=0)
-    w5m_step(res, data_dir)
-    torch.cuda.empty_cache()
-    encodes(res, data_dir)
-    torch.cuda.empty_cache()
-    if not args.skip_bench:
-        res.update(cs.w5m_point())
-    torch.cuda.empty_cache()
-    flagship(res, data_dir)
-    torch.cuda.empty_cache()
-    kernels(res)
+    for name, fn in (("w5m", w5m_step), ("copies", copies), ("encode", encodes),
+                     ("bench", lambda r, _: r.update(cs.w5m_point())),
+                     ("flagship", flagship), ("kernels", lambda r, _: kernels(r)),
+                     ("f1", lambda r, _: f1(r))):
+        if name in parts:
+            fn(res, data_dir)
+            torch.cuda.empty_cache()
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(res, f, indent=1, default=str)

@@ -900,6 +900,165 @@ def test_f1_none_backward_returns_g(with_db):
         assert db is None
 
 
+def _f1_heads_case(B, S, nh, hd, cotangent, seed=0, calls=1):
+    """F1 head-major ("none", bf16, the q/k/v projection's) and its plain
+    version: [y, dh, db] per call of the Function (calls backward passes),
+    and the plain version's. cotangent "k": g held as (B, nh, hd, S), as
+    q k^T's backward leaves k's."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn((B, S, nh * hd), generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn(nh * hd, generator=g, device="cuda")
+    if cotangent == "k":
+        gy = torch.randn((B, nh, hd, S), generator=g, device="cuda").to(
+            torch.bfloat16).transpose(-1, -2)
+    else:
+        gy = torch.randn((B, nh, S, hd), generator=g, device="cuda").to(torch.bfloat16)
+    out = []
+    for fn in (fused_layer.bias_act, fused_layer.bias_act_plain):
+        hh, bb = h.detach().requires_grad_(), b.detach().requires_grad_()
+        y = fn(hh, bb, "none", torch.bfloat16, head_dim=hd)
+        out.append([y, *(g_ for _ in range(calls) for g_ in
+                         torch.autograd.grad(y, (hh, bb), gy, retain_graph=True))])
+    return out
+
+
+#: (B, S, heads, head width): 997 rows either way, 1 row, 20,000 rows, and
+#: the W5M train step's 1,024 packed rows of 128.
+F1_HEAD_SHAPES = [(1, 997, 12, 64), (997, 1, 12, 64), (1, 1, 12, 64),
+                  (250, 80, 12, 64), (1024, 128, 12, 64), (4, 24, 3, 8)]
+
+
+@pytest.mark.parametrize("cotangent", ["contiguous", "k"])
+@pytest.mark.parametrize("shape", F1_HEAD_SHAPES)
+def test_f1_head_major_matches_plain(shape, cotangent):
+    """y (B, nh, S, hd) and dh bit-equal to the plain version's, db within
+    rtol 1e-4; one forward and one backward launch, no copy of g in
+    between (k's layout read as it is when S is a multiple of 8)."""
+    B, S, nh, hd = shape
+    before = dict(fused_layer.launches_by_variant)
+    (y, dh, db), (y_p, dh_p, db_p) = _f1_heads_case(B, S, nh, hd, cotangent)
+    assert y.shape == (B, nh, S, hd) and y.is_contiguous()
+    assert torch.equal(y, y_p) and torch.equal(dh, dh_p) and _sum_close(db, db_p)
+    layout = "heads_t" if cotangent == "k" and S % 8 == 0 else "heads"
+    added = {k: v - before.get(k, 0) for k, v in fused_layer.launches_by_variant.items()
+             if v != before.get(k, 0)}
+    assert added == {("bias_act", "none bf16->bf16 heads"): 1,
+                     ("bias_act backward", f"none bf16->bf16 {layout}"): 1}
+
+
+@pytest.mark.parametrize("cotangent", ["contiguous", "k", "rows"])
+def test_f1_db_identical_across_calls(cotangent):
+    """The one-launch db (ticket counter, partials added by the last block)
+    gives the same bits on every call."""
+    if cotangent == "rows":
+        first, again = (_f1_case("none", "bf16", "bf16", 131_072, 768, seed=5)[0]
+                        for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        return
+    got, _ = _f1_heads_case(1024, 128, 12, 64, cotangent, seed=5, calls=2)
+    assert torch.equal(got[1], got[3]) and torch.equal(got[2], got[4])
+
+
+@pytest.mark.parametrize("shape", [(1024, 128, 12, 64), (4, 24, 3, 8)])
+def test_f1_head_major_db_does_not_depend_on_the_cotangent_layout(shape):
+    """The same cotangent, contiguous or held as (B, nh, hd, S) (the layouts
+    q k^T's backward and a "names" remat tag may hand over), gives the same
+    dh and db bits: a row lane adds its rows in the same order either way."""
+    B, S, nh, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(7)
+    gy = torch.randn((B, nh, S, hd), generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn(nh * hd, generator=g, device="cuda")
+    strided = gy.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert fused_layer._g_layout(strided, hd)[0] == "heads_t"
+    got = [fused_layer._bias_act_backward_kernel(t, None, b, "none", torch.bfloat16,
+                                                 True, head_dim=hd)
+           for t in (gy, strided)]
+    assert torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1])
+
+
+@pytest.mark.parametrize("act", ["erf", "poly"])
+@pytest.mark.parametrize("rows", [997, 131_072])
+def test_f1_db_same_bits_when_a_remat_policy_splits_the_chain(act, rows):
+    """The "names" policy runs ffn_in's F1 as "none" with the bias, then the
+    activation without it: its db (the "none" backward of the activation's
+    dh) has the same bits as the fused call's."""
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(8)
+    h = (2.5 * torch.randn((rows, 3072), generator=g, device="cuda")).to(bf)
+    b = 0.5 * torch.randn(3072, generator=g, device="cuda")
+    gy = torch.randn((rows, 3072), generator=g, device="cuda").to(bf)
+    kern = fused_layer._bias_act_backward_kernel
+    dh, db = kern(gy, h, b, act, bf, True)
+    pre = fused_layer.bias_act(h, b, "none", bf)
+    dpre, _ = kern(gy, pre, None, act, bf, False)
+    dh2, db2 = kern(dpre, None, b, "none", bf, True)
+    assert torch.equal(dh, dpre) and dh2 is dpre and torch.equal(db, db2)
+
+
+def test_f1_back_to_back_row_counts_each_give_their_own():
+    """Backward calls of different row counts and widths queued one after
+    another, without a synchronisation, give what each gives alone: each
+    launch leaves its column tiles' tickets at 0 for the next."""
+    cases = [(997, 768, "none"), (20_000, 3072, "poly"), (1, 768, "none"),
+             (131_072, 768, "none"), (37, 3072, "erf")]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    ins = [((2.5 * torch.randn((r, w), generator=g, device="cuda")).to(torch.bfloat16),
+            torch.randn(w, generator=g, device="cuda"),
+            torch.randn((r, w), generator=g, device="cuda").to(torch.bfloat16), act)
+           for r, w, act in cases]
+    alone = []
+    for h, b, gy, act in ins:
+        alone.append(fused_layer._bias_act_backward_kernel(gy, h, b, act,
+                                                           torch.bfloat16, True))
+        torch.cuda.synchronize()
+    queued = [fused_layer._bias_act_backward_kernel(gy, h, b, act, torch.bfloat16, True)
+              for h, b, gy, act in ins]
+    torch.cuda.synchronize()
+    for (dh_a, db_a), (dh_q, db_q) in zip(alone, queued):
+        assert torch.equal(dh_a, dh_q) and torch.equal(db_a, db_q)
+    assert all(int(t.abs().sum()) == 0 for t in fused_layer._tickets.values())
+
+
+def test_f1_backward_refuses_a_ticket_buffer_too_short_for_its_tiles():
+    """F1's backward takes a ticket a 64-column tile from a buffer passed
+    with its length: one too short is refused before the launch, not
+    overrun."""
+    rows, w, bf = 256, 768, torch.bfloat16
+    g = torch.randn((rows, w), device="cuda").to(bf)
+    partial, db = torch.empty((1, w), device="cuda"), torch.zeros(w, device="cuda")
+    tickets = torch.zeros(w // fused_layer.F1_TILE_COLS, dtype=torch.int32,
+                          device="cuda")
+    entry = fused_layer._bound("bias_act_backward")
+
+    def call(n_tickets):
+        return entry(g.data_ptr(), None, None, None, partial.data_ptr(), db.data_ptr(),
+                     tickets.data_ptr(), rows, w, fused_layer._dtype_id(bf, "h"),
+                     fused_layer._dtype_id(bf, "g"), fused_layer.ACTS["none"], rows, 1,
+                     fused_layer.G_LAYOUTS["rows"], 0, 0, n_tickets,
+                     fused_layer._stream(g.device))
+
+    assert call(tickets.numel() - 1) != 0
+    torch.cuda.synchronize()
+    assert int(db.abs().sum()) == 0 and int(tickets.abs().sum()) == 0
+    assert call(tickets.numel()) == 0
+    torch.cuda.synchronize()
+    assert _sum_close(db, g.float().sum(0)) and int(tickets.abs().sum()) == 0
+
+
+def test_f1_head_major_refuses_a_head_width_not_a_multiple_of_8():
+    h = torch.zeros((2, 4, 36), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_layer.bias_act(h, None, "none", torch.bfloat16, head_dim=12)
+    with pytest.raises(ValueError, match="act 'none'"):
+        fused_layer.bias_act(torch.zeros((2, 4, 64), dtype=torch.bfloat16,
+                                         device="cuda"), None, "poly",
+                             torch.bfloat16, head_dim=16)
+    g = torch.zeros((2, 3, 4, 12), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_layer._bias_act_backward_kernel(g, None, None, "none", torch.bfloat16,
+                                              True, head_dim=12)
+
+
 def _f2_case(with_r, x_dt, out_dt, rows, w, seed=0, calls=1):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (1.0 + torch.randn((rows, w), generator=g, device="cuda")).to(DT[x_dt])

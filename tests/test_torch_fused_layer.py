@@ -18,6 +18,13 @@ plain versions.
 - The memory fix: one BERT-base-width bf16 training layer saves at most 40
   KB a token, and no f32 tensor of the FFN or hidden width, with fast_train
   on and off (~190 and ~49 KB before).
+- F1's head-major layout (q, k and v as (B, nh, S, hd)): the plain version
+  against the JAX package's head-major projection (blp_tpu/models/bert.py
+  :411-415, its einsum "bsh,hnd->bnsd" plus the bias, on an identity
+  weight) and its jax.vjp, with the tolerances above; the Function bit-equal
+  to the plain version and its autograd VJP, for a contiguous cotangent and
+  for k's, strided as q k^T's backward leaves it; the cotangent layouts the
+  kernel path reads; F1's row chunks.
 """
 
 import jax
@@ -294,3 +301,120 @@ def test_bert_base_training_layer_saves_at_most_32_kb_a_token(fast_train):
                               seeds=(1, 2, 3), rate=0.1)
     assert sum(storages.values()) / (B * S) <= 32e3
     assert attn_f32 == []
+
+
+def _jax_head_major(dtype, nh, hd):
+    """The TPU package's mixed-precision q/k/v projection (bert.py:411-415)
+    on an identity weight, so the product is exact and the comparison is
+    F1's bias add and layout alone."""
+    def proj(x, b):
+        H = x.shape[-1]
+        out = jnp.einsum("bsh,hnd->bnsd", x.astype(J_DT[dtype]),
+                         jnp.eye(H, dtype=J_DT[dtype]).reshape(H, nh, hd),
+                         preferred_element_type=jnp.float32)
+        return (out + b.reshape(nh, 1, hd)).astype(J_DT[dtype])
+    return proj
+
+
+#: (B, S, heads, head width): BERT's 64-wide heads, a ragged S, one row.
+HEAD_SHAPES = [(2, 8, 4, 8), (3, 5, 2, 16), (2, 16, 3, 64), (1, 1, 2, 8)]
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_bias_act_head_major_plain_matches_jax(dtype, shape):
+    B, S, nh, hd = shape
+    h, b, _ = _f1_inputs(B * S, nh * hd, dtype, seed=6)
+    h = h.reshape(B, S, nh * hd)
+    g = np.random.default_rng(7).standard_normal((B, nh, S, hd)).astype(np.float32)
+    g = np.asarray(jnp.asarray(g, J_DT[dtype]).astype(jnp.float32))
+    want, vjp = jax.vjp(_jax_head_major(dtype, nh, hd), jnp.asarray(h, J_DT[dtype]),
+                        jnp.asarray(b))
+    dh_want, db_want = vjp(jnp.asarray(g, J_DT[dtype]))
+    th = torch.from_numpy(h).to(T_DT[dtype]).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    got = fused_layer.bias_act_plain(th, tb, "none", T_DT[dtype], head_dim=hd)
+    assert got.shape == (B, nh, S, hd) and got.is_contiguous()
+    dh, db = torch.autograd.grad(got, (th, tb), torch.from_numpy(g).to(T_DT[dtype]))
+    _assert_close(_np(got), _j(want), dtype)
+    _assert_close(_np(dh), _j(dh_want), dtype)
+    _assert_sum_close(_np(db), _j(db_want))
+
+
+def _k_layout(g):
+    """g (B, nh, S, hd) held as (B, nh, hd, S): k's cotangent after q k^T's
+    backward."""
+    return g.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+@pytest.mark.parametrize("cotangent", ["contiguous", "k"])
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+@pytest.mark.parametrize("h_dt,out_dt", [("bf16", "bf16"), ("f32", "bf16"),
+                                         ("f32", "f32")])
+def test_bias_act_head_major_function_equals_plain(h_dt, out_dt, shape, cotangent):
+    B, S, nh, hd = shape
+    h, b, _ = _f1_inputs(B * S, nh * hd, "bf16", seed=8)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (B, nh, S, hd)).astype(np.float32)).to(T_DT[out_dt])
+    if cotangent == "k":
+        g = _k_layout(g)
+    got, want = [], []
+    for fn, dest in ((fused_layer.bias_act, got), (fused_layer.bias_act_plain, want)):
+        th, tb = _leaves(h.reshape(B, S, nh * hd), b, dtypes=(T_DT[h_dt], torch.float32))
+        y = fn(th, tb, "none", T_DT[out_dt], head_dim=hd)
+        dest.append(y)
+        dest.extend(torch.autograd.grad(y, (th, tb), g))
+    assert got[0].shape == (B, nh, S, hd) and got[0].is_contiguous()
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+@pytest.mark.parametrize("shape,make,layout", [
+    ((2, 3, 16, 8), lambda g: g, "heads"),
+    ((2, 3, 16, 8), _k_layout, "heads_t"),
+    ((2, 3, 12, 8), _k_layout, "heads"),          # S not a multiple of 8
+    ((2, 3, 16, 8), lambda g: g.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3),
+     "heads")])
+def test_head_major_cotangent_layouts(shape, make, layout):
+    """The layout the kernel path reads a head-major cotangent in: its own,
+    k's (B, nh, hd, S) when S is a multiple of 8, and a contiguous copy of
+    any other."""
+    g = make(torch.randn(shape))
+    got, g2 = fused_layer._g_layout(g, shape[-1])
+    assert got == layout and torch.equal(g2, g)
+    assert (g2 is g) == (layout != "heads" or g.is_contiguous())
+
+
+@pytest.mark.parametrize("rows", [1, 63, 64, 997, 16_384, 20_000, 131_072, 786_432])
+def test_f1_chunks_are_whole_groups_within_the_chunk_limit(rows):
+    """F1's backward row chunks: whole 64-row groups (k's 8-row transpose
+    never crosses one), at most F1_MAX_CHUNKS of them, and the smallest
+    such."""
+    limit = fused_layer.F1_MAX_CHUNKS
+    chunk = fused_layer.f1_chunk_rows(rows)
+    assert chunk % fused_layer.F1_CHUNK_ROWS == 0
+    assert -(-rows // chunk) <= limit
+    assert (chunk == fused_layer.F1_CHUNK_ROWS
+            or -(-rows // (chunk - fused_layer.F1_CHUNK_ROWS)) > limit)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_head_major_projection_equals_the_transpose_of_dense(dtype):
+    """models/bert.py `_head_major` (F1 writing q head-major) equals the row
+    projection `_dense` reshaped and permuted, forward and backward."""
+    B, S, nh, hd = 2, 8, 4, 8
+    rng = np.random.default_rng(10)
+    x, w = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((B, S, nh * hd), (nh * hd, nh * hd)))
+    b = torch.from_numpy(rng.standard_normal(nh * hd).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((B, nh, S, hd)).astype(np.float32))
+    res = []
+    for fn in (lambda xx, ww, bb: t_bert._head_major(xx, ww, bb, hd, T_DT[dtype]),
+               lambda xx, ww, bb: t_bert._dense(xx, ww, bb, T_DT[dtype], T_DT[dtype])
+               .reshape(B, S, nh, hd).permute(0, 2, 1, 3)):
+        ins = [t.clone().requires_grad_() for t in (x, w, b)]
+        y = fn(*ins)
+        res.append([y, *torch.autograd.grad(y, ins, g.to(y.dtype))])
+    assert res[0][0].is_contiguous()
+    for a, w_ in zip(*res):
+        assert torch.equal(a, w_)
