@@ -4,7 +4,8 @@
 // blp_tpu/models/bert.py, the training layer's scale, mask bias,
 // jax.nn.softmax, bf16 cast and `_rng_dropout` (:430-441), and the inference
 // layer's bf16 logits with f32 softmax statistics (:357-365).
-// ops/attn_softmax.py holds the plain version and the autograd wiring.
+// ops/attn_softmax.py holds the plain version, the autograd wiring and the
+// choice between the two designs below.
 //
 //   forward   x = f32(l) * (1 / scale) + bias     (round_logits: x = round_bf16(x))
 //             p = exp(x - max x) * (1 / sum exp(x - max x))
@@ -18,41 +19,67 @@
 // each written out without contraction. The row sums run in another order
 // than torch's, and p takes the sum's reciprocal where torch divides, so the
 // kernel agrees with the plain version to f32 rounding of the sums (bf16
-// outputs within one ulp), not bit for bit.
+// outputs within one ulp), not bit for bit. The sums are row-local and in a
+// fixed order, so two calls give the same bits.
 //
-// The dropout mask is not read: the forward and the backward evaluate it in
-// registers from the site's seed and each element's flat index in the whole
-// site (dropout_rng.cuh, ops/dropout_rng.py), so a rank's block of the site
-// (its first row, and its first head of the whole site's heads under tensor
-// parallelism) gets the one-device mask. A lane's four-key chunk is one
-// Philox call at 32 bits and a quarter (16 bits: a half) of one at 8 bits;
-// there the lanes whose chunks share a call take its words by shuffles
-// from the one lane that evaluates it (`keep_rows_shared`).
+// The dropout mask is not read: both designs evaluate it in registers from
+// the site's seed and each element's flat index in the whole site
+// (dropout_rng.cuh, ops/dropout_rng.py), so a rank's block of the site (its
+// first row, and its first head of the whole site's heads under tensor
+// parallelism) gets the one-device mask.
 //
-// What bounds it on an H100: bytes, or with 32-bit masks nearly the
-// generator's operations. At the W5M train shape (1,024 packed rows x 12
+// What bounds it on an H100: bytes, and with 32-bit masks nearly the
+// generator's operations too. At the W5M train shape (1,024 packed rows x 12
 // heads x 128 x 128) the forward reads the bf16 logits (2 bytes an element)
-// and the f32 bias (shared by the 12 heads) and writes the bf16 output (2);
-// the backward reads l and g and writes dl (6); against ~10 (forward) and
-// ~16 (backward) fp32 operations an element, plus the generator's ~100
-// integer operations a call, 25 an element at 32 bits and ~6 at 8 (what the
-// data needs; at 8 bits a warp evaluates half a call for each 4-key chunk,
-// its lanes sharing it, and the kernel reached ~45% of its bound: PERF.md
-// §6). The op-by-op chain moved ~10 GB forward and ~8.6 GB backward a layer
-// through f32 temporaries; this moves ~0.8 and ~1.2 GB. Design: a warp a
-// row (row, head, query), the row in registers (Sk <= 1,024), loaded once:
-// the max, the exponentials, their sum and the output from registers; the
-// backward recomputes the row's softmax from l instead of reading a saved
-// f32 output. Rows of up to 256 keys go two to a warp, their loads issued
-// before either row's reductions. A lane owns chunks of W consecutive keys:
-// W = 4 (8- or 16-byte loads and stores, the bias as float4) when Sk is a
-// multiple of 4 and every pointer and bias stride is aligned to it, else
-// W = 1. Sums are row-local shuffles, so two calls give the same bits.
+// and the f32 bias once (it has no head axis) and writes the bf16 output (2):
+// 0.80 GB, 0.24 ms at 3.35 TB/s; the backward reads l and g and writes dl
+// (6). Against that, ~10 (forward) and ~16 (backward) fp32 operations an
+// element and the generator's ~100 integer operations a Philox call, 25 an
+// element at 32 bits (a call covers 4 masks) and ~6 at 8 (16 masks); sm_90
+// runs 32-bit integer multiplies at half the fp32 rate, so at 32 bits only
+// loads that overlap the generator can approach the byte bound.
+//
+// Two designs:
+//
+// "tile" (Sk % 8 == 0, Sk <= 256, a bias with no head stride, 16-byte
+//   aligned pointers: every launch of the layer). A persistent grid (blocks
+//   per SM from the occupancy API: 3 forward, 2 backward) walks tiles of one
+//   batch row and T query rows across all heads. A producer thread copies
+//   each head's T x Sk run of l (and g) with one bulk copy into a ring of
+//   slabs in shared memory, and the tile's bias once for all heads, so the
+//   bias is read from memory once where the row design read it once a head;
+//   each mbarrier counts its slab's bytes in. The consumer warps evaluate
+//   their slab's keep bits before they wait for it and release it as soon as
+//   its values are in registers, so the next slabs' copies are in flight
+//   while the generator, the reductions, the exponentials and the stores
+//   run. A lane holds 16 keys of one row in two 8-key chunks (16-byte loads
+//   and stores); at 8 bits the two lanes that share a Philox call in each
+//   chunk evaluate one call each and swap two words; mask fields are
+//   compared a word at a time and bf16 roundings packed two at a time,
+//   because the dropout variants are bound by instructions, not loads.
+//
+// "row" (the rest: Sk not a multiple of 8 or above 256, up to 1,024; a bias
+//   read through a head stride; an unaligned view). A warp a row (row, head,
+//   query), the row in registers, loaded once; rows of up to 256 keys go two
+//   to a warp, their loads issued before either row's reductions. A lane owns
+//   chunks of W consecutive keys: W = 4 when Sk is a multiple of 4 and every
+//   pointer and bias stride is aligned to it, else W = 1. At 8 and 16 bits
+//   the lanes whose chunks share a Philox call take its words by shuffles
+//   from the one lane that evaluates it (`keep_rows_shared`).
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6, chip_smoke.py;
+// bounds 0.260 ms forward, 0.381 backward) at 1,024 x 12 x 128 x 128: the
+// tile forward 0.337 ms with 8-bit masks (77% of its bound), 0.457 with
+// 32-bit (57%), 0.344 without (76%), against the row design's 0.580, 0.608
+// and 0.363 in the same run; the backward 0.471 and 0.500 ms (81%, 76%)
+// against 0.650 and 0.671.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #include "dropout_rng.cuh"
 
@@ -135,6 +162,8 @@ __device__ __forceinline__ void load_bias(const float* row, long long bsk, int e
                                           float b[W]) {
   if constexpr (W == 4) load4(row + e, b); else b[0] = row[e * bsk];
 }
+
+// ---- the "row" design -------------------------------------------------------
 
 // Rows a warp takes at once: two while a row is at most 8 values a lane.
 template <int NE> __host__ __device__ constexpr int rows_per_warp() { return NE <= 8 ? 2 : 1; }
@@ -399,6 +428,431 @@ attn_softmax_bwd(const TL* __restrict__ l, Bias bias, dropout_rng::Site drop,
   }
 }
 
+// ---- the "tile" design ------------------------------------------------------
+//
+// A persistent grid walks tiles: one batch row b and T query rows, across all
+// nh heads of the call. Each head's T x Sk logits are one contiguous run of
+// l (and of g), so one thread of a producer warp copies them with one bulk
+// copy (TMA) into a ring of `stages` slabs in shared memory; the tile's bias
+// (T rows of Sk f32, or one row when it is the same for every query) comes
+// once into one of two bias slots and serves every head. Each slab's
+// mbarrier counts its bytes in; each consumer warp releases a slab as soon
+// as its values are in registers (the bias slot after the tile's last head),
+// so the copies of the next slabs are in flight while the warps evaluate the
+// dropout generator, reduce, exponentiate and store. A lane holds two chunks
+// of 8 consecutive keys of one row (16-byte shared loads and global stores
+// in bf16), LPR lanes a row, T = 8 warps x 32 / LPR rows: one row a lane in
+// every slab, so a slab is a warp's one step. Row sums go over the row's
+// lanes in a fixed order.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(arrivals)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also sets the bytes the phase's copies will complete.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier has completed the phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// A bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// global into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"((uint64_t)src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// ---- end of the PTX helpers
+
+constexpr int kTileWarps = 8;                       // consumer warps a block
+constexpr int kTileThreads = 32 * (kTileWarps + 1); // and one producer warp
+constexpr int kTileMaxSk = 256;
+
+// Lanes a row and rows a tile for rows of Sk keys (Sk % 8 == 0, Sk <= 256).
+// A lane holds two chunks of 8 keys, 8 (sub + LPR c) .. + 7 for c = 0, 1,
+// sub its place among the row's LPR lanes.
+constexpr int kChunks = 2;
+__host__ __device__ constexpr int lanes_per_row(int sk) {
+  return sk <= 64 ? 4 : sk <= 128 ? 8 : 16;
+}
+__host__ __device__ constexpr int tile_rows(int lpr) { return kTileWarps * 32 / lpr; }
+
+// Shared memory: 2 stages + 4 mbarriers (padded to 128 bytes), the ring of
+// slabs (l's T x Sk values, then g's in the backward) and two bias slots.
+__host__ __device__ inline size_t tile_barrier_bytes(int stages) {
+  return ((size_t)(2 * stages + 4) * 8 + 127) / 128 * 128;
+}
+__host__ __device__ inline size_t tile_smem_bytes(int rows, int sk, int slab_elem_bytes,
+                                                  int stages) {
+  return tile_barrier_bytes(stages) + (size_t)stages * rows * sk * slab_elem_bytes +
+         2 * (size_t)rows * sk * sizeof(float);
+}
+
+struct TileArgs {
+  const void* l;
+  const void* g;             // backward
+  void* out;                 // y or dl
+  const float* bias;
+  long long bsb, bsq;        // bias strides (elements); bsq 0: one row for all queries
+  dropout_rng::Site drop;
+  Block blk;
+  int nh, sq, sk, stages;
+  int tiles_per_b;           // ceil(Sq / T)
+  long long tiles;           // B * tiles_per_b
+  float inv_scale;
+};
+
+// 8 consecutive values as f32, and back (16 bytes of bf16; 32 of f32).
+__device__ __forceinline__ void load8(const bf16* p, float v[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float v[8]) {
+  load4(p, v);
+  load4(p + 4, v + 4);
+}
+__device__ __forceinline__ void store8(bf16* p, const float v[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<__nv_bfloat162*>(&w[i]) = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store8(float* p, const float v[8]) {
+  store4(p, v);
+  store4(p + 4, v + 4);
+}
+
+// v rounded to T and back (bf16: two at a time, one pack and two shifts,
+// where a conversion each runs at a quarter of the rate; the same values as
+// round_to).
+template <typename T> __device__ __forceinline__ void round8(float v[8]) {
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(__floats2bfloat162_rn(v[2 * i], v[2 * i + 1]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+}
+
+template <int LPR> __device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) {
+    const float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = v < w ? w : v;
+  }
+  return v;
+}
+template <int LPR> __device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Whether each field of w (4 of 8 bits, or 2 of 16: F) is >= t, compared
+// all at once: with H the fields' top bits, (w | H) - (t's low bits in
+// every field) has a field's top bit set where w's low bits are >= t's
+// (no borrow crosses a field), and w >= t where w's top bit is set and
+// t's not, or both equal and that bit set. Bit i of the result: field i.
+template <int F>
+__device__ __forceinline__ uint32_t fields_ge(uint32_t w, uint32_t t) {
+  constexpr uint32_t H = F == 8 ? 0x80808080u : 0x80008000u;
+  constexpr uint32_t ONES = F == 8 ? 0x01010101u : 0x00010001u;
+  const uint32_t lo = (t & (H / ONES - 1)) * ONES;     // t's low bits, every field
+  const uint32_t hi = t & (H / ONES) ? H : 0u;         // t's top bit, every field
+  const uint32_t low_ge = (w | H) - lo;
+  const uint32_t ge = ((w & ~hi) | (~(w ^ hi) & low_ge)) & H;
+  if constexpr (F == 8) return ((ge >> 7) * 0x01020408u) >> 24;   // bits 0, 8, 16, 24 gathered
+  else return (ge >> 15 & 1u) | ge >> 30;
+}
+
+// The keep bits (bit k: key k) at 8 bits of an 8-key run from two of a
+// call's words: fields 0 .. 3 of w0, then of w1.
+__device__ __forceinline__ uint32_t bits8(uint32_t w0, uint32_t w1, uint32_t t) {
+  return fields_ge<8>(w0, t) | fields_ge<8>(w1, t) << 4;
+}
+
+// 8-bit masks when Sk % 16 == 0: the lanes 2i and 2i + 1 of a row hold, in
+// each chunk c, the 16 keys of one Philox call (the even lane's chunk 0
+// starting at n, chunk 1 at n + 8 LPR). The even lane evaluates chunk 0's
+// call, the odd lane chunk 1's, and each takes the words it lacks by a
+// shuffle: one call a lane. Returns the bits of both chunks (bit 8 c + k).
+template <int LPR>
+__device__ __forceinline__ uint32_t pair_bits8(const dropout_rng::Site& s,
+                                               unsigned long long n, bool odd) {
+  uint32_t w[4];
+  dropout_rng::call_words(s, (n + (odd ? 8 * LPR : 0)) / 16, w);
+  const uint32_t a = __shfl_xor_sync(0xffffffffu, odd ? w[0] : w[2], 1);
+  const uint32_t b = __shfl_xor_sync(0xffffffffu, odd ? w[1] : w[3], 1);
+  return odd ? bits8(a, b, s.t) | bits8(w[2], w[3], s.t) << 8
+             : bits8(w[0], w[1], s.t) | bits8(a, b, s.t) << 8;
+}
+
+// The lane's 8 keys' keep bits at NB bits (a run of 8 starting at n, n % 8
+// == 0): two calls at 32 bits, one at 16, half of one at 8; the bits of
+// dropout_rng::keep_bits<NB, 8>, with 8- and 16-bit fields compared a word
+// at a time.
+template <int NB>
+__device__ __forceinline__ uint32_t lane_bits(const dropout_rng::Site& s,
+                                              unsigned long long n) {
+  if constexpr (NB == 32) {   // a compare a word (faster here than w < t * 256)
+    return dropout_rng::keep_bits<32, 8>(s, n);
+  } else {
+    uint32_t w[4];
+    dropout_rng::call_words(s, n / (128 / NB), w);
+    if constexpr (NB == 8) {  // fields n % 16 .. + 7 of the call: words 0, 1 or 2, 3
+      return n % 16 ? bits8(w[2], w[3], s.t) : bits8(w[0], w[1], s.t);
+    } else {
+      uint32_t bits = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) bits |= fields_ge<16>(w[i], s.t) << (2 * i);
+      return bits;
+    }
+  }
+}
+
+// The flat index in the dropout site of key 0 of the tile's row r in head 0.
+__device__ __forceinline__ unsigned long long tile_n0(const TileArgs& a, long long t,
+                                                      int rows_per_tile, int r) {
+  const long long bi = t / a.tiles_per_b;
+  const int q = (int)(t % a.tiles_per_b) * rows_per_tile + r;
+  return (((unsigned long long)(a.blk.row0 + bi) * a.blk.heads + a.blk.head0) * a.sq + q) *
+         a.sk;
+}
+
+// LPR = lanes_per_row(Sk). ROUND: the forward rounds the scaled, biased
+// logits to bf16 (the inference variant, without dropout).
+template <typename TL, typename TO, int LPR, int NB, bool BWD, bool ROUND>
+__device__ __forceinline__ void tile_body(const TileArgs& a, unsigned char* smem) {
+  constexpr int T = tile_rows(LPR), RW = 32 / LPR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sk = a.sk, sq = a.sq, nh = a.nh, stages = a.stages;
+  const uint32_t l_bytes = (uint32_t)(T * sk * sizeof(TL));
+  const uint32_t slab_bytes = l_bytes + (BWD ? (uint32_t)(T * sk * sizeof(TO)) : 0u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + stages;
+  uint64_t* bias_full = empty + stages;
+  uint64_t* bias_empty = bias_full + 2;
+  unsigned char* ring = smem + tile_barrier_bytes(stages);
+  float* bias_s = reinterpret_cast<float*>(ring + (size_t)stages * slab_bytes);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kTileWarps);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bias_full[s], 1);
+      mbar_init(&bias_empty[s], kTileWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kTileWarps) {   // the producer: one thread issues every copy
+    if (lane != 0) return;
+    int slot = 0;
+    uint32_t phase = 0, j = 0;
+    for (long long t = blockIdx.x; t < a.tiles; t += gridDim.x, ++j) {
+      const long long bi = t / a.tiles_per_b;
+      const int q0 = (int)(t % a.tiles_per_b) * T, rows = min(T, sq - q0);
+      const int bs = j & 1;
+      mbar_wait(&bias_empty[bs], ((j >> 1) & 1) ^ 1);
+      const float* bsrc = a.bias + bi * a.bsb + (long long)q0 * a.bsq;
+      float* bdst = bias_s + bs * T * sk;
+      const uint32_t row_bytes = (uint32_t)(sk * sizeof(float));
+      if (a.bsq == 0) {
+        mbar_arrive_expect_tx(&bias_full[bs], row_bytes);
+        bulk_load(bdst, bsrc, row_bytes, &bias_full[bs]);
+      } else {
+        mbar_arrive_expect_tx(&bias_full[bs], rows * row_bytes);
+        if (a.bsq == sk)
+          bulk_load(bdst, bsrc, rows * row_bytes, &bias_full[bs]);
+        else
+          for (int r = 0; r < rows; ++r)
+            bulk_load(bdst + r * sk, bsrc + r * a.bsq, row_bytes, &bias_full[bs]);
+      }
+      const uint32_t lb = (uint32_t)(rows * sk * sizeof(TL));
+      const uint32_t gb = BWD ? (uint32_t)(rows * sk * sizeof(TO)) : 0u;
+      for (int h = 0; h < nh; ++h) {
+        mbar_wait(&empty[slot], phase ^ 1);
+        const long long off = ((bi * nh + h) * sq + q0) * (long long)sk;
+        unsigned char* st = ring + (size_t)slot * slab_bytes;
+        mbar_arrive_expect_tx(&full[slot], lb + gb);
+        bulk_load(st, static_cast<const TL*>(a.l) + off, lb, &full[slot]);
+        if constexpr (BWD)
+          bulk_load(st + l_bytes, static_cast<const TO*>(a.g) + off, gb, &full[slot]);
+        if (++slot == stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers: row r of each slab, keys e[c] .. e[c] + 7 of chunk c.
+  const int sub = lane % LPR, r = warp * RW + lane / LPR;
+  const int e[kChunks] = {8 * sub, 8 * (sub + LPR)};
+  const bool key_ok[kChunks] = {e[0] < sk, e[1] < sk};
+  const bool pair8 = NB == 8 && sk % 16 == 0;
+  const unsigned long long head_n = (unsigned long long)sq * sk;   // n from head to head
+  int slot = 0;
+  uint32_t phase = 0, j = 0;
+  for (long long t = blockIdx.x; t < a.tiles; t += gridDim.x, ++j) {
+    const long long bi = t / a.tiles_per_b;
+    const int q0 = (int)(t % a.tiles_per_b) * T;
+    const bool row_ok = r < sq - q0;
+    const bool ok[kChunks] = {row_ok && key_ok[0], row_ok && key_ok[1]};
+    const int bs = j & 1;
+    const float* brow = bias_s + bs * T * sk + (a.bsq == 0 ? 0 : r * sk);
+    mbar_wait(&bias_full[bs], (j >> 1) & 1);
+    const unsigned long long n_tile = tile_n0(a, t, T, r);
+    const long long row_off = (bi * nh * sq + q0 + r) * (long long)sk;   // head 0
+    for (int h = 0; h < nh; ++h) {
+      const unsigned long long n0 = n_tile + h * head_n;
+      uint32_t kept = 0xFFFFFFFFu;
+      if constexpr (NB == 8) {
+        if (pair8)
+          kept = pair_bits8<LPR>(a.drop, n0 + 8 * (sub & ~1), sub & 1);
+        else
+          kept = lane_bits<8>(a.drop, n0 + e[0]) | lane_bits<8>(a.drop, n0 + e[1]) << 8;
+      } else if constexpr (NB != 0) {
+        kept = lane_bits<NB>(a.drop, n0 + e[0]) | lane_bits<NB>(a.drop, n0 + e[1]) << 8;
+      }
+      float x[8 * kChunks], gv[8 * kChunks], bv[8];
+      mbar_wait(&full[slot], phase);
+      const unsigned char* st = ring + (size_t)slot * slab_bytes;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        if (ok[c]) {
+          load8(reinterpret_cast<const TL*>(st) + r * sk + e[c], x + 8 * c);
+          if constexpr (BWD)
+            load8(reinterpret_cast<const TO*>(st + l_bytes) + r * sk + e[c], gv + 8 * c);
+        }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+      if (++slot == stages) {
+        slot = 0;
+        phase ^= 1;
+      }
+      // softmax: the max, exp(x - max) and their sum, times its reciprocal
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        if (ok[c]) load8(brow + e[c], bv);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          x[8 * c + k] = __fadd_rn(__fmul_rn(x[8 * c + k], a.inv_scale), bv[k]);
+        if constexpr (ROUND) round8<bf16>(x + 8 * c);
+      }
+      float m = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < 8 * kChunks; ++k) {
+        if (!ok[k / 8]) x[k] = -INFINITY;
+        m = m < x[k] ? x[k] : m;
+      }
+      m = group_max<LPR>(m);
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8 * kChunks; ++k) {
+        x[k] = expf(__fsub_rn(x[k], m));
+        s = __fadd_rn(s, x[k]);
+      }
+      s = __frcp_rn(group_sum<LPR>(s));
+#pragma unroll
+      for (int k = 0; k < 8 * kChunks; ++k) x[k] = __fmul_rn(x[k], s);
+      const long long off = row_off + (long long)h * head_n;
+      if constexpr (!BWD) {
+        if constexpr (NB != 0) {   // round_out(round_out(p) / keep_p); store8 rounds
+#pragma unroll
+          for (int c = 0; c < kChunks; ++c) round8<TO>(x + 8 * c);
+#pragma unroll
+          for (int k = 0; k < 8 * kChunks; ++k)
+            x[k] = (kept >> k) & 1u ? __fmul_rn(x[k], a.drop.inv_keep_p) : 0.0f;
+        }
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c)
+          if (ok[c]) store8(static_cast<TO*>(a.out) + off + e[c], x + 8 * c);
+      } else {
+        if constexpr (NB != 0) {   // gd = round_out(g / keep_p) where kept
+#pragma unroll
+          for (int k = 0; k < 8 * kChunks; ++k) gv[k] = __fmul_rn(gv[k], a.drop.inv_keep_p);
+#pragma unroll
+          for (int c = 0; c < kChunks; ++c) round8<TO>(gv + 8 * c);
+        }
+        float tsum = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 8 * kChunks; ++k) {
+          const float gd = ok[k / 8] && (NB == 0 || (kept >> k) & 1u) ? gv[k] : 0.0f;
+          gv[k] = __fmul_rn(gd, x[k]);
+          tsum = __fadd_rn(tsum, gv[k]);
+        }
+        tsum = group_sum<LPR>(tsum);
+#pragma unroll
+        for (int k = 0; k < 8 * kChunks; ++k)
+          gv[k] = __fmul_rn(__fmaf_rn(-x[k], tsum, gv[k]), a.inv_scale);
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c)
+          if (ok[c]) store8(static_cast<TL*>(a.out) + off + e[c], gv + 8 * c);
+      }
+    }
+    __syncwarp();   // the bias slot serves every head of the tile
+    if (lane == 0) mbar_arrive(&bias_empty[bs]);
+  }
+}
+
+// Three forward blocks an SM (up to 72 registers a thread), two backward
+// ones: the backward holds l's and g's values, which at 72 registers spilled.
+template <typename TL, typename TO, int LPR, int NB, bool ROUND>
+__global__ void __launch_bounds__(kTileThreads, 3) attn_softmax_tile_fwd(TileArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  tile_body<TL, TO, LPR, NB, false, ROUND>(a, smem);
+}
+
+template <typename TL, typename TO, int LPR, int NB>
+__global__ void __launch_bounds__(kTileThreads, 2) attn_softmax_tile_bwd(TileArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  tile_body<TL, TO, LPR, NB, true, false>(a, smem);
+}
+
+// ---- host side --------------------------------------------------------------
+
 // Blocks of each (batch, head): ceil(Sq / (kWarps * R)).
 template <int NE> unsigned chunks_for(int sq) {
   constexpr int per_block = kWarps * rows_per_warp<NE>();
@@ -417,6 +871,7 @@ struct Args {
   int nh, sq, sk;
   float inv_scale;
   bool round_logits;
+  int stages;      // 0: the row design; else the tile design's ring stages
 };
 
 template <typename TL, typename TO, int W, int NC, bool DROP>
@@ -452,9 +907,10 @@ bool vector_ok(const Args& a) {
          aligned(a.out, 4 * (a.g == nullptr ? sizeof(TO) : sizeof(TL)));
 }
 
-// The fewest chunks a lane that hold the row: Sk 128 is one chunk of 4.
+// The row design: the fewest chunks a lane that hold the row (Sk 128 is one
+// chunk of 4).
 template <typename TL, typename TO>
-cudaError_t dispatch(const Args& a, bool backward, cudaStream_t st) {
+cudaError_t row_dispatch(const Args& a, bool backward, cudaStream_t st) {
   if (vector_ok<TL, TO>(a)) {
     const int nc = (a.sk + 127) / 128;
     if (nc <= 1) return launch<TL, TO, 4, 1>(a, backward, st);
@@ -473,6 +929,103 @@ cudaError_t dispatch(const Args& a, bool backward, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+constexpr size_t kMaxSmem = 232448;   // a block's shared memory on sm_90
+
+// What the tile design takes (ops/attn_softmax.py `design` mirrors it): Sk a
+// multiple of 8 up to 256; a bias with key stride 1 that is the same for
+// every head (head stride 0, or one head), whose batch and query strides are
+// multiples of 4 floats (16 bytes); every pointer 16-byte aligned; rounded
+// logits only without dropout; at least two stages whose shared memory fits
+// a block.
+bool tile_ok(const Args& a, int slab_elem_bytes) {
+  const long long batches = a.rows / ((long long)a.nh * a.sq);
+  const int rows = tile_rows(lanes_per_row(a.sk));
+  return a.sk % 8 == 0 && a.sk <= kTileMaxSk && !(a.round_logits && a.drop.nbits != 0) &&
+         a.b.sk == 1 && (a.b.sh == 0 || a.nh == 1) &&
+         (batches == 1 || a.b.sb % 4 == 0) && (a.sq == 1 || a.b.sq % 4 == 0) &&
+         aligned(a.b.p, 16) && aligned(a.l, 16) && aligned(a.out, 16) &&
+         (a.g == nullptr || aligned(a.g, 16)) && a.stages >= 2 &&
+         tile_smem_bytes(rows, a.sk, slab_elem_bytes, a.stages) <= kMaxSmem;
+}
+
+// Resident blocks of a tile kernel at `smem` bytes (SMs x blocks per SM from
+// the occupancy API), cached per device and size for each instance.
+template <typename TL, typename TO, int LPR, int NB, bool BWD, bool ROUND>
+cudaError_t resident_blocks(void (*kernel)(TileArgs), size_t smem, int* blocks) {
+  static std::mutex mu;
+  static int cached_dev = -1, cached_blocks = 0;
+  static size_t cached_smem = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (cached_dev != dev || cached_smem != smem) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTileThreads,
+                                                          smem);
+    if (err != cudaSuccess) return err;
+    cached_dev = dev;
+    cached_smem = smem;
+    cached_blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  *blocks = cached_blocks;
+  return cudaSuccess;
+}
+
+template <typename TL, typename TO, int LPR, int NB, bool BWD, bool ROUND = false>
+cudaError_t launch_tile(const Args& a, cudaStream_t st) {
+  constexpr int T = tile_rows(LPR);
+  void (*kernel)(TileArgs) = BWD ? attn_softmax_tile_bwd<TL, TO, LPR, NB>
+                                 : attn_softmax_tile_fwd<TL, TO, LPR, NB, ROUND>;
+  const size_t smem =
+      tile_smem_bytes(T, a.sk, (int)(sizeof(TL) + (BWD ? sizeof(TO) : 0)), a.stages);
+  int blocks = 0;
+  cudaError_t err = resident_blocks<TL, TO, LPR, NB, BWD, ROUND>(kernel, smem, &blocks);
+  if (err != cudaSuccess) return err;
+  const long long batches = a.rows / ((long long)a.nh * a.sq);
+  const int tiles_per_b = (a.sq + T - 1) / T;
+  const TileArgs t{a.l, a.g, a.out, a.b.p, batches == 1 ? 0 : a.b.sb,
+                   a.sq == 1 ? 0 : a.b.sq, a.drop, a.blk, a.nh, a.sq, a.sk, a.stages,
+                   tiles_per_b, batches * tiles_per_b, a.inv_scale};
+  const long long grid = t.tiles < blocks ? t.tiles : blocks;
+  kernel<<<(unsigned)grid, kTileThreads, smem, st>>>(t);
+  return cudaGetLastError();
+}
+
+template <typename TL, typename TO, int LPR, bool BWD>
+cudaError_t tile_bits(const Args& a, cudaStream_t st) {
+  if (!BWD && a.round_logits) return launch_tile<TL, TO, LPR, 0, false, true>(a, st);
+  switch (a.drop.nbits) {
+    case 0: return launch_tile<TL, TO, LPR, 0, BWD>(a, st);
+    case 8: return launch_tile<TL, TO, LPR, 8, BWD>(a, st);
+    case 16: return launch_tile<TL, TO, LPR, 16, BWD>(a, st);
+    case 32: return launch_tile<TL, TO, LPR, 32, BWD>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TL, typename TO, bool BWD>
+cudaError_t tile_dispatch(const Args& a, cudaStream_t st) {
+  if (!tile_ok(a, (int)(sizeof(TL) + (BWD ? sizeof(TO) : 0)))) return cudaErrorInvalidValue;
+  switch (lanes_per_row(a.sk)) {
+    case 4: return tile_bits<TL, TO, 4, BWD>(a, st);
+    case 8: return tile_bits<TL, TO, 8, BWD>(a, st);
+    default: return tile_bits<TL, TO, 16, BWD>(a, st);
+  }
+}
+
+// The design the wrapper chose: the tile design with a.stages > 0 (it
+// refuses what that design does not take), else the row design.
+template <typename TL, typename TO>
+cudaError_t dispatch(const Args& a, bool backward, cudaStream_t st) {
+  if (a.stages == 0) return row_dispatch<TL, TO>(a, backward, st);
+  return backward ? tile_dispatch<TL, TO, true>(a, st) : tile_dispatch<TL, TO, false>(a, st);
+}
 cudaError_t by_dtype(const Args& a, int l_dtype, int out_dtype, bool backward,
                      cudaStream_t st) {
   if (l_dtype == kBF16 && out_dtype == kBF16) return dispatch<bf16, bf16>(a, backward, st);
@@ -503,9 +1056,11 @@ bool drop_ok(int nbits, long long row0, int head0, int heads, int nh) {
 // (sqrt(head_dim)). The dropout site: nbits 0 (none), 8, 16 or 32; the
 // seed's two words, the integer threshold and keep_p (dropout_rng.cuh); the
 // call's block of the site's (B', heads, Sq, Sk): first row row0, first
-// head head0. Each launches on `stream` without synchronising and returns
-// cudaGetLastError() of its launch (cudaErrorInvalidValue for what it does
-// not take).
+// head head0. `stages`: 0 takes the row design; above 0 the tile design with
+// a ring of that many slabs (ops/attn_softmax.py `tile_plan`), refused with
+// cudaErrorInvalidValue where it does not take the call. Each launches on
+// `stream` without synchronising and returns cudaGetLastError() of its launch
+// (cudaErrorInvalidValue for what it does not take).
 
 extern "C" int attn_softmax_forward(const void* l, const void* bias,
                                     long long sb, long long sh, long long sq_,
@@ -515,14 +1070,14 @@ extern "C" int attn_softmax_forward(const void* l, const void* bias,
                                     unsigned seed_lo, unsigned seed_hi, int nbits,
                                     unsigned threshold, float keep_p,
                                     long long row0, int head0, int heads,
-                                    void* stream) {
+                                    int stages, void* stream) {
   if (!shape_ok(rows, nh, sq, sk) || l == nullptr || bias == nullptr ||
       y == nullptr || !drop_ok(nbits, row0, head0, heads, nh))
     return (int)cudaErrorInvalidValue;
   const Args a{l, Bias{static_cast<const float*>(bias), sb, sh, sq_, sk_},
                dropout_rng::make_site(seed_lo, seed_hi, nbits, threshold, keep_p),
                Block{row0, head0, heads}, nullptr, y, rows, nh, sq, sk,
-               1.0f / scale, round_logits != 0};
+               1.0f / scale, round_logits != 0, stages};
   return (int)by_dtype(a, l_dtype, out_dtype, false, (cudaStream_t)stream);
 }
 
@@ -536,13 +1091,13 @@ extern "C" int attn_softmax_backward(const void* l, const void* bias,
                                      unsigned seed_lo, unsigned seed_hi, int nbits,
                                      unsigned threshold, float keep_p,
                                      long long row0, int head0, int heads,
-                                     void* stream) {
+                                     int stages, void* stream) {
   if (!shape_ok(rows, nh, sq, sk) || l == nullptr || bias == nullptr ||
       g == nullptr || dl == nullptr || !drop_ok(nbits, row0, head0, heads, nh))
     return (int)cudaErrorInvalidValue;
   const Args a{l, Bias{static_cast<const float*>(bias), sb, sh, sq_, sk_},
                dropout_rng::make_site(seed_lo, seed_hi, nbits, threshold, keep_p),
                Block{row0, head0, heads}, g, dl, rows, nh, sq, sk, 1.0f / scale,
-               false};
+               false, stages};
   return (int)by_dtype(a, l_dtype, out_dtype, true, (cudaStream_t)stream);
 }

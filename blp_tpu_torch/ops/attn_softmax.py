@@ -23,15 +23,20 @@ recomputes the row's f32 softmax from it, the same `keep` from the seed,
 and returns dl in l's dtype, rounding where the op-by-op chain's backward
 rounds.
 
-The CUDA kernel (csrc/attn_softmax.cu) holds a row in a warp's registers
-(Sk <= MAX_SK), sums within the row, without atomics, so two calls give the
-same bits, and evaluates the keep bits in registers (csrc/dropout_rng.cuh):
-no mask is drawn or stored. `attn_softmax_plain` is the arithmetic of the
-unfused layer. On CPU tensors the forward runs it, and the backward
-recomputes it from l and differentiates it with torch.autograd, so CPU
-results equal the unfused chain's bit for bit while saving only l; CUDA
-tensors launch the kernel or raise. The wrapper allocates with torch ops and launches on the current
-stream, so the selective checkpoint policies (models/bert.py) recompute it.
+The CUDA kernels (csrc/attn_softmax.cu) sum within a row, without atomics,
+so two calls give the same bits, and evaluate the keep bits in registers
+(csrc/dropout_rng.cuh): no mask is drawn or stored. `design` picks one of
+two by shape, strides and alignment: "tile" (Sk % 8 == 0, Sk <= 256, a bias
+with no head stride: every call of the layer), a persistent grid that
+copies each tile of query rows for all heads into a ring in shared memory
+and reads its bias once for all heads, with `tile_plan`'s ring; "row" (the
+rest, Sk <= MAX_SK), a warp a row in registers. `attn_softmax_plain` is
+the arithmetic of the unfused layer. On CPU tensors the forward runs it,
+and the backward recomputes it from l and differentiates it with
+torch.autograd, so CPU results equal the unfused chain's bit for bit while
+saving only l; CUDA tensors launch a kernel or raise. The wrapper allocates
+with torch ops and launches on the current stream, so the selective
+checkpoint policies (models/bert.py) recompute it.
 """
 
 from __future__ import annotations
@@ -42,8 +47,19 @@ import torch
 
 from blp_tpu_torch.ops import _cuda, dropout_rng, fused_layer
 
-#: The longest row (keys) the kernel holds in a warp's registers.
+#: The longest row (keys) the kernels take (the row design holds it in a
+#: warp's registers).
 MAX_SK = 1024
+#: The tile design: rows of at most TILE_MAX_SK keys, a multiple of 8; a lane
+#: holds TILE_LANE_KEYS keys of a row (two chunks of 8); TILE_WARPS consumer
+#: warps, each a step of 32 lanes a slab; as many ring stages (at least 2,
+#: at most TILE_MAX_STAGES) as fit TILE_BLOCK_SMEM beside the two bias slots
+#: and the barriers, so that three blocks fit an SM's 228 KB.
+TILE_MAX_SK = 256
+TILE_LANE_KEYS = 16
+TILE_WARPS = 8
+TILE_BLOCK_SMEM = 72 * 1024
+TILE_MAX_STAGES = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: (l dtype, out dtype) pairs the kernel takes: the ones the layer uses.
@@ -52,8 +68,8 @@ _PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
 
 #: Kernel launches since the last reset (plain counters; chip_smoke.py reads
 #: them). Launches by variant go to fused_layer.launches_by_variant under
-#: ("attn_softmax", "<l dtype>-><out dtype> <round|drop<nbits>|plain>") and
-#: ("attn_softmax backward", ...).
+#: ("attn_softmax", "<tile|row> <l dtype>-><out dtype>
+#: <round|drop<nbits>|plain> sk<Sk>") and ("attn_softmax backward", ...).
 launches = 0
 backward_launches = 0
 
@@ -96,9 +112,9 @@ _P, _I, _L, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _DROP = [_U, _U, _I, _U, _F, _L, _I, _I]
 _SIGNATURES = {
     "attn_softmax_forward": [_P, _P] + [_L] * 4 + [_P, _L] + [_I] * 5 + [_F, _I]
-                            + _DROP + [_P],
+                            + _DROP + [_I, _P],
     "attn_softmax_backward": [_P, _P] + [_L] * 4 + [_P, _P, _L] + [_I] * 5 + [_F]
-                             + _DROP + [_P],
+                             + _DROP + [_I, _P],
 }
 _entry: dict = {}
 
@@ -139,35 +155,82 @@ def _dims(l):
     return b * nh * sq, nh, sq, sk
 
 
-def _variant(l, out_dtype, round_logits, dropout) -> str:
+def tile_plan(sk: int, l_dtype, out_dtype, backward: bool) -> tuple[int, int, int]:
+    """(lanes a row, rows a tile, ring stages) of the tile design for rows of
+    sk keys (csrc/attn_softmax.cu `lanes_per_row`, `tile_rows`): a slab is
+    a tile's rows of one head, l's (and g's in the backward); two bias slots
+    hold a tile's rows of f32 bias, and 512 bytes cover the barriers."""
+    lanes = 4 if sk <= 64 else 8 if sk <= 128 else 16
+    rows = TILE_WARPS * 32 // lanes
+    slab = rows * sk * (l_dtype.itemsize + (out_dtype.itemsize if backward else 0))
+    room = TILE_BLOCK_SMEM - 512 - 2 * rows * sk * 4
+    return lanes, rows, max(2, min(TILE_MAX_STAGES, room // slab))
+
+
+def design(l, bias, out, g=None, round_logits=False, dropout=None) -> str:
+    """"tile" where the tile design takes the call (csrc/attn_softmax.cu
+    `tile_ok`: Sk % 8 == 0 and <= TILE_MAX_SK; rounded logits only without
+    dropout; the bias, broadcast to l's shape, with key stride 1, no head
+    stride unless there is one head, batch and query strides that are
+    multiples of 4; every pointer 16-byte aligned), else "row"."""
+    b, nh, sq, sk = l.shape
+    sb, sh, sqs, sks = bias.stride()
+    ptrs = (l, bias, out) if g is None else (l, bias, out, g)
+    ok = (sk % 8 == 0 and sk <= TILE_MAX_SK and not (round_logits and dropout)
+          and sks == 1 and (sh == 0 or nh == 1)
+          and (b == 1 or sb % 4 == 0) and (sq == 1 or sqs % 4 == 0)
+          and all(t.data_ptr() % 16 == 0 for t in ptrs))
+    return "tile" if ok else "row"
+
+
+def _variant(which, l, out_dtype, round_logits, dropout) -> str:
     kind = ("round" if round_logits else
             "plain" if dropout is None else f"drop{dropout[2]}")
-    return f"{_NAMES[l.dtype]}->{_NAMES[out_dtype]} {kind}"
+    return (f"{which} {_NAMES[l.dtype]}->{_NAMES[out_dtype]} {kind} "
+            f"sk{l.shape[-1]}")
+
+
+def _stages(which, l, out_dtype, backward) -> int:
+    """The C entry points' `stages`: 0 for the row design."""
+    if which == "row":
+        return 0
+    return tile_plan(l.shape[-1], l.dtype, out_dtype, backward)[2]
 
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _forward_kernel(l, mask_bias, scale, out_dtype, round_logits, dropout):
+def _which(which, chosen: str) -> str:
+    """`design`'s choice, or the row design where `which` asks for it (a
+    yardstick: the row design takes every call)."""
+    if which not in (None, "row"):
+        raise ValueError(f"attn_softmax: design {which!r} is not None or 'row'")
+    return which or chosen
+
+
+def _forward_kernel(l, mask_bias, scale, out_dtype, round_logits, dropout,
+                    which=None):
     global launches
     l, bias = _operands(l, mask_bias, out_dtype)
     drop = _drop_args(dropout, l.shape)
     y = torch.empty(l.shape, dtype=out_dtype, device=l.device)
     if l.numel() == 0:      # an empty grid is not a valid launch
         return y
+    kind = _which(which, design(l, bias, y, round_logits=round_logits,
+                                dropout=dropout))
     err = _bound("attn_softmax_forward")(
         l.data_ptr(), bias.data_ptr(), *bias.stride(), y.data_ptr(), *_dims(l),
         _DTYPES[l.dtype], _DTYPES[out_dtype], scale, int(round_logits), *drop,
-        _stream(l.device))
-    _cuda.check(err, "attn_softmax launch")
+        _stages(kind, l, out_dtype, False), _stream(l.device))
+    _cuda.check(err, f"attn_softmax launch ({kind})")
     launches += 1
     fused_layer.launches_by_variant[
-        "attn_softmax", _variant(l, out_dtype, round_logits, dropout)] += 1
+        "attn_softmax", _variant(kind, l, out_dtype, round_logits, dropout)] += 1
     return y
 
 
-def _backward_kernel(g, l, mask_bias, scale, dropout):
+def _backward_kernel(g, l, mask_bias, scale, dropout, which=None):
     """dl from the cotangent g of y (the training variant)."""
     global backward_launches
     l, bias = _operands(l, mask_bias, g.dtype)
@@ -176,14 +239,15 @@ def _backward_kernel(g, l, mask_bias, scale, dropout):
     dl = torch.empty(l.shape, dtype=l.dtype, device=l.device)
     if l.numel() == 0:
         return dl
+    kind = _which(which, design(l, bias, dl, g))
     err = _bound("attn_softmax_backward")(
         l.data_ptr(), bias.data_ptr(), *bias.stride(), g.data_ptr(), dl.data_ptr(),
         *_dims(l), _DTYPES[l.dtype], _DTYPES[g.dtype], scale, *drop,
-        _stream(l.device))
-    _cuda.check(err, "attn_softmax backward launch")
+        _stages(kind, l, g.dtype, True), _stream(l.device))
+    _cuda.check(err, f"attn_softmax backward launch ({kind})")
     backward_launches += 1
     fused_layer.launches_by_variant[
-        "attn_softmax backward", _variant(l, g.dtype, False, dropout)] += 1
+        "attn_softmax backward", _variant(kind, l, g.dtype, False, dropout)] += 1
     return dl
 
 

@@ -368,6 +368,14 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_in_turns(a, b, reps: int = 20, warmup: int = 3) -> tuple[float, float]:
+    """`cuda_ms` of a and of b read in turns (a, b, b, a), the better of each
+    side's two reads: neither side always runs first, right after another
+    case's heavy work."""
+    a1, b1, b2, a2 = (cuda_ms(f, reps, warmup) for f in (a, b, b, a))
+    return min(a1, a2), min(b1, b2)
+
+
 def device_ms(fn, reps: int, warmup: int = 3) -> tuple[float, float, dict]:
     """Mean device milliseconds per call: the self time of every kernel the
     calls launched, summed by torch.profiler. For calls whose kernels take
@@ -3679,22 +3687,25 @@ def _philox_ops(nbits) -> float:
 
 def _time_f3_at(rows: int, seg, round_logits: bool, nbits) -> dict:
     """F3's forward at (rows, 12, 128, 128) bf16 -> bf16 (its mask evaluated
-    in the kernel) and the plain chain (the plain generator's mask; CUDA
-    events), torch.softmax on the f32 scaled, biased logits (the library's
-    nearest call), the bound (l, y and the bias once; the operations with
-    the generator's)."""
+    in the kernel) through the design the wrapper picks and, a yardstick,
+    the row design (`row_ms`; the two in turns, `cuda_ms_in_turns`), and the
+    plain chain (the plain generator's mask; CUDA events), torch.softmax on
+    the f32 scaled, biased logits (the library's nearest call), the bound
+    (l, y and the bias once; the operations with the generator's)."""
     bf, scale = torch.bfloat16, math.sqrt(ATTN_HD)
     l, bias, _ = f3_inputs(rows, seg, bf, bf, seed=60)
     drop = _dropout(nbits, 7)
-    kernel = lambda: attn_softmax._forward_kernel(l, bias, scale, bf,  # noqa: E731
-                                                  round_logits, drop)
+    which = attn_softmax.design(l, bias.expand(l.shape), l, round_logits=round_logits,
+                                dropout=drop)
+    kernel = lambda kind=None: attn_softmax._forward_kernel(  # noqa: E731
+        l, bias, scale, bf, round_logits, drop, kind)
     plain = lambda: attn_softmax.attn_softmax_plain(l, bias, scale, bf,  # noqa: E731
                                                     round_logits, drop)
     with torch.no_grad():
         ok, err = f_close(kernel(), plain(), rows_summed=True,
                           ulps=1 if drop is None else 2)
         require(ok, f"F3 at {rows} rows: error {err}")
-        ms = cuda_ms(kernel, reps=20, warmup=3)
+        ms, row_ms = cuda_ms_in_turns(kernel, lambda: kernel("row"))
         plain_ms = cuda_ms(plain, reps=3)
         x = l.float() / scale + bias
         library_ms = cuda_ms(lambda: torch.softmax(x, dim=-1), reps=10, warmup=2)
@@ -3703,8 +3714,8 @@ def _time_f3_at(rows: int, seg, round_logits: bool, nbits) -> dict:
     del l, bias, x
     torch.cuda.empty_cache()
     kind = "round" if round_logits else f"drop {nbits}"
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **_bound(nbytes, (F3_OPS + _philox_ops(nbits)) * n),
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "row_ms": row_ms,
+            "design": which, **_bound(nbytes, (F3_OPS + _philox_ops(nbits)) * n),
             "library_ms": library_ms,
             "library_covers": "torch.softmax on the f32 scaled, biased logits: "
                               "no scale, bias, cast or dropout",
@@ -3713,10 +3724,11 @@ def _time_f3_at(rows: int, seg, round_logits: bool, nbits) -> dict:
 
 
 def _time_f3_backward_at(rows: int, seg, nbits) -> dict:
-    """F3's backward kernel (its mask evaluated again in the kernel) against
-    the plain chain's VJP (forward and backward, as autograd runs it from
-    l, with the plain generator's mask) and aten._softmax_backward_data on
-    f32 y and g (the library's nearest call)."""
+    """F3's backward kernel (its mask evaluated again in the kernel; the row
+    design's time beside it as for the forward) against the plain chain's
+    VJP (forward and backward, as autograd runs it from l, with the plain
+    generator's mask) and aten._softmax_backward_data on f32 y and g (the
+    library's nearest call)."""
     bf, scale = torch.bfloat16, math.sqrt(ATTN_HD)
     l, bias, gy = f3_inputs(rows, seg, bf, bf, seed=61)
     drop = _dropout(nbits, 8)
@@ -3727,10 +3739,12 @@ def _time_f3_backward_at(rows: int, seg, nbits) -> dict:
             return torch.autograd.grad(attn_softmax.attn_softmax_plain(
                 ll, bias, scale, bf, False, drop), ll, gy)[0]
 
-    kernel = lambda: attn_softmax._backward_kernel(gy, l, bias, scale, drop)  # noqa: E731
+    which = attn_softmax.design(l, bias.expand(l.shape), l, gy)
+    kernel = lambda kind=None: attn_softmax._backward_kernel(  # noqa: E731
+        gy, l, bias, scale, drop, kind)
     ok, err = f_close(kernel(), plain_vjp(), rows_summed=True)
     require(ok, f"F3 backward at {rows} rows: dl error {err}")
-    ms = cuda_ms(kernel, reps=20, warmup=3)
+    ms, row_ms = cuda_ms_in_turns(kernel, lambda: kernel("row"))
     plain_ms = cuda_ms(plain_vjp, reps=3)
     with torch.no_grad():
         y32 = torch.softmax(l.float() / scale + bias, dim=-1)
@@ -3741,8 +3755,8 @@ def _time_f3_backward_at(rows: int, seg, nbits) -> dict:
     nbytes = 6.0 * n + _f3_bias_bytes(bias)    # l, g, dl; bias
     del l, bias, gy, y32, g32
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **_bound(nbytes, (F3_BWD_OPS + _philox_ops(nbits)) * n),
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "row_ms": row_ms,
+            "design": which, **_bound(nbytes, (F3_BWD_OPS + _philox_ops(nbits)) * n),
             "library_ms": library_ms,
             "library_covers": "aten._softmax_backward_data on f32 y and g: the "
                               "softmax's backward alone, no recompute, dropout or "
@@ -3754,7 +3768,8 @@ def _time_f3_backward_at(rows: int, seg, nbits) -> dict:
 def time_f3(launches: int, backward_launches: int, by_variant: dict) -> list[dict]:
     """F3 at the W5M train step's shape (1,024 rows of two 64-token
     segments, 8-bit masks as bench --w5m takes them; 32-bit ones, phase 6's,
-    under `at_drop32`) and, its inference variant, at the W5M encode chunk
+    under `at_drop32`; none under `at_no_dropout`, so the gap shows what the
+    generator costs) and, its inference variant, at the W5M encode chunk
     (6,144 rows, `at_encode`) and at L 32 (1,024 rows of four segments,
     `at_l32`)."""
     common = {"route": "cuda", "source": "blp_tpu_torch/csrc/attn_softmax.cu",
@@ -3766,13 +3781,15 @@ def time_f3(launches: int, backward_launches: int, by_variant: dict) -> list[dic
            "launches_by_variant": by_variant.get("attn_softmax", {}),
            **_time_f3_at(1024, W5M_SEG, False, 8),
            "at_drop32": _time_f3_at(1024, W5M_SEG, False, 32),
+           "at_no_dropout": _time_f3_at(1024, W5M_SEG, False, None),
            "at_encode": _time_f3_at(W5M_K2_ROWS, W5M_SEG, True, None),
            "at_l32": _time_f3_at(1024, SEG, True, None)}
     bwd = {"name": "attn_softmax backward (F3)", **common,
            "launches": backward_launches,
            "launches_by_variant": by_variant.get("attn_softmax backward", {}),
            **_time_f3_backward_at(1024, W5M_SEG, 8),
-           "at_drop32": _time_f3_backward_at(1024, W5M_SEG, 32)}
+           "at_drop32": _time_f3_backward_at(1024, W5M_SEG, 32),
+           "at_no_dropout": _time_f3_backward_at(1024, W5M_SEG, None)}
     return [fwd, bwd]
 
 
@@ -3917,6 +3934,11 @@ def main() -> int:
                     for lay in ("heads", "heads_t")),
             "the main path's q, k and v did not take F1's head-major layouts: "
             f"{f_by.get('bias_act')}, {f_by.get('bias_act backward')}")
+    f3_row = {f"{name}: {v}": c for name in ("attn_softmax", "attn_softmax backward")
+              for v, c in f_by.get(name, {}).items()
+              if v.endswith(f" sk{ATTN_SP}") and not v.startswith("tile ")}
+    require(not f3_row, "main-path F3 launches at Sk 128 did not take the tile "
+            f"design: {f3_row}")
     torch.cuda.empty_cache()
 
     kernels = [time_k1(launches["K1"], k1_by), time_k2(launches["K2"], k2_by),
@@ -3933,6 +3955,9 @@ def main() -> int:
                 f"bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}, "
                 f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it) at "
                 f"{rec['shape']}")
+            if "row_ms" in rec:
+                log(f"  {rec['design']} design; the row design {rec['row_ms']:.4f} ms "
+                    f"({100 * rec['bound_ms'] / rec['row_ms']:.1f}% of the bound)")
             if "scalar_ms" in rec:
                 log(f"  its scalar variant {rec['scalar_ms']:.4f} ms "
                     f"({100 * rec['bound_ms'] / rec['scalar_ms']:.1f}% of the bound); "

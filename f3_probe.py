@@ -26,9 +26,11 @@ named otherwise:
     --skip-bench);
 (5) the flagship step (phase 6 (b): B 64, L 32): ms a step over 10 steps and
     one step's device launches;
-(6) F2 and F3 through chip_smoke's timing functions at the W5M train shapes
-    (the tree's own kernels: F2's forward without dropout, and with 8- and
-    32-bit masks where its F2 takes them; F3 with 8- and 32-bit masks);
+(6) F2 and F3 through chip_smoke's timing functions (the tree's own
+    kernels): at the W5M train shape F2's forward without dropout, and with
+    8- and 32-bit masks where its F2 takes them, F3's forward and backward
+    with 8- and 32-bit masks and without dropout; F3's inference variant at
+    the W5M encode chunk (6,144 rows) and at L 32 (1,024 rows);
 (7) the copies of (2)'s step by source: one step profiled with shapes and
     Python stacks recorded, each copy kernel charged (chip_smoke's
     `copies_by_shape`, so a tree from PR 15 on) to the op that launched it,
@@ -41,6 +43,9 @@ named otherwise:
     the tree's kernel with the head-major layout where it takes one, else
     the parent's path (the permute copy, then the kernel's db), with the
     registers ptxas gives the tree's F1 kernels.
+(9) F3's forward without dropout at 1,024 rows with 32- and 64-token
+    segments, logits rounded to bf16 (the inference variant) and not,
+    and the inference variant at 6,144 rows of 32-token segments.
 Prints a summary and writes every table to --out (JSON). `--parts` picks
 some of them (default: all).
 """
@@ -63,7 +68,8 @@ B, NH, S, HD = 1024, 12, 128, 64
 GROUPS = {"torch RNG": ("distribution_", "randint", "bernoulli"),
           "where": ("where_kernel",), "scalar compare": ("compare_scalar",),
           "copies": ("direct_copy", "bfloat16_copy")}
-PARTS = ("chain", "w5m", "encode", "bench", "flagship", "kernels", "copies", "f1")
+PARTS = ("chain", "w5m", "encode", "bench", "flagship", "kernels", "copies", "f1",
+         "inference")
 def kernel_table(fn) -> tuple[float, list]:
     """(wall ms, [(kernel name, device ms, count)] by device time) of one
     call of fn under torch.profiler."""
@@ -222,15 +228,20 @@ def kernels(res: dict) -> None:
     """(6)."""
     out = {"f3_drop8": cs._time_f3_at(B, 64, False, 8),
            "f3_drop32": cs._time_f3_at(B, 64, False, 32),
+           "f3_no_dropout": cs._time_f3_at(B, 64, False, None),
+           "f3_encode": cs._time_f3_at(cs.W5M_K2_ROWS, 64, True, None),
+           "f3_l32": cs._time_f3_at(B, cs.SEG, True, None),
            "f3_bwd_drop8": cs._time_f3_backward_at(B, 64, 8),
            "f3_bwd_drop32": cs._time_f3_backward_at(B, 64, 32),
+           "f3_bwd_no_dropout": cs._time_f3_backward_at(B, 64, None),
            "f2": cs._time_f2_at(cs.W5M_TOKENS)}
     if "nbits" in inspect.signature(cs._time_f2_at).parameters:
         out["f2_drop8"] = cs._time_f2_at(cs.W5M_TOKENS, 8)
         out["f2_drop32"] = cs._time_f2_at(cs.W5M_TOKENS, 32)
     res["kernels"] = out
     for k, v in out.items():
-        print(f"{k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.3f}, library "
+        row = f", row design {v['row_ms']:.4f}" if "row_ms" in v else ""
+        print(f"{k}: {v['ms']:.4f} ms{row} (plain {v['plain_ms']:.3f}, library "
               f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by {v['bound_by']}; "
               f"{v.get('with_mask_draw_ms', '-')} with a torch mask draw)", flush=True)
 
@@ -351,6 +362,17 @@ def f1_registers(log_text: str) -> list:
     return out
 
 
+def inference(res: dict) -> None:
+    """(9)."""
+    out = {f"seg{seg}_{'round' if rl else 'train'}": cs._time_f3_at(B, seg, rl, None)
+           for seg in (32, 64) for rl in (True, False)}
+    out["seg32_round_6144"] = cs._time_f3_at(cs.W5M_K2_ROWS, 32, True, None)
+    res["inference"] = out
+    for k, v in out.items():
+        row = f", row design {v['row_ms']:.4f}" if "row_ms" in v else ""
+        print(f"f3 {k}: {v['ms']:.4f} ms{row} (bound {v['bound_ms']:.4f})", flush=True)
+
+
 def _import(root: str) -> None:
     """The modules of the tree at `root`, as this module's globals."""
     global cs, serve, training, write_synth_dataset, WordPieceTokenizer, bert
@@ -406,7 +428,7 @@ def main(argv=None) -> int:
     for name, fn in (("w5m", w5m_step), ("copies", copies), ("encode", encodes),
                      ("bench", lambda r, _: r.update(cs.w5m_point())),
                      ("flagship", flagship), ("kernels", lambda r, _: kernels(r)),
-                     ("f1", lambda r, _: f1(r))):
+                     ("f1", lambda r, _: f1(r)), ("inference", lambda r, _: inference(r))):
         if name in parts:
             fn(res, data_dir)
             torch.cuda.empty_cache()

@@ -236,3 +236,99 @@ def test_layers_equal_the_parent_chain(monkeypatch, dtype, kw):
     assert len(got) == len(want)
     for a, w in zip(got, want):
         assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+# -- the tile design's host-side choices (ops/attn_softmax.py) -------------------
+
+#: A block's shared memory with three blocks on an SM (228 KB, 1 KB of each
+#: block's reserved; the forward's launch bounds) and with two (the
+#: backward's), and the layout of csrc/attn_softmax.cu `tile_smem_bytes`: the
+#: mbarriers padded to 128 bytes, the ring of slabs, two bias slots of rows x
+#: Sk f32.
+THREE_A_SM = 228 * 1024 // 3 - 1024
+TWO_A_SM = 228 * 1024 // 2 - 1024
+
+
+def _tile_smem(rows, sk, slab_elem_bytes, stages):
+    bars = ((2 * stages + 4) * 8 + 127) // 128 * 128
+    return bars + stages * rows * sk * slab_elem_bytes + 2 * rows * sk * 4
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("l_dt,out_dt", [("bf16", "bf16"), ("bf16", "f32"),
+                                         ("f32", "f32")])
+@pytest.mark.parametrize("sk", [8, 64, 72, 128, 200, 256])
+def test_tile_plan_fits_three_blocks_an_sm(sk, l_dt, out_dt, backward):
+    """Lanes a row (TILE_LANE_KEYS keys a lane), rows a tile (one row a
+    lane: 8 warps of 32 lanes) and ring stages for every row length the tile
+    design takes: at least two stages, at most TILE_MAX_STAGES, as many as
+    fit TILE_BLOCK_SMEM, and the shared memory of three forward blocks (two
+    backward ones) on one SM."""
+    lanes, rows, stages = f3.tile_plan(sk, T_DT[l_dt], T_DT[out_dt], backward)
+    keys = f3.TILE_LANE_KEYS
+    assert lanes * keys >= sk and (lanes == 64 // keys or lanes * keys // 2 < sk)
+    assert rows * lanes == 32 * f3.TILE_WARPS
+    elem = T_DT[l_dt].itemsize + (T_DT[out_dt].itemsize if backward else 0)
+    assert 2 <= stages <= f3.TILE_MAX_STAGES
+    smem = _tile_smem(rows, sk, elem, stages)
+    assert smem <= (TWO_A_SM if backward else THREE_A_SM)
+    assert stages in (2, f3.TILE_MAX_STAGES) or (
+        smem <= f3.TILE_BLOCK_SMEM < _tile_smem(rows, sk, elem, stages + 1))
+
+
+def test_tile_plan_at_the_layers_shape():
+    """Sk 128: 8 lanes a row (16 keys a lane), 32-row tiles; 4 slabs of bf16
+    logits forward, 2 of l and g backward."""
+    bf = torch.bfloat16
+    assert f3.tile_plan(128, bf, bf, False) == (8, 32, 4)
+    assert f3.tile_plan(128, bf, bf, True) == (8, 32, 2)
+    assert f3.tile_plan(128, torch.float32, torch.float32, False) == (8, 32, 2)
+
+
+def _aligned(shape, dtype=torch.bfloat16, offset=0):
+    n = math.prod(shape)
+    buf = torch.zeros(n + 16, dtype=dtype)
+    skip = (-buf.data_ptr() // buf.element_size()) % (16 // buf.element_size())
+    return buf[skip + offset:skip + offset + n].view(shape)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("packed", "tile"), ("unpacked", "tile"), ("one head, head stride", "tile"),
+    ("head stride", "row"), ("sk 100", "row"), ("sk 264", "row"),
+    ("unaligned logits", "row"), ("bias key stride 2", "row"),
+    ("bias query stride 130", "row"), ("sk 8", "tile"),
+    ("rounded logits", "tile"), ("rounded logits with dropout", "row"),
+])
+def test_design_takes_the_tile_kernel_where_it_can(case, want):
+    """The layer's biases, (B, 1, S, S) packed and (B, 1, 1, S), broadcast to
+    l's shape, take the tile design at Sk 128; a bias with a head stride, Sk
+    not a multiple of 8 or above TILE_MAX_SK, an unaligned pointer, a key
+    stride other than 1 or a query stride that is not a multiple of 4 take
+    the row design, and so do rounded logits (the inference variant) with
+    dropout."""
+    b, nh, sq, sk = 2, 3, 20, 128
+    if case.startswith("sk "):
+        sk = int(case[3:])
+    if case.startswith("one head"):
+        nh = 1
+    l = _aligned((b, nh, sq, sk), offset=1 if case == "unaligned logits" else 0)
+    if case == "unpacked":
+        bias = _aligned((b, 1, 1, sk), torch.float32)
+    elif "head stride" in case:
+        bias = _aligned((b, nh, sq, sk), torch.float32)
+    elif case == "bias key stride 2":
+        bias = _aligned((b, 1, sq, 2 * sk), torch.float32)[..., ::2]
+    elif case == "bias query stride 130":
+        bias = _aligned((b, 1, sq, sk + 2), torch.float32)[..., :sk]
+    else:
+        bias = _aligned((b, 1, sq, sk), torch.float32)
+    bias = bias.expand(l.shape)
+    out = _aligned((b, nh, sq, sk))
+    if case.startswith("rounded"):
+        drop = (1, 0.1, 8, None) if case.endswith("dropout") else None
+        assert f3.design(l, bias, out, round_logits=True, dropout=drop) == want
+        return
+    assert f3.design(l, bias, out) == want
+    assert f3.design(l, bias, out, _aligned((b, nh, sq, sk))) == want
+    if want == "tile":
+        assert f3.design(l, bias, out, _aligned((b, nh, sq, sk), offset=3)) == "row"

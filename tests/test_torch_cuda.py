@@ -1308,6 +1308,79 @@ def test_f3_refuses_what_its_kernel_does_not_take():
         y.sum().backward()
 
 
+def _f3_designs(before):
+    """The F3 variants launched since `before` (a copy of the counter)."""
+    now = fused_layer.launches_by_variant
+    return {k: now[k] - before.get(k, 0) for k in now
+            if k[0].startswith("attn_softmax") and now[k] != before.get(k, 0)}
+
+
+#: The tile design's edges: (batch, heads, queries, keys, segment (None: the
+#: (B, 1, 1, S) bias), dropout bits). 67 x 8 tiles of 16 queries are more
+#: than the grid's resident blocks (3 an SM on an H100) and not a multiple of
+#: them, so the persistent walk wraps the ring; 100 and 5 queries leave a
+#: partial last tile; one head and twelve; 64 and 256 keys take 8 and 32
+#: lanes a row.
+F3_TILE_EDGES = ((67, 2, 128, 128, 64, 8), (67, 2, 128, 128, None, 32),
+                 (3, 12, 100, 128, 32, 8), (4, 1, 5, 128, None, 16),
+                 (2, 12, 128, 128, 64, None), (5, 3, 37, 64, 16, 8),
+                 (3, 2, 19, 256, 128, 32))
+
+
+@pytest.mark.parametrize("b,nh,sq,sk,seg,nbits", F3_TILE_EDGES)
+def test_f3_tile_edges_match_plain(b, nh, sq, sk, seg, nbits):
+    """The tile design against the plain chain at its own edges, forward and
+    backward, dl identical across two calls; every launch took it."""
+    l, bias, gy = _f3_inputs(b, nh, sq, sk, "bf16", "bf16", seg, seed=20 + sq)
+    drop = None if nbits is None else (13, 0.1, nbits, None)
+    before = dict(fused_layer.launches_by_variant)
+    (y, dl, dl2), (y_p, dl_p) = _f3_case(l, bias, gy, "bf16", dropout=drop, calls=2)
+    kinds = _f3_designs(before)
+    assert kinds and all(v.startswith("tile ") for _, v in kinds), kinds
+    assert torch.equal(dl, dl2)
+    assert _close(y, y_p, rows_summed=True, ulps=1 if drop is None else 2)
+    assert _close(dl, dl_p, rows_summed=True)
+
+
+@pytest.mark.parametrize("nbits", [8, 16, 32])
+def test_f3_tile_masks_in_a_tensor_parallel_block(nbits):
+    """Heads 6-11 of a 12-head site, rows 64-127 of 128, at Sk 128 through
+    the tile design: the masks read from y and dl (zero logits, a unit
+    cotangent; see test_f3_masks_equal_the_plain_generator) equal the plain
+    generator's."""
+    b, nh, sq, sk = 64, 6, 128, 128
+    block = ((128, 12, sq, sk), (64, 6, 0, 0))
+    drop = (0x5EED16, 0.5, nbits, block)
+    l = torch.zeros((b, nh, sq, sk), device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    bias = torch.zeros((b, 1, sq, sk), device="cuda")
+    before = dict(fused_layer.launches_by_variant)
+    y = attn_softmax.attn_softmax(l, bias, 8.0, torch.bfloat16, dropout=drop)
+    dl, = torch.autograd.grad(y, l, torch.ones_like(y))
+    kinds = _f3_designs(before)
+    assert len(kinds) == 2 and all(v.startswith("tile ") for _, v in kinds), kinds
+    keep = dropout_rng.site_keep(drop[0], 0.5, nbits, l.shape, block, "cuda")[0]
+    assert 0 < keep.sum() < keep.numel()
+    assert torch.equal(y != 0, keep)
+    assert torch.equal(dl.float() > 0, keep) and not bool((dl == 0).any())
+
+
+def test_f3_layer_biases_take_the_tile_design():
+    """Both of the layer's bias layouts at Sk 128 (packed (B, 1, S, S), and
+    (B, 1, 1, S)) take the tile design; a bias with a head axis takes the
+    row design, and both agree with the plain chain."""
+    for seg, heads_axis in ((64, False), (None, False), (64, True)):
+        l, bias, gy = _f3_inputs(6, 4, 128, 128, "bf16", "bf16", seg, seed=30)
+        if heads_axis:
+            bias = bias.expand(6, 4, 128, 128).contiguous()
+        before = dict(fused_layer.launches_by_variant)
+        (y, dl), (y_p, dl_p) = _f3_case(l, bias, gy, "bf16", dropout=(14, 0.1, 8, None))
+        want = "row " if heads_axis else "tile "
+        kinds = _f3_designs(before)
+        assert len(kinds) == 2 and all(v.startswith(want) for _, v in kinds), kinds
+        assert _close(y, y_p, rows_summed=True, ulps=2) and _close(dl, dl_p, rows_summed=True)
+
+
 # -- the dropout masks evaluated inside the kernels -----------------------------
 
 #: (whole shape, start) blocks of a (3, 5, S, S) attention tensor: none, a
@@ -1433,7 +1506,8 @@ def test_site_kernel_equals_the_plain_dropout(nbits, dt, offset):
 def test_training_layer_draws_no_mask_with_torch():
     """A bf16 training layer, forward and backward (dropout on at the
     attention and both hidden sites): torch.profiler shows no RNG kernel
-    and no `where`; F2, F3 and their backwards carry the masks."""
+    and no `where`; F2, F3 and their backwards carry the masks (F3 at Sk
+    128 in its tile design)."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = bert.BertConfig(num_layers=1, compute_dtype=torch.bfloat16,
@@ -1450,7 +1524,7 @@ def test_training_layer_draws_no_mask_with_torch():
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert not [n for n in names if "distribution" in n or "randint" in n
                 or "where" in n], names
-    assert any("add_ln_fwd" in n for n in names) and any("attn_softmax_bwd" in n
+    assert any("add_ln_fwd" in n for n in names) and any("attn_softmax_tile_bwd" in n
                                                           for n in names)
 
 
