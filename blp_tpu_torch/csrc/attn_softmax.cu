@@ -79,11 +79,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
-
 #include "dropout_rng.cuh"
+#include "bulk_copy.cuh"
 
 namespace {
+
+using namespace bulk_copy;
 
 typedef __nv_bfloat16 bf16;
 
@@ -445,53 +446,7 @@ attn_softmax_bwd(const TL* __restrict__ l, Bias bias, dropout_rng::Site drop,
 // every slab, so a slab is a warp's one step. Row sums go over the row's
 // lanes in a fixed order.
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(arrivals)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// One arrival that also sets the bytes the phase's copies will complete.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier has completed the phase of the given parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// A bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
-// global into shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"((uint64_t)src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-// ---- end of the PTX helpers
+// The ring's mbarriers and bulk copies: bulk_copy.cuh.
 
 constexpr int kTileWarps = 8;                       // consumer warps a block
 constexpr int kTileThreads = 32 * (kTileWarps + 1); // and one producer warp
@@ -584,68 +539,6 @@ template <int LPR> __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
   for (int o = LPR / 2; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Whether each field of w (4 of 8 bits, or 2 of 16: F) is >= t, compared
-// all at once: with H the fields' top bits, (w | H) - (t's low bits in
-// every field) has a field's top bit set where w's low bits are >= t's
-// (no borrow crosses a field), and w >= t where w's top bit is set and
-// t's not, or both equal and that bit set. Bit i of the result: field i.
-template <int F>
-__device__ __forceinline__ uint32_t fields_ge(uint32_t w, uint32_t t) {
-  constexpr uint32_t H = F == 8 ? 0x80808080u : 0x80008000u;
-  constexpr uint32_t ONES = F == 8 ? 0x01010101u : 0x00010001u;
-  const uint32_t lo = (t & (H / ONES - 1)) * ONES;     // t's low bits, every field
-  const uint32_t hi = t & (H / ONES) ? H : 0u;         // t's top bit, every field
-  const uint32_t low_ge = (w | H) - lo;
-  const uint32_t ge = ((w & ~hi) | (~(w ^ hi) & low_ge)) & H;
-  if constexpr (F == 8) return ((ge >> 7) * 0x01020408u) >> 24;   // bits 0, 8, 16, 24 gathered
-  else return (ge >> 15 & 1u) | ge >> 30;
-}
-
-// The keep bits (bit k: key k) at 8 bits of an 8-key run from two of a
-// call's words: fields 0 .. 3 of w0, then of w1.
-__device__ __forceinline__ uint32_t bits8(uint32_t w0, uint32_t w1, uint32_t t) {
-  return fields_ge<8>(w0, t) | fields_ge<8>(w1, t) << 4;
-}
-
-// 8-bit masks when Sk % 16 == 0: the lanes 2i and 2i + 1 of a row hold, in
-// each chunk c, the 16 keys of one Philox call (the even lane's chunk 0
-// starting at n, chunk 1 at n + 8 LPR). The even lane evaluates chunk 0's
-// call, the odd lane chunk 1's, and each takes the words it lacks by a
-// shuffle: one call a lane. Returns the bits of both chunks (bit 8 c + k).
-template <int LPR>
-__device__ __forceinline__ uint32_t pair_bits8(const dropout_rng::Site& s,
-                                               unsigned long long n, bool odd) {
-  uint32_t w[4];
-  dropout_rng::call_words(s, (n + (odd ? 8 * LPR : 0)) / 16, w);
-  const uint32_t a = __shfl_xor_sync(0xffffffffu, odd ? w[0] : w[2], 1);
-  const uint32_t b = __shfl_xor_sync(0xffffffffu, odd ? w[1] : w[3], 1);
-  return odd ? bits8(a, b, s.t) | bits8(w[2], w[3], s.t) << 8
-             : bits8(w[0], w[1], s.t) | bits8(a, b, s.t) << 8;
-}
-
-// The lane's 8 keys' keep bits at NB bits (a run of 8 starting at n, n % 8
-// == 0): two calls at 32 bits, one at 16, half of one at 8; the bits of
-// dropout_rng::keep_bits<NB, 8>, with 8- and 16-bit fields compared a word
-// at a time.
-template <int NB>
-__device__ __forceinline__ uint32_t lane_bits(const dropout_rng::Site& s,
-                                              unsigned long long n) {
-  if constexpr (NB == 32) {   // a compare a word (faster here than w < t * 256)
-    return dropout_rng::keep_bits<32, 8>(s, n);
-  } else {
-    uint32_t w[4];
-    dropout_rng::call_words(s, n / (128 / NB), w);
-    if constexpr (NB == 8) {  // fields n % 16 .. + 7 of the call: words 0, 1 or 2, 3
-      return n % 16 ? bits8(w[2], w[3], s.t) : bits8(w[0], w[1], s.t);
-    } else {
-      uint32_t bits = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) bits |= fields_ge<16>(w[i], s.t) << (2 * i);
-      return bits;
-    }
-  }
 }
 
 // The flat index in the dropout site of key 0 of the tile's row r in head 0.
@@ -750,11 +643,14 @@ __device__ __forceinline__ void tile_body(const TileArgs& a, unsigned char* smem
       uint32_t kept = 0xFFFFFFFFu;
       if constexpr (NB == 8) {
         if (pair8)
-          kept = pair_bits8<LPR>(a.drop, n0 + 8 * (sub & ~1), sub & 1);
+          kept = dropout_rng::pair_bits8(a.drop, n0 + 8 * (sub & ~1),
+                                          n0 + 8 * (sub & ~1) + 8 * LPR, sub & 1);
         else
-          kept = lane_bits<8>(a.drop, n0 + e[0]) | lane_bits<8>(a.drop, n0 + e[1]) << 8;
+          kept = dropout_rng::lane_bits<8>(a.drop, n0 + e[0]) |
+                 dropout_rng::lane_bits<8>(a.drop, n0 + e[1]) << 8;
       } else if constexpr (NB != 0) {
-        kept = lane_bits<NB>(a.drop, n0 + e[0]) | lane_bits<NB>(a.drop, n0 + e[1]) << 8;
+        kept = dropout_rng::lane_bits<NB>(a.drop, n0 + e[0]) |
+               dropout_rng::lane_bits<NB>(a.drop, n0 + e[1]) << 8;
       }
       float x[8 * kChunks], gv[8 * kChunks], bv[8];
       mbar_wait(&full[slot], phase);
@@ -929,8 +825,6 @@ cudaError_t row_dispatch(const Args& a, bool backward, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
-constexpr size_t kMaxSmem = 232448;   // a block's shared memory on sm_90
-
 // What the tile design takes (ops/attn_softmax.py `design` mirrors it): Sk a
 // multiple of 8 up to 256; a bias with key stride 1 that is the same for
 // every head (head stride 0, or one head), whose batch and query strides are
@@ -948,35 +842,6 @@ bool tile_ok(const Args& a, int slab_elem_bytes) {
          tile_smem_bytes(rows, a.sk, slab_elem_bytes, a.stages) <= kMaxSmem;
 }
 
-// Resident blocks of a tile kernel at `smem` bytes (SMs x blocks per SM from
-// the occupancy API), cached per device and size for each instance.
-template <typename TL, typename TO, int LPR, int NB, bool BWD, bool ROUND>
-cudaError_t resident_blocks(void (*kernel)(TileArgs), size_t smem, int* blocks) {
-  static std::mutex mu;
-  static int cached_dev = -1, cached_blocks = 0;
-  static size_t cached_smem = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  if (cached_dev != dev || cached_smem != smem) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTileThreads,
-                                                          smem);
-    if (err != cudaSuccess) return err;
-    cached_dev = dev;
-    cached_smem = smem;
-    cached_blocks = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  *blocks = cached_blocks;
-  return cudaSuccess;
-}
-
 template <typename TL, typename TO, int LPR, int NB, bool BWD, bool ROUND = false>
 cudaError_t launch_tile(const Args& a, cudaStream_t st) {
   constexpr int T = tile_rows(LPR);
@@ -985,7 +850,7 @@ cudaError_t launch_tile(const Args& a, cudaStream_t st) {
   const size_t smem =
       tile_smem_bytes(T, a.sk, (int)(sizeof(TL) + (BWD ? sizeof(TO) : 0)), a.stages);
   int blocks = 0;
-  cudaError_t err = resident_blocks<TL, TO, LPR, NB, BWD, ROUND>(kernel, smem, &blocks);
+  cudaError_t err = resident_blocks((const void*)kernel, kTileThreads, smem, &blocks);
   if (err != cudaSuccess) return err;
   const long long batches = a.rows / ((long long)a.nh * a.sq);
   const int tiles_per_b = (a.sq + T - 1) / T;

@@ -37,7 +37,10 @@
 // follows; its backward reads the cotangent in either layout, or in the
 // (B, nh, hd, S) one that q k^T's backward leaves for k, and writes dh
 // row-major. F2's forward and backward hold a row in a warp's registers (w
-// <= 4,096), so the backward reads g and s once. F1's backward and F2's
+// <= 4,096), so the backward reads g and s once; the forward's block copies
+// its slab of rows, scale and bias into shared memory in bulk
+// (bulk_copy.cuh), so its warps run the generator while the rows land and
+// scale and bias are read once a block. F1's backward and F2's
 // reduce db, dscale and dbias without atomics on the values: a block owns a
 // chunk of rows (the wrapper's `chunk`, a function of the row count) and
 // writes one partial row per chunk, adding its rows in a fixed order (F1:
@@ -60,8 +63,11 @@
 #include <stdint.h>
 
 #include "dropout_rng.cuh"
+#include "bulk_copy.cuh"
 
 namespace {
+
+using namespace bulk_copy;
 
 typedef __nv_bfloat16 bf16;
 
@@ -477,79 +483,192 @@ __device__ __forceinline__ void drop8(const dropout_rng::Site& drop,
     v[k] = (keep >> k) & 1u ? round_to<T>(__fmul_rn(v[k], drop.inv_keep_p)) : 0.0f;
 }
 
-// A warp a row, the row held in registers: lane l owns vectors l, l + 32,
-// ... (at most NV, so w <= 256 * NV), loaded once; each rounded sum s =
-// round(x + drop(r)) is written to s (unless s is null: a call whose sum
-// no backward needs), then the mean, the variance about it and the
-// normalized row come from those registers. Sums run in the order of the
-// vectors. `n_off` is the flat site index of x's first element (a hidden
-// dropout site is (B, S, H), and x a run of its rows). Two rows a warp
-// (their loads issued before either row's reductions) and cache-streaming
-// hints were slower or no faster at the W5M train shape (PERF.md §6).
-// DROP: the call has a dropout site (a kernel without one holds no
-// generator code, so it keeps the registers the chain alone needs).
+// v rounded to T and back, two at a time for bf16 (one pack and two shifts,
+// where a conversion each runs at a quarter of the rate; round_to's values).
+template <typename T> __device__ __forceinline__ void round8(float v[kVec]) {
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int i = 0; i < kVec / 2; ++i) {
+      const float2 f = __bfloat1622float2(__floats2bfloat162_rn(v[2 * i], v[2 * i + 1]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// F2's forward: a block a slab of W consecutive rows, W its warps (8 unless
+// 8 wide f32 rows of x and r do not fit a block's shared memory; `f2_plan`).
+// Thread 0 copies the slab's rows of x, and of r, and scale and bias into
+// shared memory with one bulk copy each, all completing on one mbarrier, so
+// scale and bias are read once a block and not once a row. Warp k takes row
+// k: it evaluates the row's keep bits while the copies land, then forms each
+// rounded sum s = round(x + drop(r)) from shared memory, writes s (unless s
+// is null: a call whose sum no backward needs), reduces and writes y.
+// kF2Blocks blocks an SM keep copies in flight while the others compute: at
+// the W5M train shape one slab a block beat a persistent grid walking every
+// slab through one ring of 4 slabs by 4-12%, and runs of 2 or 4 slabs
+// through a ring a block by 1-4% (PERF.md §6). Lane l owns vectors l,
+// l + 32, ... (at most NV, so w <= 256 * NV); the row's sums run in the
+// order of the vectors and then through warp_sum, and the variance is taken
+// about the mean from the same registers. At 8 bits the two lanes of a pair
+// hold the two halves of each Philox call where the row starts on a call
+// (its flat index a multiple of 16): each evaluates one call of two and they
+// swap words. `n_off` is the flat site index of x's first element (a hidden
+// dropout site is (B, S, H), and x a run of its rows). DROP: the call has a
+// dropout site (a kernel without one holds no generator code).
+constexpr int kF2Warps = 8;             // warps (rows) a block, at most
+constexpr int kF2Blocks = 3;            // blocks an SM (launch bounds), NV <= 3
+// The slab's mbarrier, padded so that the copies land 128-byte aligned (at 16
+// bytes the same kernel ran 12% slower).
+constexpr size_t kF2BarrierBytes = 128;
+
+struct F2Args {
+  const void* x;
+  const void* r;        // null: LN of x alone
+  const float* scale;
+  const float* bias;
+  void* y;
+  void* s;              // null: the sum is not written
+  float* mean;
+  float* rstd;
+  long long rows;
+  int w;
+  float eps;
+  dropout_rng::Site drop;
+  unsigned long long n_off;
+};
+
+// The keep bits of a lane's NV vectors of the row at flat index n_row (8
+// bits a vector, four vectors a word).
+template <int NV>
+__device__ __forceinline__ void row_keep_bits(const dropout_rng::Site& d,
+                                              unsigned long long n_row, int lane,
+                                              uint32_t kb[(NV + 3) / 4]) {
+  uint32_t bits[NV];
+  const auto at = [&](int l, int j) { return n_row + (unsigned long long)kVec * (l + 32 * j); };
+  if (d.nbits == 32) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) bits[j] = dropout_rng::lane_bits<32>(d, at(lane, j));
+  } else if (d.nbits == 16) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) bits[j] = dropout_rng::lane_bits<16>(d, at(lane, j));
+  } else if (n_row % 16 == 0) {   // vectors l ^ 1 and l share a call: pairs of them
+#pragma unroll
+    for (int j = 0; j < NV; j += 2) {
+      if (j + 1 < NV) {
+        const uint32_t b = dropout_rng::pair_bits8(d, at(lane & ~1, j), at(lane & ~1, j + 1),
+                                                   lane & 1);
+        bits[j] = b & 0xFFu;
+        bits[j + 1] = b >> 8;
+      } else {
+        bits[j] = dropout_rng::lane_bits<8>(d, at(lane, j));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) bits[j] = dropout_rng::lane_bits<8>(d, at(lane, j));
+  }
+#pragma unroll
+  for (int i = 0; i < (NV + 3) / 4; ++i) kb[i] = 0;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) kb[j / 4] |= bits[j] << (8 * (j % 4));
+}
+
 template <typename TX, typename TO, int NV, bool DROP>
-__global__ void __launch_bounds__(256)
-add_ln_fwd(const TX* __restrict__ x, const TX* __restrict__ r,
-           const float* __restrict__ scale, const float* __restrict__ bias,
-           TO* __restrict__ y, TX* __restrict__ s, float* __restrict__ mean,
-           float* __restrict__ rstd, long long rows, int w, float eps,
-           dropout_rng::Site drop, unsigned long long n_off) {
-  const int lane = threadIdx.x & 31;
-  const int w_vec = w / kVec;
-  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
-  for (long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-       row < rows; row += warps) {
-    const long long base = row * w;
-    float v[NV][kVec];
-    float sum = 0.0f;
+__global__ void __launch_bounds__(32 * kF2Warps, NV <= 3 ? kF2Blocks : 1)
+add_ln_fwd(const F2Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warps = blockDim.x >> 5, w = a.w, w_vec = w / kVec;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool with_r = a.r != nullptr;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  const float* sb_s = reinterpret_cast<const float*>(smem + kF2BarrierBytes);   // scale, bias
+  const TX* xs = reinterpret_cast<const TX*>(smem + kF2BarrierBytes + 2 * w * sizeof(float));
+  const long long r0 = (long long)blockIdx.x * warps;
+  if (threadIdx.x == 0) {
+    const long long n = a.rows - r0 < warps ? a.rows - r0 : warps;
+    const uint32_t bytes = (uint32_t)(n * w * sizeof(TX)), sb_bytes = w * sizeof(float);
+    mbar_init(full, 1);
+    mbar_init_fence();
+    mbar_arrive_expect_tx(full, 2 * sb_bytes + (with_r ? 2 : 1) * bytes);
+    bulk_load(smem + kF2BarrierBytes, a.scale, sb_bytes, full);
+    bulk_load(smem + kF2BarrierBytes + sb_bytes, a.bias, sb_bytes, full);
+    bulk_load(const_cast<TX*>(xs), static_cast<const TX*>(a.x) + r0 * w, bytes, full);
+    if (with_r)
+      bulk_load(const_cast<TX*>(xs) + warps * w, static_cast<const TX*>(a.r) + r0 * w, bytes,
+                full);
+  }
+  __syncthreads();
+  const long long row = r0 + warp;
+  if (row >= a.rows) return;   // the whole warp
+  uint32_t kb[(NV + 3) / 4];
+  if constexpr (DROP) row_keep_bits<NV>(a.drop, a.n_off + (unsigned long long)row * w, lane, kb);
+  mbar_wait(full, 0);
+  const TX* xr = xs + warp * w;                 // the row of x
+  const TX* rr = xs + (warps + warp) * w;       // and of r
+  float v[NV][kVec];
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int cv = lane + 32 * j;
-      if (cv < w_vec) {
-        load8(x + base + cv * kVec, v[j]);
-        if (r != nullptr) {
-          float rv[kVec];
-          load8(r + base + cv * kVec, rv);
-          if constexpr (DROP) drop8<TX>(drop, n_off + base + cv * kVec, rv);
+  for (int j = 0; j < NV; ++j) {
+    const int cv = lane + 32 * j;
+    if (cv < w_vec) {
+      load8(xr + cv * kVec, v[j]);
+      if (with_r) {
+        float rv[kVec];
+        load8(rr + cv * kVec, rv);
+        if constexpr (DROP) {   // drop(r): r * (1 / keep_p) rounded where kept
+          const uint32_t keep = kb[j / 4] >> (8 * (j % 4));
 #pragma unroll
-          for (int k = 0; k < kVec; ++k) v[j][k] = round_to<TX>(__fadd_rn(v[j][k], rv[k]));
-          if (s != nullptr) store8(s + base + cv * kVec, v[j]);
+          for (int k = 0; k < kVec; ++k)
+            rv[k] = (keep >> k) & 1u ? __fmul_rn(rv[k], a.drop.inv_keep_p) : 0.0f;
+          round8<TX>(rv);
         }
 #pragma unroll
-        for (int k = 0; k < kVec; ++k) sum += v[j][k];
+        for (int k = 0; k < kVec; ++k) v[j][k] = __fadd_rn(v[j][k], rv[k]);
+        round8<TX>(v[j]);
       }
     }
-    const float mu = warp_sum(sum) / (float)w;
-    float sq = 0.0f;
+  }
+
+  const long long base = row * w;
+  float sum = 0.0f;
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      if (lane + 32 * j < w_vec) {
+  for (int j = 0; j < NV; ++j) {
+    const int cv = lane + 32 * j;
+    if (cv < w_vec) {
+      if (a.s != nullptr) store8(static_cast<TX*>(a.s) + base + cv * kVec, v[j]);
 #pragma unroll
-        for (int k = 0; k < kVec; ++k) {
-          const float d = v[j][k] - mu;
-          sq += d * d;
-        }
+      for (int k = 0; k < kVec; ++k) sum += v[j][k];
+    }
+  }
+  const float mu = warp_sum(sum) / (float)w;
+  float sq = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (lane + 32 * j < w_vec) {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float d = v[j][k] - mu;
+        sq += d * d;
       }
     }
-    const float rs = 1.0f / sqrtf(warp_sum(sq) / (float)w + eps);
+  }
+  const float rstd = 1.0f / sqrtf(warp_sum(sq) / (float)w + a.eps);
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int cv = lane + 32 * j;
-      if (cv < w_vec) {
-        float sc[kVec], bi[kVec];
-        load8(scale + cv * kVec, sc);
-        load8(bias + cv * kVec, bi);
+  for (int j = 0; j < NV; ++j) {
+    const int cv = lane + 32 * j;
+    if (cv < w_vec) {
+      float scv[kVec], biv[kVec];
+      load8(sb_s + cv * kVec, scv);
+      load8(sb_s + w + cv * kVec, biv);
 #pragma unroll
-        for (int k = 0; k < kVec; ++k)
-          v[j][k] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[j][k], mu), rs), sc[k]), bi[k]);
-        store8(y + base + cv * kVec, v[j]);
-      }
+      for (int k = 0; k < kVec; ++k)
+        v[j][k] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[j][k], mu), rstd), scv[k]), biv[k]);
+      store8(static_cast<TO*>(a.y) + base + cv * kVec, v[j]);
     }
-    if (lane == 0) {
-      mean[row] = mu;
-      rstd[row] = rs;
-    }
+  }
+  if (lane == 0) {
+    a.mean[row] = mu;
+    a.rstd[row] = rstd;
   }
 }
 
@@ -728,34 +847,44 @@ struct Drop {
   unsigned long long n_off;
 };
 
+// F2's forward plan for rows of w elements of `elem` bytes, x alone or x
+// and r (`tensors`): kF2Warps rows a block, fewer where they do not fit a
+// block's shared memory (8 f32 rows of x and r of 4,096), and that memory.
+struct F2Plan {
+  int warps;
+  size_t smem;
+};
+F2Plan f2_plan(int w, size_t elem, int tensors) {
+  const size_t fixed = kF2BarrierBytes + 2 * (size_t)w * sizeof(float);
+  const size_t row = (size_t)w * elem * tensors;
+  const size_t fit = (bulk_copy::kMaxSmem - fixed) / row;
+  const int warps = fit < (size_t)kF2Warps ? (int)fit : kF2Warps;
+  return F2Plan{warps, fixed + (size_t)warps * row};
+}
+
 template <typename TX, typename TO, int NV>
-void f2_fwd_nv(const void* x, const void* r, const float* scale,
-               const float* bias, void* y, void* s, float* mean, float* rstd,
-               long long rows, int w, float eps, const Drop& d, cudaStream_t st) {
-  long long blocks = (rows + 7) / 8;   // 8 warps a block, a warp a row
-  if (blocks > 65536) blocks = 65536;
-  const auto kernel = d.site.nbits != 0 ? add_ln_fwd<TX, TO, NV, true>
+cudaError_t f2_fwd_nv(const F2Args& a, cudaStream_t st) {
+  const auto kernel = a.drop.nbits != 0 ? add_ln_fwd<TX, TO, NV, true>
                                         : add_ln_fwd<TX, TO, NV, false>;
-  kernel<<<(int)blocks, 256, 0, st>>>(
-      static_cast<const TX*>(x), static_cast<const TX*>(r), scale, bias,
-      static_cast<TO*>(y), static_cast<TX*>(s), mean, rstd, rows, w, eps, d.site,
-      d.n_off);
+  const F2Plan plan = f2_plan(a.w, sizeof(TX), a.r != nullptr ? 2 : 1);
+  const cudaError_t err = raise_smem_limit((const void*)kernel, plan.smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (a.rows + plan.warps - 1) / plan.warps;
+  kernel<<<(unsigned)blocks, 32 * plan.warps, plan.smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 // The fewest vectors a lane that hold the row: 3 at H 768, 4 at H 1024.
 template <typename TX, typename TO>
-cudaError_t f2_fwd(const void* x, const void* r, const float* scale,
-                   const float* bias, void* y, void* s, float* mean, float* rstd,
-                   long long rows, int w, float eps, const Drop& d, cudaStream_t st) {
-  const int per_lane = (w / kVec + 31) / 32;
-  if (per_lane <= 1) f2_fwd_nv<TX, TO, 1>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, d, st);
-  else if (per_lane <= 2) f2_fwd_nv<TX, TO, 2>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, d, st);
-  else if (per_lane <= 3) f2_fwd_nv<TX, TO, 3>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, d, st);
-  else if (per_lane <= 4) f2_fwd_nv<TX, TO, 4>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, d, st);
-  else if (per_lane <= 8) f2_fwd_nv<TX, TO, 8>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, d, st);
-  else if (per_lane <= 16) f2_fwd_nv<TX, TO, 16>(x, r, scale, bias, y, s, mean, rstd, rows, w, eps, d, st);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+cudaError_t f2_fwd(const F2Args& a, cudaStream_t st) {
+  const int per_lane = (a.w / kVec + 31) / 32;
+  if (per_lane <= 1) return f2_fwd_nv<TX, TO, 1>(a, st);
+  if (per_lane <= 2) return f2_fwd_nv<TX, TO, 2>(a, st);
+  if (per_lane <= 3) return f2_fwd_nv<TX, TO, 3>(a, st);
+  if (per_lane <= 4) return f2_fwd_nv<TX, TO, 4>(a, st);
+  if (per_lane <= 8) return f2_fwd_nv<TX, TO, 8>(a, st);
+  if (per_lane <= 16) return f2_fwd_nv<TX, TO, 16>(a, st);
+  return cudaErrorInvalidValue;
 }
 
 template <typename TS, typename TG, int NV>
@@ -900,7 +1029,8 @@ extern "C" int bias_act_backward(const void* g, const void* h, const void* b,
 
 // r null: LN of x alone (s null, no dropout); s null with r: the sum is
 // not kept (no backward needs it). mean, rstd (rows,) f32 out; w at most
-// 4,096 (16 vectors a lane). With dropout r is the site's block.
+// 4,096 (16 vectors a lane). With dropout r is the site's block, n_off a
+// multiple of 8.
 extern "C" int add_layer_norm_forward(const void* x, const void* r,
                                       const void* scale, const void* bias,
                                       void* y, void* s, void* mean, void* rstd,
@@ -912,18 +1042,17 @@ extern "C" int add_layer_norm_forward(const void* x, const void* r,
   if (!shape_ok(rows, w) || (r == nullptr && s != nullptr) ||
       !aligned16(x) || !aligned16(r) || !aligned16(scale) || !aligned16(bias) ||
       !aligned16(y) || !aligned16(s) || !drop_ok(nbits) ||
-      (nbits != 0 && r == nullptr))
+      (nbits != 0 && (r == nullptr || n_off % kVec)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const float* sc = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  float* mu = static_cast<float*>(mean);
-  float* rs = static_cast<float*>(rstd);
   const Drop d = drop_of(seed_lo, seed_hi, nbits, threshold, keep_p, n_off);
-  if (x_dtype == kBF16 && out_dtype == kBF16) return (int)f2_fwd<bf16, bf16>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, d, st);
-  if (x_dtype == kF32 && out_dtype == kBF16) return (int)f2_fwd<float, bf16>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, d, st);
-  if (x_dtype == kBF16 && out_dtype == kF32) return (int)f2_fwd<bf16, float>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, d, st);
-  if (x_dtype == kF32 && out_dtype == kF32) return (int)f2_fwd<float, float>(x, r, sc, bi, y, s, mu, rs, rows, w, eps, d, st);
+  const F2Args a{x, r, static_cast<const float*>(scale), static_cast<const float*>(bias),
+                 y, s, static_cast<float*>(mean), static_cast<float*>(rstd), rows, w, eps,
+                 d.site, d.n_off};
+  if (x_dtype == kBF16 && out_dtype == kBF16) return (int)f2_fwd<bf16, bf16>(a, st);
+  if (x_dtype == kF32 && out_dtype == kBF16) return (int)f2_fwd<float, bf16>(a, st);
+  if (x_dtype == kBF16 && out_dtype == kF32) return (int)f2_fwd<bf16, float>(a, st);
+  if (x_dtype == kF32 && out_dtype == kF32) return (int)f2_fwd<float, float>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 

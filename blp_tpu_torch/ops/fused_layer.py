@@ -92,9 +92,10 @@ MAX_LN_WIDTH = 4096
 #: Kernel launches since the last reset, per wrapper (plain counters;
 #: chip_smoke.py reads them), and the same launches by kernel and variant:
 #: ("bias_act", "<act> <h dtype>-><out dtype>[ heads]"), ("add_layer_norm",
-#: "<x+r, x+drop<nbits>(r) or x> <x dtype>-><out dtype>"), their "...
-#: backward" kernels (F1's with its cotangent's layout, " heads" or
-#: " heads_t", when head-major), and ("site_dropout", "<dtype> drop<nbits>").
+#: "slab <x+r, x+drop<nbits>(r) or x>[ no s] <x dtype>-><out dtype> w<width>"),
+#: their "... backward" kernels (F1's with its cotangent's layout, " heads"
+#: or " heads_t", when head-major), and ("site_dropout", "<dtype>
+#: drop<nbits>").
 bias_act_launches = 0
 bias_act_backward_launches = 0
 add_layer_norm_launches = 0
@@ -440,8 +441,10 @@ def _add_layer_norm_kernel(x, r, scale, bias, eps: float, out_dtype,
     what = ("x" if r is None else
             ("x+r" if dropout is None else f"x+drop{dropout[2]}(r)")
             + ("" if keep_sum else " no s"))
-    launches_by_variant["add_layer_norm",
-                        f"{what} {_NAMES[x.dtype]}->{_NAMES[out_dtype]}"] += 1
+    # "slab": the forward's design (a block a slab of rows copied in bulk),
+    # which takes every call
+    launches_by_variant["add_layer_norm", f"slab {what} {_NAMES[x.dtype]}->"
+                        f"{_NAMES[out_dtype]} w{w}"] += 1
     return y, s, mean, rstd
 
 
@@ -461,9 +464,11 @@ def _add_layer_norm_backward_kernel(g, s, mean, rstd, scale, dropout=None):
     n_chunks = -(-rows // chunk_rows(rows))
     f32 = dict(dtype=torch.float32, device=s.device)
     partial = torch.empty((n_chunks, 2 * w), **f32)
-    dsb = torch.zeros(2 * w, **f32)        # dscale, then dbias
-    if rows == 0:
+    if rows == 0:                          # no rows: dscale = dbias = 0
+        dsb = torch.zeros(2 * w, **f32)
         return ds, dr, dsb[:w], dsb[w:]
+    dsb = torch.empty(2 * w, **f32)        # dscale, then dbias: column_sum writes all
+
     err = _bound("add_layer_norm_backward")(
         g2.data_ptr(), s2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
         scale.data_ptr(), ds.data_ptr(), _ptr(dr), partial.data_ptr(),

@@ -399,6 +399,28 @@ def device_ms(fn, reps: int, warmup: int = 3) -> tuple[float, float, dict]:
             by_name)
 
 
+def launch_ms(fn, names, reps: int = 10) -> dict:
+    """Device ms a launch of the kernels whose names hold each of `names`,
+    over `reps` calls of fn under torch.profiler: their self time over the
+    launches it recorded (None where it recorded none), so a launch the
+    profiler drops does not count as one that took no time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+        n = sum(e.count for e in evs)
+        out[name] = sum(e.self_device_time_total for e in evs) / n / 1e3 if n else None
+    return out
+
+
 def wall(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3579,6 +3601,15 @@ def _time_f2_backward_at(rows: int, nbits=None) -> dict:
         f"F2 backward at {rows}: dr is not drop(ds) of the plain generator")
     del got, want
     ms = cuda_ms(kernel, reps=20, warmup=3)
+    # The launch's two kernels apart: add_ln_bwd (ds, dr and the chunks'
+    # partial sums) and column_sum (the partials of each column added:
+    # n_chunks x 2w f32 read, 2w written).
+    parts = launch_ms(kernel, ("add_ln_bwd", "column_sum"))
+    n_chunks = -(-rows // fused_layer.chunk_rows(rows))
+    col_bound = _bound(4.0 * (n_chunks + 1) * 2 * BERT_H, n_chunks * 2.0 * BERT_H)
+    log(f"F2 backward at {rows:,} rows, dropout bits {nbits}: ms a launch "
+        f"{parts} ({n_chunks:,} x {2 * BERT_H:,} f32 partials in column_sum; "
+        f"its bound {col_bound['bound_ms']:.5f} ms by {col_bound['bound_by']})")
     plain_ms = cuda_ms(plain_vjp, reps=3)
     sc, bi = scale.to(bf), bias.to(bf)
     _, mu, rs = torch.ops.aten.native_layer_norm(s, [BERT_H], sc, bi, eps)
@@ -3595,6 +3626,8 @@ def _time_f2_backward_at(rows: int, nbits=None) -> dict:
             "library_ms": library_ms, "library_covers":
                 "aten.native_layer_norm_backward (bf16 scale): the LayerNorm's "
                 "backward alone, no dropout",
+            "add_ln_bwd_ms": parts["add_ln_bwd"], "column_sum_ms": parts["column_sum"],
+            "column_sum_bound_ms": col_bound["bound_ms"],
             "shape": f"{rows:,} x {w} bf16->bf16"
                      + ("" if nbits is None else f", dr drop {nbits}")}
 
@@ -3939,6 +3972,11 @@ def main() -> int:
               if v.endswith(f" sk{ATTN_SP}") and not v.startswith("tile ")}
     require(not f3_row, "main-path F3 launches at Sk 128 did not take the tile "
             f"design: {f3_row}")
+    f2_other = {v: c for v, c in f_by.get("add_layer_norm", {}).items()
+                if v.endswith(f" w{BERT_H}") and not v.startswith("slab ")}
+    require(f_by.get("add_layer_norm") and not f2_other,
+            f"main-path F2 forward launches at H {BERT_H} did not take the slab "
+            f"design: {f2_other}")
     torch.cuda.empty_cache()
 
     kernels = [time_k1(launches["K1"], k1_by), time_k2(launches["K2"], k2_by),

@@ -46,8 +46,20 @@ named otherwise:
 (9) F3's forward without dropout at 1,024 rows with 32- and 64-token
     segments, logits rounded to bf16 (the inference variant) and not,
     and the inference variant at 6,144 rows of 32-token segments.
+(10) F2's forward (`add_layer_norm_forward` of csrc/fused_layer.cu) of the
+    tree at --root against that of the tree at --f2-parent, whose source is
+    built here with the same nvcc flags: both called through ctypes on the
+    same inputs at the W5M train step's 131,072 x 768 (bf16 x + r with the
+    sum written, without it, with 8-, 16- and 32-bit masks; the f32
+    embedding sum alone to bf16) and the encode chunk's 786,432 rows, timed
+    in turns (CUDA events over 20 calls, parent, tree, tree, parent, the
+    better read of each), y, s, mean and rstd compared bit for bit (the
+    largest difference where they differ), and the registers and spills
+    ptxas gives each tree's bf16 forward kernels.
 Prints a summary and writes every table to --out (JSON). `--parts` picks
-some of them (default: all).
+some of them (default: all but f2, which needs --f2-parent).
+
+    python3 f3_probe.py --parts f2 --f2-parent build/parent
 """
 
 from __future__ import annotations
@@ -69,7 +81,12 @@ GROUPS = {"torch RNG": ("distribution_", "randint", "bernoulli"),
           "where": ("where_kernel",), "scalar compare": ("compare_scalar",),
           "copies": ("direct_copy", "bfloat16_copy")}
 PARTS = ("chain", "w5m", "encode", "bench", "flagship", "kernels", "copies", "f1",
-         "inference")
+         "inference", "f2")
+#: (10)'s cases: (rows, nbits or None, x + r (else x alone, f32), sum written).
+F2_CASES = {"sum": (131_072, None, True, True), "no_sum": (131_072, None, True, False),
+            "drop8": (131_072, 8, True, True), "drop16": (131_072, 16, True, True),
+            "drop32": (131_072, 32, True, True), "emb": (131_072, None, False, False),
+            "encode": (786_432, None, True, False)}
 def kernel_table(fn) -> tuple[float, list]:
     """(wall ms, [(kernel name, device ms, count)] by device time) of one
     call of fn under torch.profiler."""
@@ -373,6 +390,111 @@ def inference(res: dict) -> None:
         print(f"f3 {k}: {v['ms']:.4f} ms{row} (bound {v['bound_ms']:.4f})", flush=True)
 
 
+def f2_library(parent_root: str):
+    """The parent tree's F2 forward entry point: its csrc/fused_layer.cu built
+    with this tree's nvcc flags into <parent>/build/f3_probe/ (once), and
+    its ptxas log."""
+    import ctypes
+    import subprocess
+    src = os.path.join(parent_root, "blp_tpu_torch", "csrc", "fused_layer.cu")
+    out_dir = os.path.join(parent_root, "build", "f3_probe")
+    lib, log = os.path.join(out_dir, "fused_layer.so"), os.path.join(out_dir, "fused_layer.log")
+    if not os.path.exists(lib):       # built once a parent tree (a git archive)
+        os.makedirs(out_dir, exist_ok=True)
+        done = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, src],
+                              capture_output=True, text=True, timeout=900)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{done.stdout}{done.stderr}")
+        with open(log, "w") as f:
+            f.write(done.stdout + done.stderr)
+    fn = ctypes.CDLL(lib).add_layer_norm_forward
+    fn.restype, fn.argtypes = ctypes.c_int, fused_layer._SIGNATURES["add_layer_norm_forward"]
+    with open(log) as f:
+        return fn, f.read()
+
+
+def f2_registers(log_text: str) -> list:
+    """[(kernel, registers, spill line)] of the bf16 -> bf16 F2 forward
+    kernels in an nvcc -Xptxas -v log."""
+    out, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry" in line:
+            name = line.split("'")[1] if "add_ln_fwd" in line else None
+            spill = ""
+        elif name and "spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif name and "registers" in line:
+            out.append((name, int(line.split("Used")[1].split("registers")[0]), spill))
+            name = None
+    return [o for o in out if "13__nv_bfloat16S" in o[0]]
+
+
+def f2(res: dict, parent_root: str) -> None:
+    """(10)."""
+    parent_fn, parent_log = f2_library(parent_root)
+    tree_fn = fused_layer._bound("add_layer_norm_forward")
+    bf, eps, w = torch.bfloat16, 1e-12, cs.BERT_H
+    out = {}
+    for name, (rows, nbits, with_r, keep_sum) in F2_CASES.items():
+        g = torch.Generator(device="cuda").manual_seed(90)
+        x_dt = bf if with_r else torch.float32
+        x = (1.0 + torch.randn((rows, w), generator=g, device="cuda")).to(x_dt)
+        r = (0.5 * torch.randn((rows, w), generator=g, device="cuda")).to(bf) if with_r else None
+        scale = 1.0 + 0.1 * torch.randn(w, generator=g, device="cuda")
+        bias = 0.1 * torch.randn(w, generator=g, device="cuda")
+        drop = fused_layer._drop_args(None if nbits is None else (11, 0.1, nbits, None),
+                                      (rows, w))
+
+        def outputs():
+            return (torch.empty((rows, w), dtype=bf, device="cuda"),
+                    torch.empty((rows, w), dtype=x_dt, device="cuda") if keep_sum else None,
+                    torch.empty(rows, device="cuda"), torch.empty(rows, device="cuda"))
+
+        def call(fn, o):
+            return lambda: fused_layer._cuda.check(fn(
+                x.data_ptr(), None if r is None else r.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), o[0].data_ptr(), None if o[1] is None else o[1].data_ptr(),
+                o[2].data_ptr(), o[3].data_ptr(), rows, w, fused_layer._DTYPES[x_dt],
+                fused_layer._DTYPES[bf], eps, *drop,
+                torch.cuda.current_stream().cuda_stream), "add_layer_norm_forward")
+
+        o_par, o_tree = outputs(), outputs()
+        call(parent_fn, o_par)()
+        call(tree_fn, o_tree)()
+        torch.cuda.synchronize()
+        diffs = {k: (a.float() - b.float()).abs().max().item()
+                 for k, a, b in zip(("y", "s", "mean", "rstd"), o_tree, o_par)
+                 if a is not None}
+        equal = all(torch.equal(a, b) for a, b in zip(o_tree, o_par) if a is not None)
+        par_ms, tree_ms = cs.cuda_ms_in_turns(call(parent_fn, o_par), call(tree_fn, o_tree))
+        # x (and r) read, y (and s) written; mean and rstd; scale and bias
+        nbytes = ((x.element_size() * (2 if keep_sum else 1) + 2
+                   + (r.element_size() if with_r else 0)) * rows * w + 8.0 * (rows + w))
+        out[name] = {"ms": tree_ms, "parent_ms": par_ms, "bit_equal": equal,
+                     "max_diff": diffs,
+                     **cs._bound(nbytes, (cs.F2_OPS + cs._philox_ops(nbits)) * rows * w),
+                     "shape": f"{rows:,} x {w} {'x+r' if with_r else 'x f32'}"
+                              f"{'' if nbits is None else f' drop{nbits}'}"
+                              f"{', sum written' if keep_sum else ''} -> bf16"}
+        del x, r, o_par, o_tree
+        torch.cuda.empty_cache()
+    tree_log = _cuda.BUILD_DIR / "fused_layer.log"
+    out["registers"] = {"tree": f2_registers(tree_log.read_text()) if tree_log.exists()
+                        else [], "parent": f2_registers(parent_log)}
+    res["f2"] = out
+    for k, v in out.items():
+        if k == "registers":
+            continue
+        print(f"F2 {k} ({v['shape']}): {v['ms']:.4f} ms against the parent's "
+              f"{v['parent_ms']:.4f} ({100 * v['bound_ms'] / v['ms']:.1f}% and "
+              f"{100 * v['bound_ms'] / v['parent_ms']:.1f}% of the bound "
+              f"{v['bound_ms']:.4f} by {v['bound_by']}); bit-equal {v['bit_equal']}, "
+              f"largest differences {v['max_diff']}", flush=True)
+    for side, regs in out["registers"].items():
+        for kname, n, spill in regs:
+            print(f"F2 registers, {side}: {n} ({spill}) {kname[:120]}", flush=True)
+
+
 def _import(root: str) -> None:
     """The modules of the tree at `root`, as this module's globals."""
     global cs, serve, training, write_synth_dataset, WordPieceTokenizer, bert
@@ -399,8 +521,11 @@ def main(argv=None) -> int:
                     help="JSON file for the tables (relative to the working "
                          "directory)")
     ap.add_argument("--skip-bench", action="store_true")
-    ap.add_argument("--parts", default=",".join(PARTS),
+    ap.add_argument("--parts", default=",".join(p for p in PARTS if p != "f2"),
                     help=f"comma-separated parts to run, of {','.join(PARTS)}")
+    ap.add_argument("--f2-parent", default="build/parent",
+                    help="(10): the tree whose F2 forward the tree at --root's is "
+                         "held against (default: build/parent)")
     args = ap.parse_args(argv)
     parts = set(args.parts.split(","))
     if args.skip_bench:
@@ -409,6 +534,7 @@ def main(argv=None) -> int:
         ap.error(f"unknown parts {sorted(parts - set(PARTS))}")
     out_path = os.path.abspath(args.out)
     root = os.path.abspath(args.root)
+    f2_parent = os.path.abspath(args.f2_parent)
     if not torch.cuda.is_available():
         print("f3_probe: CUDA is not available", file=sys.stderr)
         return 2
@@ -428,7 +554,8 @@ def main(argv=None) -> int:
     for name, fn in (("w5m", w5m_step), ("copies", copies), ("encode", encodes),
                      ("bench", lambda r, _: r.update(cs.w5m_point())),
                      ("flagship", flagship), ("kernels", lambda r, _: kernels(r)),
-                     ("f1", lambda r, _: f1(r)), ("inference", lambda r, _: inference(r))):
+                     ("f1", lambda r, _: f1(r)), ("inference", lambda r, _: inference(r)),
+                     ("f2", lambda r, _: f2(r, f2_parent))):
         if name in parts:
             fn(res, data_dir)
             torch.cuda.empty_cache()

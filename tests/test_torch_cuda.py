@@ -1481,6 +1481,99 @@ def test_f2_dropout_function_matches_plain_and_counts():
     assert _sum_close(dsc, dsc_p) and _sum_close(dbi, dbi_p)
 
 
+def _f2_forward_check(x, r, scale, bias, out_dt, dropout=None, keep_sum=True):
+    """F2's forward kernel against the plain version: s bit-equal to x +
+    drop(r) (torch's CUDA ops, the plain generator's mask), y within F2's
+    tolerance, mean and rstd within f32 rounding of the plain statistics."""
+    y, s, mean, rstd = fused_layer._add_layer_norm_kernel(
+        x, r, scale, bias, 1e-12, out_dt, dropout, keep_sum)
+    want_s = x if r is None else x + (r if dropout is None else
+                                      fused_layer.site_dropout_plain(r, dropout))
+    if r is not None and keep_sum:
+        assert torch.equal(s, want_s)
+    elif r is not None:
+        assert s is None
+    y_p, mu_p, rs_p = fused_layer._layer_norm_stats(want_s, scale, bias, 1e-12, out_dt)
+    assert y.dtype == out_dt and _close(y, y_p, rows_summed=True)
+    assert torch.allclose(mean, mu_p, rtol=1e-5, atol=1e-6 * want_s.float().abs().max().item())
+    assert torch.allclose(rstd, rs_p, rtol=1e-4)
+
+
+def _f2_rows(rows, w, x_dt, seed, r_dt=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (1.0 + torch.randn((rows, w), generator=g, device="cuda")).to(x_dt)
+    r = (0.5 * torch.randn((rows, w), generator=g, device="cuda")).to(r_dt or x_dt)
+    scale = 1.0 + 0.1 * torch.randn(w, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(w, generator=g, device="cuda")
+    return x, r, scale, bias
+
+
+#: Rows of F2's slab edges: one row, fewer than a slab's 8, one slab, a slab
+#: and one, and 6,341 rows, whose last slab is partial.
+F2_SLAB_ROWS = [1, 5, 8, 9, 6341]
+
+
+@pytest.mark.parametrize("w", [8, 24, 768, 1024, 4096])
+@pytest.mark.parametrize("rows", F2_SLAB_ROWS)
+def test_f2_slab_edges_match_plain(rows, w):
+    """The slab design at ragged row counts and at widths from one vector to
+    the 4,096 limit."""
+    before = dict(fused_layer.launches_by_variant)
+    x, r, scale, bias = _f2_rows(rows, w, torch.bfloat16, rows + w)
+    _f2_forward_check(x, r, scale, bias, torch.bfloat16)
+    key = ("add_layer_norm", f"slab x+r bf16->bf16 w{w}")
+    assert fused_layer.launches_by_variant[key] == before.get(key, 0) + 1
+
+
+@pytest.mark.parametrize("w", [24, 768, 2048, 4096])
+@pytest.mark.parametrize("x_dt,out_dt", [("bf16", "bf16"), ("f32", "f32"),
+                                         ("f32", "bf16"), ("bf16", "f32")])
+@pytest.mark.parametrize("with_r", [True, False])
+def test_f2_slab_without_the_sum_matches_plain(with_r, x_dt, out_dt, w):
+    """x + r with the sum not written (an encode), and LN of x alone (the
+    f32 embedding sum), at 37 rows, mean and rstd included; f32 rows of x
+    and r of 4,096 take 6 rows a block (8 do not fit its shared memory)."""
+    x, r, scale, bias = _f2_rows(37, w, DT[x_dt], 7)
+    _f2_forward_check(x, r if with_r else None, scale, bias, DT[out_dt], keep_sum=False)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 999])
+@pytest.mark.parametrize("w", [24, 264, 520, 768])
+@pytest.mark.parametrize("nbits", [8, 16, 32])
+def test_f2_slab_masks_equal_the_plain_generator(nbits, w, offset):
+    """s = x + drop(r) bit-equal to the plain generator's mask on a block of
+    whole rows of a larger site. At 8 bits the lane pairs share a Philox
+    call where a row starts on one (its flat index a multiple of 16: every
+    row at w 768; every other row at w 24, 264 and 520, which give a lane
+    one, two and three vectors); the other rows take a call a lane."""
+    rows = 41
+    x, r, scale, bias = _f2_rows(rows, w, torch.bfloat16, nbits + w + offset)
+    drop = (0xF2 + offset, 0.1, nbits, ((offset + rows + 3, w), (offset, 0)))
+    _f2_forward_check(x, r, scale, bias, torch.bfloat16, drop)
+
+
+def test_f2_backward_zeroes_no_buffer(monkeypatch):
+    """F2's backward allocates dscale and dbias empty when there are rows
+    (column_sum writes every column), so no torch.zeros and no memset
+    launch; its sums equal the plain ones and two calls give the same
+    bits."""
+    x, r, scale, bias = _f2_rows(4097, 768, torch.bfloat16, 3)
+    _, s, mean, rstd = fused_layer._add_layer_norm_kernel(x, r, scale, bias, 1e-12,
+                                                          torch.bfloat16)
+    gy = torch.randn_like(x)
+    first = fused_layer._add_layer_norm_backward_kernel(gy, s, mean, rstd, scale)
+
+    def no_zeros(*args, **kwargs):
+        raise AssertionError("F2's backward zeroed a buffer")
+
+    monkeypatch.setattr(torch, "zeros", no_zeros)
+    again = fused_layer._add_layer_norm_backward_kernel(gy, s, mean, rstd, scale)
+    monkeypatch.undo()
+    assert all(torch.equal(a, b) for a, b in zip(first, again) if a is not None)
+    want = [t.float().sum(0) for t in (gy.float() * (s.float() - mean) * rstd, gy)]
+    assert _sum_close(again[2], want[0]) and _sum_close(again[3], want[1])
+
+
 @pytest.mark.parametrize("offset", [None, 24])
 @pytest.mark.parametrize("dt", ["bf16", "f32"])
 @pytest.mark.parametrize("nbits", [8, 16, 32])
