@@ -40,16 +40,19 @@
 // <= 4,096), so the backward reads g and s once; the forward's block copies
 // its slab of rows, scale and bias into shared memory in bulk
 // (bulk_copy.cuh), so its warps run the generator while the rows land and
-// scale and bias are read once a block. F1's backward and F2's
+// scale and bias are read once a block; the backward's warps bring their
+// next row in by cp.async while they compute one. F1's backward and F2's
 // reduce db, dscale and dbias without atomics on the values: a block owns a
 // chunk of rows (the wrapper's `chunk`, a function of the row count) and
 // writes one partial row per chunk, adding its rows in a fixed order (F1:
 // each row lane its rows in order, then the lanes in a fixed tree; F2: each
-// warp its rows in order, then the block's warps in warp order). F1 adds
-// the partials in the same launch: the block that takes a column tile's
-// last ticket adds them in a fixed order; F2's `column_sum` adds the
-// partials of each column in a fixed tree (32 strided streams, then the 32
-// stream sums in order). So a call gives the same bits every time.
+// warp its rows in order, then the block's warps in warp order). Each adds
+// the partials in the same launch, each column in a fixed tree (strided
+// streams of chunks, then the stream sums in order): in F1 the block that
+// takes a column tile's last ticket adds that tile's; in F2, whose every
+// block writes a partial of all 2w columns, a persistent grid waits at one
+// barrier and its blocks share the column groups. So each backward is one
+// launch, and a call gives the same bits every time.
 //
 // Rounding: F1's poly activation and its derivative round every product and
 // sum on its own (no FMA), in the order of the plain `poly_gelu` and of the
@@ -182,6 +185,62 @@ template <int ACT> __device__ __forceinline__ float act_bwd(float x, float g) {
     return __fadd_rn(gx_direct, gx_clamp);
   }
   return g;
+}
+
+// F2's backward hands its chunk partials from the blocks that write them to
+// the blocks that add them: stored so that L2 keeps them before the rows
+// streaming through it (evict_last), read once (evict_first), and passed
+// through a counter with release and acquire order at GPU scope. The two
+// cache policies took 6-8 us off a 0.23-0.37 ms call at 131,072 x 768, in
+// calls back to back, after other work and in the W5M step (PERF.md §6,
+// F2's backward).
+__device__ __forceinline__ void store_kept(float* p, float v) {
+  asm volatile(
+      "{\n.reg .b64 pol;\ncreatepolicy.fractional.L2::evict_last.b64 pol, 1.0;\n"
+      "st.global.L2::cache_hint.f32 [%0], %1, pol;\n}\n" ::"l"(p), "f"(v)
+      : "memory");
+}
+
+__device__ __forceinline__ float load_last_use(const float* p) {
+  float v;
+  asm volatile(
+      "{\n.reg .b64 pol;\ncreatepolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      "ld.global.cg.L2::cache_hint.f32 %0, [%1], pol;\n}\n"
+      : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned add_release(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.add.release.gpu.global.u32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// cp.async of 16 bytes into shared memory, its groups and the wait for all
+// but the newest N of them: F2's backward brings a warp's next row in while
+// the warp computes a row.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -450,26 +509,6 @@ bias_act_bwd(const TO* __restrict__ g, const TH* __restrict__ h,
   }
 }
 
-// out[c] = sum over k < n of partial[k, c], in a fixed order: thread (x, y)
-// adds rows y, y + 32, ... of column c = 32 * blockIdx.x + x, then row y = 0
-// adds the 32 stream sums in order.
-__global__ void __launch_bounds__(1024)
-column_sum(const float* __restrict__ partial, int n, int w, float* __restrict__ out) {
-  __shared__ float streams[32][33];
-  const int col = blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.0f;
-  if (col < w)
-    for (int k = threadIdx.y; k < n; k += 32)
-      acc = __fadd_rn(acc, partial[(long long)k * w + col]);
-  streams[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < w) {
-    float t = 0.0f;
-    for (int j = 0; j < 32; ++j) t = __fadd_rn(t, streams[j][threadIdx.x]);
-    out[col] = t;
-  }
-}
-
 // ---- F2 ----------------------------------------------------------------------
 
 // drop(v) of an 8-element vector at flat site index n (n % 8 == 0), in
@@ -672,95 +711,213 @@ add_ln_fwd(const F2Args a) {
   }
 }
 
-// Block = one chunk of rows, a warp a row with the row in registers (lane l
-// owns column vectors l, l + 32, ..., at most NV): g and s are read once,
-// the row sums give ds, and each lane adds g * xhat and g into its columns'
-// dscale and dbias partials, in the order of the warp's rows (r0 + warp,
-// r0 + warp + 8, ...). Then the block's warps add their partials in warp
-// order through shared memory, a vector index at a time, into the chunk's
-// partial row (dscale in columns [0, w), dbias in [w, 2w)). With dropout
-// (DROP) the branch's gradient dr = drop(round(ds)) is written beside ds,
-// its mask evaluated again from the seed.
+// F2's dscale and dbias: the sums over the n_chunks chunk partials (rows of
+// w2 = 2w) of the kF2Cols columns from c0, each in a fixed tree: thread
+// (q, st) adds column c0 + q over chunks st, st + 32, ... in chunk order,
+// then the 32 stream sums are added in stream order. A thread issues the
+// loads of its chunks (16 a batch) before it adds them. 256 threads.
+constexpr int kF2Cols = 8, kF2Streams = 32;
+__device__ void f2_column_sums(const float* __restrict__ partial, float* __restrict__ dsb,
+                               long long c0, long long w2, int n_chunks) {
+  constexpr int kBatch = 16;
+  __shared__ float streams[kF2Streams][kF2Cols + 1];
+  const int q = threadIdx.x % kF2Cols, st = threadIdx.x / kF2Cols;
+  const long long col = c0 + q;
+  float acc = 0.0f;
+  if (col < w2) {
+    for (int c = st; c < n_chunks; c += kBatch * kF2Streams) {
+      float p[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (c + i * kF2Streams < n_chunks)
+          p[i] = load_last_use(partial + (long long)(c + i * kF2Streams) * w2 + col);
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (c + i * kF2Streams < n_chunks) acc = __fadd_rn(acc, p[i]);
+    }
+  }
+  streams[st][q] = acc;
+  __syncthreads();
+  if (st == 0 && col < w2) {
+    float t = streams[0][q];
+#pragma unroll
+    for (int k = 1; k < kF2Streams; ++k) t = __fadd_rn(t, streams[k][q]);
+    dsb[col] = t;
+  }
+  __syncthreads();
+}
+
+// Whether F2's backward stages a warp's next row of g and s in shared memory
+// (two slots a warp): rows of at most 768 (NV <= 3), and not f32 g with f32
+// s, whose slots would not leave two blocks an SM.
+template <typename TS, typename TG, int NV>
+__host__ __device__ constexpr bool f2_staged() {
+  return NV <= 3 && sizeof(TG) + sizeof(TS) <= 6;
+}
+
+// The state words of F2's backward: [0] the blocks arrived, over all
+// launches (mod 2^32); [1] its value when the running launch began.
+constexpr int kF2State = 2;
+
+// A block takes a chunk of rows at a time, a warp a row with the row in
+// registers (lane l owns column vectors l, l + 32, ..., at most NV): g and
+// s are read once, the row sums give ds, and each lane adds g * xhat and g
+// into its columns' dscale and dbias partials, in the order of the warp's
+// rows (r0 + warp, r0 + warp + 8, ...). Then the block's warps add their
+// partials in warp order through shared memory, a vector index at a time,
+// into the chunk's partial row (dscale in columns [0, w), dbias in [w,
+// 2w)). With dropout (DROP) the branch's gradient dr = drop(round(ds)) is
+// written beside ds, its mask evaluated again from the seed. Where
+// f2_staged, a warp's next row of g and s comes into shared memory by
+// cp.async while it computes a row, so each warp has two rows' loads in
+// flight and no register holds them (at 131,072 x 768, 77-81% of the bound
+// against 64-67% with one row in flight; PERF.md §6).
+//
+// dscale and dbias in the same launch: a persistent grid (the blocks the
+// card holds at once, launched cooperatively so that all are resident),
+// block b taking chunks b, b + gridDim.x, ... After its last partial row
+// (or none, where the grid is wider than the chunks) a block arrives
+// (state[0], release order) and waits until every block has (acquire
+// order); the last to arrive moves state[1] on by the grid for the next
+// launch on the stream, so no word is set back. Then block b adds the
+// partials of the 8-column groups b, b + gridDim.x, ... (f2_column_sums).
+// One arrival a block, not one a chunk: at 131,072 rows a block a chunk,
+// with the last 64 blocks adding the columns, was no faster than a second
+// kernel adding them (PERF.md §6). The sums' order is that of the
+// chunk plan alone, so their bits depend on neither the grid nor the
+// blocks' order.
 template <typename TS, typename TG, int NV, bool DROP>
 __global__ void __launch_bounds__(256, 2)
 add_ln_bwd(const TG* __restrict__ g, const TS* __restrict__ s,
            const float* __restrict__ mean, const float* __restrict__ rstd,
            const float* __restrict__ scale, TS* __restrict__ ds,
-           TS* __restrict__ dr, float* __restrict__ partial, long long rows,
-           int w, int chunk, dropout_rng::Site drop, unsigned long long n_off) {
+           TS* __restrict__ dr, float* __restrict__ partial, float* __restrict__ dsb,
+           unsigned* __restrict__ state, long long rows, int w, int chunk,
+           int n_chunks, dropout_rng::Site drop, unsigned long long n_off) {
   constexpr int kWarps = 8;
+  constexpr bool kStaged = f2_staged<TS, TG, NV>();
   __shared__ float stage[kWarps][32][2 * kVec];
+  extern __shared__ __align__(16) unsigned char row_slots[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int w_vec = w / kVec;
-  const long long r0 = (long long)blockIdx.x * chunk;
-  const long long r1 = r0 + chunk < rows ? r0 + chunk : rows;
-  float as[NV][kVec], ab[NV][kVec];
-#pragma unroll
-  for (int j = 0; j < NV; ++j)
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) as[j][k] = ab[j][k] = 0.0f;
-  for (long long row = r0 + warp; row < r1; row += kWarps) {
-    const long long base = row * w;
-    const float mu = mean[row], rs = rstd[row];
-    float gs[NV][kVec], xh[NV][kVec];
-    float c1 = 0.0f, c2 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int cv = lane + 32 * j;
-      if (cv < w_vec) {
-        float gv[kVec], sc[kVec];
-        load8(g + base + cv * kVec, gv);
-        load8(s + base + cv * kVec, xh[j]);
-        load8(scale + cv * kVec, sc);
-#pragma unroll
-        for (int k = 0; k < kVec; ++k) {
-          xh[j][k] = (xh[j][k] - mu) * rs;
-          gs[j][k] = gv[k] * sc[k];
-          c1 += gs[j][k];
-          c2 += gs[j][k] * xh[j][k];
-          as[j][k] = __fadd_rn(as[j][k], __fmul_rn(gv[k], xh[j][k]));
-          ab[j][k] = __fadd_rn(ab[j][k], gv[k]);
-        }
-      }
-    }
-    c1 = warp_sum(c1) / (float)w;
-    c2 = warp_sum(c2) / (float)w;
+  const size_t slot_bytes = (size_t)w * (sizeof(TG) + sizeof(TS));
+  // Row `row` of g and s into this warp's slot: each lane copies the vectors
+  // it reads back itself, so no lane waits for another.
+  const auto prefetch = [&](long long row, int slot) {
+    unsigned char* b = row_slots + (size_t)(2 * warp + slot) * slot_bytes;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       const int cv = lane + 32 * j;
       if (cv < w_vec) {
 #pragma unroll
-        for (int k = 0; k < kVec; ++k)
-          gs[j][k] = round_to<TS>(rs * (gs[j][k] - c1 - xh[j][k] * c2));
-        store8(ds + base + cv * kVec, gs[j]);
-        if constexpr (DROP) {
-          drop8<TS>(drop, n_off + base + cv * kVec, gs[j]);
-          store8(dr + base + cv * kVec, gs[j]);
+        for (int h = 0; h < (int)(sizeof(TG) * kVec / 16); ++h)
+          cp_async16(b + (cv * kVec * sizeof(TG) + 16 * h), g + row * w + cv * kVec + h * 16 / sizeof(TG));
+#pragma unroll
+        for (int h = 0; h < (int)(sizeof(TS) * kVec / 16); ++h)
+          cp_async16(b + (w * sizeof(TG) + cv * kVec * sizeof(TS) + 16 * h),
+                     s + row * w + cv * kVec + h * 16 / sizeof(TS));
+      }
+    }
+  };
+  for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    const long long r0 = (long long)c * chunk;
+    const long long r1 = r0 + chunk < rows ? r0 + chunk : rows;
+    float as[NV][kVec], ab[NV][kVec];
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) as[j][k] = ab[j][k] = 0.0f;
+    if constexpr (kStaged) {
+      if (r0 + warp < r1) prefetch(r0 + warp, 0);
+      cp_async_commit();
+    }
+    int slot = 0;
+    for (long long row = r0 + warp; row < r1; row += kWarps, slot ^= 1) {
+      const long long base = row * w;
+      const TG* gr = g + base;
+      const TS* sr = s + base;
+      if constexpr (kStaged) {
+        if (row + kWarps < r1) prefetch(row + kWarps, slot ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        const unsigned char* b = row_slots + (size_t)(2 * warp + slot) * slot_bytes;
+        gr = reinterpret_cast<const TG*>(b);
+        sr = reinterpret_cast<const TS*>(b + w * sizeof(TG));
+      }
+      const float mu = mean[row], rs = rstd[row];
+      float gs[NV][kVec], xh[NV][kVec];
+      float c1 = 0.0f, c2 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int cv = lane + 32 * j;
+        if (cv < w_vec) {
+          float gv[kVec], sc[kVec];
+          load8(gr + cv * kVec, gv);
+          load8(sr + cv * kVec, xh[j]);
+          load8(scale + cv * kVec, sc);
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) {
+            xh[j][k] = (xh[j][k] - mu) * rs;
+            gs[j][k] = gv[k] * sc[k];
+            c1 += gs[j][k];
+            c2 += gs[j][k] * xh[j][k];
+            as[j][k] = __fadd_rn(as[j][k], __fmul_rn(gv[k], xh[j][k]));
+            ab[j][k] = __fadd_rn(ab[j][k], gv[k]);
+          }
+        }
+      }
+      c1 = warp_sum(c1) / (float)w;
+      c2 = warp_sum(c2) / (float)w;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int cv = lane + 32 * j;
+        if (cv < w_vec) {
+#pragma unroll
+          for (int k = 0; k < kVec; ++k)
+            gs[j][k] = round_to<TS>(rs * (gs[j][k] - c1 - xh[j][k] * c2));
+          store8(ds + base + cv * kVec, gs[j]);
+          if constexpr (DROP) {
+            drop8<TS>(drop, n_off + base + cv * kVec, gs[j]);
+            store8(dr + base + cv * kVec, gs[j]);
+          }
         }
       }
     }
-  }
-  float* out = partial + (long long)blockIdx.x * 2 * w;
+    if constexpr (kStaged) cp_async_wait<0>();
+    float* out = partial + (long long)c * 2 * w;
 #pragma unroll
-  for (int j = 0; j < NV; ++j) {
+    for (int j = 0; j < NV; ++j) {
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      stage[warp][lane][k] = as[j][k];
-      stage[warp][lane][kVec + k] = ab[j][k];
-    }
-    __syncthreads();
-    for (int v = threadIdx.x; v < 32 * 2 * kVec; v += blockDim.x) {
-      const int ln = v / (2 * kVec), q = v % (2 * kVec);
-      const int cv = ln + 32 * j;
-      if (cv < w_vec) {
-        float t = 0.0f;
-#pragma unroll
-        for (int wp = 0; wp < kWarps; ++wp) t = __fadd_rn(t, stage[wp][ln][q]);
-        out[(q < kVec ? 0 : w) + cv * kVec + q % kVec] = t;
+      for (int k = 0; k < kVec; ++k) {
+        stage[warp][lane][k] = as[j][k];
+        stage[warp][lane][kVec + k] = ab[j][k];
       }
+      __syncthreads();
+      for (int v = threadIdx.x; v < 32 * 2 * kVec; v += blockDim.x) {
+        const int ln = v / (2 * kVec), q = v % (2 * kVec);
+        const int cv = ln + 32 * j;
+        if (cv < w_vec) {
+          float t = 0.0f;
+#pragma unroll
+          for (int wp = 0; wp < kWarps; ++wp) t = __fadd_rn(t, stage[wp][ln][q]);
+          store_kept(out + (q < kVec ? 0 : w) + cv * kVec + q % kVec, t);
+        }
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
+  // The barrier above orders the block's partial writes before thread 0's
+  // release (cumulative).
+  if (threadIdx.x == 0) {
+    const unsigned base = load_relaxed(&state[1]);
+    if (add_release(&state[0], 1u) - base == gridDim.x - 1)   // the last to arrive
+      state[1] = base + gridDim.x;
+    while (load_acquire(&state[0]) - base < gridDim.x) __nanosleep(32);
+  }
+  __syncthreads();
+  for (long long c0 = (long long)blockIdx.x * kF2Cols; c0 < 2LL * w;
+       c0 += (long long)gridDim.x * kF2Cols)
+    f2_column_sums(partial, dsb, c0, 2LL * w, n_chunks);
 }
 
 // ---- launches ----------------------------------------------------------------
@@ -887,34 +1044,48 @@ cudaError_t f2_fwd(const F2Args& a, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+// The grid: the blocks the card holds at once (launch bounds: at least two an
+// SM), launched cooperatively; with fewer chunks the blocks past them only
+// add columns.
 template <typename TS, typename TG, int NV>
-void f2_bwd_nv(const void* g, const void* s, const float* mean,
-               const float* rstd, const float* scale, void* ds, void* dr,
-               float* partial, long long rows, int w, int chunk, const Drop& d,
-               cudaStream_t st) {
-  const int n_chunks = (int)((rows + chunk - 1) / chunk);
+cudaError_t f2_bwd_nv(const void* g, const void* s, const float* mean,
+                      const float* rstd, const float* scale, void* ds, void* dr,
+                      float* partial, float* dsb, unsigned* state, long long rows,
+                      int w, int chunk, const Drop& d, cudaStream_t st) {
+  int n_chunks = (int)((rows + chunk - 1) / chunk);
   const auto kernel = d.site.nbits != 0 ? add_ln_bwd<TS, TG, NV, true>
                                         : add_ln_bwd<TS, TG, NV, false>;
-  kernel<<<n_chunks, 256, 0, st>>>(
-      static_cast<const TG*>(g), static_cast<const TS*>(s), mean, rstd, scale,
-      static_cast<TS*>(ds), static_cast<TS*>(dr), partial, rows, w, chunk, d.site,
-      d.n_off);
+  const size_t smem = f2_staged<TS, TG, NV>() ? 8 * 2 * (size_t)w * (sizeof(TG) + sizeof(TS)) : 0;
+  int grid = 0;
+  const cudaError_t err = resident_blocks((const void*)kernel, 256, smem, &grid);
+  if (err != cudaSuccess) return err;
+  const TG* gp = static_cast<const TG*>(g);
+  const TS* sp = static_cast<const TS*>(s);
+  TS* dsp = static_cast<TS*>(ds);
+  TS* drp = static_cast<TS*>(dr);
+  dropout_rng::Site site = d.site;
+  unsigned long long n_off = d.n_off;
+  void* args[] = {&gp, &sp, &mean, &rstd, &scale, &dsp, &drp, &partial, &dsb, &state,
+                  &rows, &w, &chunk, &n_chunks, &site, &n_off};
+  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(256), args, smem, st);
 }
 
 template <typename TS, typename TG>
 cudaError_t f2_bwd(const void* g, const void* s, const float* mean,
                    const float* rstd, const float* scale, void* ds, void* dr,
-                   float* partial, long long rows, int w, int chunk, const Drop& d,
-                   cudaStream_t st) {
+                   float* partial, float* dsb, unsigned* state, long long rows, int w,
+                   int chunk, const Drop& d, cudaStream_t st) {
   const int per_lane = (w / kVec + 31) / 32;
-  if (per_lane <= 1) f2_bwd_nv<TS, TG, 1>(g, s, mean, rstd, scale, ds, dr, partial, rows, w, chunk, d, st);
-  else if (per_lane <= 2) f2_bwd_nv<TS, TG, 2>(g, s, mean, rstd, scale, ds, dr, partial, rows, w, chunk, d, st);
-  else if (per_lane <= 3) f2_bwd_nv<TS, TG, 3>(g, s, mean, rstd, scale, ds, dr, partial, rows, w, chunk, d, st);
-  else if (per_lane <= 4) f2_bwd_nv<TS, TG, 4>(g, s, mean, rstd, scale, ds, dr, partial, rows, w, chunk, d, st);
-  else if (per_lane <= 8) f2_bwd_nv<TS, TG, 8>(g, s, mean, rstd, scale, ds, dr, partial, rows, w, chunk, d, st);
-  else if (per_lane <= 16) f2_bwd_nv<TS, TG, 16>(g, s, mean, rstd, scale, ds, dr, partial, rows, w, chunk, d, st);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+#define F2_BWD(NV) f2_bwd_nv<TS, TG, NV>(g, s, mean, rstd, scale, ds, dr, partial, dsb, \
+                                         state, rows, w, chunk, d, st)
+  if (per_lane <= 1) return F2_BWD(1);
+  if (per_lane <= 2) return F2_BWD(2);
+  if (per_lane <= 3) return F2_BWD(3);
+  if (per_lane <= 4) return F2_BWD(4);
+  if (per_lane <= 8) return F2_BWD(8);
+  if (per_lane <= 16) return F2_BWD(16);
+#undef F2_BWD
+  return cudaErrorInvalidValue;
 }
 
 // ---- the site kernel ---------------------------------------------------------
@@ -934,12 +1105,6 @@ site_dropout(const T* __restrict__ x, T* __restrict__ y, long long n_vec,
     drop8<T>(drop, n_off + (unsigned long long)i * kVec, v);
     store8(y + i * kVec, v);
   }
-}
-
-cudaError_t column_sums(const float* partial, int n, int w, float* out,
-                        cudaStream_t st) {
-  column_sum<<<(w + 31) / 32, dim3(32, 32), 0, st>>>(partial, n, w, out);
-  return cudaGetLastError();
 }
 
 // The dropout site of a call (dropout_rng.cuh): nbits 0 (none), 8, 16 or 32.
@@ -1058,19 +1223,22 @@ extern "C" int add_layer_norm_forward(const void* x, const void* r,
 
 // g: the cotangent of y (g_dtype); partial ((rows + chunk - 1) / chunk, 2w)
 // f32 scratch; dsb (2w,) f32 out: dscale, then dbias; dr (s's dtype) the
-// dropout branch's gradient, null without dropout.
+// dropout branch's gradient, null without dropout; state: n_state unsigned
+// words, at least 2, zeros before a stream's first call and left to the
+// calls after it (one launch writes ds, dr, dscale and dbias).
 extern "C" int add_layer_norm_backward(const void* g, const void* s,
                                        const void* mean, const void* rstd,
                                        const void* scale, void* ds, void* dr,
-                                       void* partial, void* dsb, long long rows,
-                                       int w, int s_dtype, int g_dtype,
-                                       int chunk, unsigned seed_lo,
-                                       unsigned seed_hi, int nbits,
-                                       unsigned threshold, float keep_p,
+                                       void* partial, void* dsb, void* state,
+                                       long long rows, int w, int s_dtype,
+                                       int g_dtype, int chunk, int n_state,
+                                       unsigned seed_lo, unsigned seed_hi,
+                                       int nbits, unsigned threshold, float keep_p,
                                        unsigned long long n_off, void* stream) {
   if (!shape_ok(rows, w) || chunk <= 0 || (rows + chunk - 1) / chunk > (1LL << 30) ||
       !aligned16(g) || !aligned16(s) || !aligned16(scale) || !aligned16(ds) ||
-      !aligned16(dr) || !aligned16(partial) || !drop_ok(nbits) ||
+      !aligned16(dr) || !aligned16(partial) || !aligned16(dsb) || partial == nullptr ||
+      dsb == nullptr || state == nullptr || n_state < kF2State || !drop_ok(nbits) ||
       (nbits != 0) != (dr != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -1078,16 +1246,14 @@ extern "C" int add_layer_norm_backward(const void* g, const void* s,
   const float* rs = static_cast<const float*>(rstd);
   const float* sc = static_cast<const float*>(scale);
   float* pp = static_cast<float*>(partial);
+  float* sb = static_cast<float*>(dsb);
+  unsigned* ss = static_cast<unsigned*>(state);
   const Drop d = drop_of(seed_lo, seed_hi, nbits, threshold, keep_p, n_off);
-  cudaError_t err;
-  if (s_dtype == kBF16 && g_dtype == kBF16) err = f2_bwd<bf16, bf16>(g, s, mu, rs, sc, ds, dr, pp, rows, w, chunk, d, st);
-  else if (s_dtype == kF32 && g_dtype == kBF16) err = f2_bwd<float, bf16>(g, s, mu, rs, sc, ds, dr, pp, rows, w, chunk, d, st);
-  else if (s_dtype == kBF16 && g_dtype == kF32) err = f2_bwd<bf16, float>(g, s, mu, rs, sc, ds, dr, pp, rows, w, chunk, d, st);
-  else if (s_dtype == kF32 && g_dtype == kF32) err = f2_bwd<float, float>(g, s, mu, rs, sc, ds, dr, pp, rows, w, chunk, d, st);
-  else return (int)cudaErrorInvalidValue;
-  if (err != cudaSuccess) return (int)err;
-  return (int)column_sums(pp, (int)((rows + chunk - 1) / chunk), 2 * w,
-                          static_cast<float*>(dsb), st);
+  if (s_dtype == kBF16 && g_dtype == kBF16) return (int)f2_bwd<bf16, bf16>(g, s, mu, rs, sc, ds, dr, pp, sb, ss, rows, w, chunk, d, st);
+  if (s_dtype == kF32 && g_dtype == kBF16) return (int)f2_bwd<float, bf16>(g, s, mu, rs, sc, ds, dr, pp, sb, ss, rows, w, chunk, d, st);
+  if (s_dtype == kBF16 && g_dtype == kF32) return (int)f2_bwd<bf16, float>(g, s, mu, rs, sc, ds, dr, pp, sb, ss, rows, w, chunk, d, st);
+  if (s_dtype == kF32 && g_dtype == kF32) return (int)f2_bwd<float, float>(g, s, mu, rs, sc, ds, dr, pp, sb, ss, rows, w, chunk, d, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // y = drop(x) (x and y: n elements, n a multiple of 8, of dtype `dtype`):

@@ -42,10 +42,12 @@ dropout site no fused kernel takes (the embedding output), forward and, on
 the cotangent, backward.
 
 The CUDA kernels (csrc/fused_layer.cu) read and write 16-byte vectors,
-reduce db, dscale and dbias over rows in a fixed order (F1 within its
-launch: a ticket counter names the block that adds the partials), so two
-calls give the same bits, and evaluate dropout masks in registers
-(csrc/dropout_rng.cuh): no mask is drawn or stored. `bias_act_plain`,
+reduce db, dscale and dbias over rows in a fixed order within the
+backward's one launch (F1: a ticket counter names the last block of each
+column tile, which adds its chunk partials; F2: a persistent grid meets at
+one barrier, then shares the columns), so two calls give the same bits,
+and evaluate dropout masks in registers (csrc/dropout_rng.cuh): no mask is
+drawn or stored. `bias_act_plain`,
 `add_layer_norm_plain` and `site_dropout_plain` are the arithmetic of the
 unfused layer. On CPU tensors the forwards run
 them, and the backwards recompute them from the saved set and differentiate
@@ -75,7 +77,7 @@ _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: Elements a thread moves per step: 16 bytes of bf16.
 VEC = 8
 #: F2's backward reduces over row chunks of at least this many rows, and
-#: into at most MAX_CHUNKS chunk partials.
+#: into at most MAX_CHUNKS chunk partials, which the same launch adds.
 MIN_CHUNK_ROWS, MAX_CHUNKS = 32, 1024
 #: F1's backward: a block a row chunk of a multiple of F1_CHUNK_ROWS rows,
 #: at most F1_MAX_CHUNKS chunks, whose partials the launch's last block of
@@ -203,7 +205,7 @@ _SIGNATURES = {
     "bias_act_forward": [_P] * 3 + [_L] + [_I] * 6 + [_P],
     "bias_act_backward": [_P] * 7 + [_L] + [_I] * 10 + [_P],
     "add_layer_norm_forward": [_P] * 8 + [_L] + [_I] * 3 + [_F] + _DROP + [_P],
-    "add_layer_norm_backward": [_P] * 9 + [_L] + [_I] * 4 + _DROP + [_P],
+    "add_layer_norm_backward": [_P] * 10 + [_L] + [_I] * 5 + _DROP + [_P],
     "site_dropout_apply": [_P, _P, _L, _I] + _DROP + [_P],
 }
 _entry: dict = {}
@@ -324,16 +326,19 @@ def _bias_act_kernel(h, b, act: str, out_dtype, head_dim=None):
     return y
 
 
-#: Ticket counters of F1's backward by (device, stream): one per column
-#: tile, 0 between launches (the launch that uses them sets them back).
+#: The backwards' counters by (kernel, device, stream), zeros when made:
+#: F1's tickets, one per column tile, which its launch sets back to 0; F2's
+#: F2_STATE words (the blocks arrived over all its launches, and that count
+#: when the running launch began), which each launch carries on.
 _tickets: dict = {}
+F2_STATE = 2
 
 
-def _ticket_buffer(device, tiles: int):
-    key = (device.index, _stream(device))
+def _ticket_buffer(kind: str, device, words: int):
+    key = (kind, device.index, _stream(device))
     buf = _tickets.get(key)
-    if buf is None or buf.numel() < tiles:
-        buf = _tickets[key] = torch.zeros(max(tiles, 64), dtype=torch.int32,
+    if buf is None or buf.numel() < words:
+        buf = _tickets[key] = torch.zeros(max(words, 64), dtype=torch.int32,
                                           device=device)
     return buf
 
@@ -391,7 +396,8 @@ def _bias_act_backward_kernel(g, h, b, act: str, h_dtype, with_db: bool,
     # The launch writes every column of db.
     partial = torch.empty((n_chunks, w), **f32) if with_db else None
     db = torch.empty(w, **f32) if with_db else None
-    tickets = _ticket_buffer(g.device, -(-w // F1_TILE_COLS)) if with_db else None
+    tiles = -(-w // F1_TILE_COLS)
+    tickets = _ticket_buffer("f1", g.device, tiles) if with_db else None
     err = _bound("bias_act_backward")(
         g2.data_ptr(), _ptr(h2), _ptr(b), None if dh_is_g else dh.data_ptr(),
         _ptr(partial), _ptr(db), _ptr(tickets), rows, w, _dtype_id(h_dtype, "h"),
@@ -463,17 +469,19 @@ def _add_layer_norm_backward_kernel(g, s, mean, rstd, scale, dropout=None):
     dr = None if dropout is None else torch.empty_like(ds)
     n_chunks = -(-rows // chunk_rows(rows))
     f32 = dict(dtype=torch.float32, device=s.device)
-    partial = torch.empty((n_chunks, 2 * w), **f32)
     if rows == 0:                          # no rows: dscale = dbias = 0
         dsb = torch.zeros(2 * w, **f32)
         return ds, dr, dsb[:w], dsb[w:]
-    dsb = torch.empty(2 * w, **f32)        # dscale, then dbias: column_sum writes all
-
+    # The launch writes every column of dscale, then dbias.
+    partial = torch.empty((n_chunks, 2 * w), **f32)
+    dsb = torch.empty(2 * w, **f32)
+    state = _ticket_buffer("f2", s.device, F2_STATE)
     err = _bound("add_layer_norm_backward")(
         g2.data_ptr(), s2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
         scale.data_ptr(), ds.data_ptr(), _ptr(dr), partial.data_ptr(),
-        dsb.data_ptr(), rows, w, _dtype_id(s.dtype, "s"), _dtype_id(g.dtype, "g"),
-        chunk_rows(rows), *drop, _stream(s.device))
+        dsb.data_ptr(), state.data_ptr(), rows, w, _dtype_id(s.dtype, "s"),
+        _dtype_id(g.dtype, "g"), chunk_rows(rows), state.numel(), *drop,
+        _stream(s.device))
     _cuda.check(err, "add_layer_norm backward launch")
     add_layer_norm_backward_launches += 1
     kind = "" if dropout is None else f" drop{dropout[2]}"

@@ -24,7 +24,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    on both sides, own slots, and K = 0): scores within rtol = atol = 1e-5,
    margin-loss gradients within rtol 1e-5, atol 1e-6 of plain autograd and
    identical across two backward calls (and whether they equal the plain
-   backward run on the CPU, bit for bit, is printed).
+   backward run on the CPU, bit for bit, is printed). F2's backward (ds, dr,
+   dscale and dbias) must be one device launch a call, as torch.profiler
+   records it at the W5M train step's 131,072 x 768.
 4. Serve (the main path, part 1): a BERT-base BLP-TransE model (12 layers,
    hidden 768, 12 heads, FFN 3072, vocab 28,996, dim 128; random weights
    from seed 0) with bf16 compute and the fused attention kernel encodes a
@@ -219,7 +221,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    768) and,
    forward, at the encode chunk's (`at_encode`), F2 also with 8- and
    32-bit masks (`at_drop8`, `at_drop32`; its backward with 8-bit masks, dr
-   beside ds, and `at_drop32`, `at_no_dropout`); F3 at the W5M train
+   beside ds, and `at_drop32`, `at_no_dropout`) and on the embedding
+   LayerNorm's f32 x alone (`at_emb`); F3 at the W5M train
    shape with 8-bit masks (`at_drop32`: 32-bit), each mask evaluated in
    the kernel, and, forward, its inference variant at the
    encode chunk's (`at_encode`) and L 32's rows (`at_l32`), its
@@ -397,28 +400,6 @@ def device_ms(fn, reps: int, warmup: int = 3) -> tuple[float, float, dict]:
     by_name = {e.key: e.self_device_time_total / 1e3 / reps for e in events}
     return (total_us / 1e3 / reps, sum(e.count for e in events) / reps,
             by_name)
-
-
-def launch_ms(fn, names, reps: int = 10) -> dict:
-    """Device ms a launch of the kernels whose names hold each of `names`,
-    over `reps` calls of fn under torch.profiler: their self time over the
-    launches it recorded (None where it recorded none), so a launch the
-    profiler drops does not count as one that took no time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for name in names:
-        evs = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
-        n = sum(e.count for e in evs)
-        out[name] = sum(e.self_device_time_total for e in evs) / n / 1e3 if n else None
-    return out
 
 
 def wall(fn):
@@ -646,6 +627,31 @@ def check_k3() -> dict:
             f"backward bit-identical to the CPU plain backward in "
             f"{sum(cpu_equal)} of {len(cpu_equal)} cases")
     return errs
+
+
+def check_f2_one_launch() -> None:
+    """F2's backward is one device launch (ds, dr, dscale and dbias): the
+    device kernels torch.profiler records over calls at the W5M train
+    step's 131,072 x 768 with 8-bit masks. Early in the run, where the
+    profiler still records device events."""
+    bf = torch.bfloat16
+    eps = bert.BertConfig().layer_norm_eps
+    x, r, scale, bias, gy = f2_inputs(W5M_TOKENS, True, bf, bf, seed=55)
+    drop = _dropout(8, 12)
+    with torch.no_grad():
+        _, s, mean, rstd = fused_layer._add_layer_norm_kernel(x, r, scale, bias,
+                                                              eps, bf, drop)
+    ms, per_call, by_name = device_ms(
+        lambda: fused_layer._add_layer_norm_backward_kernel(gy, s, mean, rstd,
+                                                            scale, drop), reps=5)
+    log(f"F2 backward at {W5M_TOKENS:,} x {BERT_H}, 8-bit masks: {per_call:g} "
+        f"device launches a call, {ms:.4f} ms of device time: "
+        f"{ {k[:60]: round(v, 4) for k, v in by_name.items()} }")
+    require(per_call == 1 and by_name and all("add_ln_bwd" in k for k in by_name),
+            f"F2's backward is not one add_ln_bwd launch a call: {per_call} "
+            f"launches, {list(by_name)}")
+    del x, r, s, gy
+    torch.cuda.empty_cache()
 
 
 # -- phase 4: serve ----------------------------------------------------------
@@ -3532,47 +3538,64 @@ def _f2_plain_blocks(x, r, scale, bias, eps, drop, rows):
     return _blockwise(block, rows)
 
 
-def _time_f2_at(rows: int, nbits=None, keep_sum: bool = True) -> dict:
+def _time_f2_at(rows: int, nbits=None, keep_sum: bool = True,
+                with_r: bool = True) -> dict:
     """F2's forward (x + drop(r), bf16; no dropout when nbits is None) at
     (rows, 768), writing the saved sum s (the training pass) or not
-    (keep_sum False: an encode): kernel and plain ms, F.layer_norm on the
+    (keep_sum False: an encode); with_r False: the embedding LayerNorm, LN
+    of an f32 x alone to bf16. Kernel and plain ms, F.layer_norm on the
     added input (the library's nearest call: no add, no dropout; bf16 scale
-    and bias), the bound (x, r, y and s in bf16, the row stats; the
-    operations with the generator's)."""
+    and bias; f32 ones on the f32 x), the bound (x, r, y and s, the row
+    stats; the operations with the generator's)."""
     bf = torch.bfloat16
     eps = bert.BertConfig().layer_norm_eps
-    x, r, scale, bias, _ = f2_inputs(rows, True, bf, bf, seed=52)
+    x_dt = bf if with_r else torch.float32
+    x, r, scale, bias, _ = f2_inputs(rows, with_r, x_dt, bf, seed=52)
     drop = _dropout(nbits, 9)
-    plain = _f2_plain_blocks(x, r, scale, bias, eps, drop, rows)
+    if with_r:
+        plain = _f2_plain_blocks(x, r, scale, bias, eps, drop, rows)
+    else:
+        plain = _blockwise(lambda i, j: fused_layer.add_layer_norm_plain(
+            x[i:j], None, scale, bias, eps, bf), rows)
     kernel = lambda: fused_layer._add_layer_norm_kernel(  # noqa: E731
         x, r, scale, bias, eps, bf, drop, keep_sum)[0]
     with torch.no_grad():
         ok, err = f_close(kernel(), torch.cat(plain()), rows_summed=True)
-        require(ok, f"F2 at {rows}, dropout bits {nbits}: error {err}")
+        require(ok, f"F2 at {rows}, dropout bits {nbits}, with r {with_r}: error {err}")
         ms = cuda_ms(kernel, reps=20, warmup=3)
         plain_ms = cuda_ms(plain, reps=3)
-        s = x + r
-        sc, bi = scale.to(bf), bias.to(bf)
+        s = x + r if with_r else x
+        sc, bi = (scale.to(bf), bias.to(bf)) if with_r else (scale, bias)
         library_ms = cuda_ms(lambda: torch.nn.functional.layer_norm(
             s, (BERT_H,), sc, bi, eps), reps=20, warmup=3)
     del x, r, s
     torch.cuda.empty_cache()
     w = BERT_H
-    kind = ("x+r" if nbits is None else f"x+drop{nbits}(r)") + ("" if keep_sum
-                                                              else ", no saved sum")
+    if with_r:
+        kind = ("x+r" if nbits is None else f"x+drop{nbits}(r)") + (
+            "" if keep_sum else ", no saved sum")
+        # x and r read, y (and s) written, bf16
+        row_bytes, covers = (8.0 if keep_sum else 6.0), (
+            "F.layer_norm on x + r (bf16 scale and bias): no residual add, "
+            "no dropout, no saved sum")
+    else:
+        kind = "x alone (the embedding sum)"
+        # x read (f32), y written (bf16)
+        row_bytes = 6.0
+        covers = "F.layer_norm on the f32 x (f32 out): all of it but the bf16 cast"
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **_bound((8.0 if keep_sum else 6.0) * rows * w + 8.0 * rows + 8.0 * w,
+            **_bound(row_bytes * rows * w + 8.0 * rows + 8.0 * w,
                      (F2_OPS + _philox_ops(nbits)) * rows * w),
-            "library_ms": library_ms, "library_covers":
-                "F.layer_norm on x + r (bf16 scale and bias): no residual add, "
-                "no dropout, no saved sum",
-            "shape": f"{rows:,} x {w} {kind} bf16->bf16"}
+            "library_ms": library_ms, "library_covers": covers,
+            "shape": f"{rows:,} x {w} {kind} {'bf16' if with_r else 'f32'}->bf16"}
 
 
 def _time_f2_backward_at(rows: int, nbits=None) -> dict:
-    """F2's backward kernel (ds, dscale, dbias, and with dropout dr, its
-    mask evaluated again) against the plain LayerNorm's VJP from the saved
-    sum (then the plain dropout of ds) and aten.native_layer_norm_backward."""
+    """F2's backward kernel (one launch: ds, dscale, dbias, and with dropout
+    dr, its mask evaluated again) against the plain LayerNorm's VJP from the
+    saved sum (then the plain dropout of ds) and
+    aten.native_layer_norm_backward, the kernel and the library call timed
+    in turns."""
     bf = torch.bfloat16
     eps = bert.BertConfig().layer_norm_eps
     x, r, scale, bias, gy = f2_inputs(rows, True, bf, bf, seed=53)
@@ -3600,21 +3623,13 @@ def _time_f2_backward_at(rows: int, nbits=None) -> dict:
         got[1], fused_layer.site_dropout_plain(got[0], drop)),
         f"F2 backward at {rows}: dr is not drop(ds) of the plain generator")
     del got, want
-    ms = cuda_ms(kernel, reps=20, warmup=3)
-    # The launch's two kernels apart: add_ln_bwd (ds, dr and the chunks'
-    # partial sums) and column_sum (the partials of each column added:
-    # n_chunks x 2w f32 read, 2w written).
-    parts = launch_ms(kernel, ("add_ln_bwd", "column_sum"))
-    n_chunks = -(-rows // fused_layer.chunk_rows(rows))
-    col_bound = _bound(4.0 * (n_chunks + 1) * 2 * BERT_H, n_chunks * 2.0 * BERT_H)
-    log(f"F2 backward at {rows:,} rows, dropout bits {nbits}: ms a launch "
-        f"{parts} ({n_chunks:,} x {2 * BERT_H:,} f32 partials in column_sum; "
-        f"its bound {col_bound['bound_ms']:.5f} ms by {col_bound['bound_by']})")
-    plain_ms = cuda_ms(plain_vjp, reps=3)
     sc, bi = scale.to(bf), bias.to(bf)
     _, mu, rs = torch.ops.aten.native_layer_norm(s, [BERT_H], sc, bi, eps)
-    library_ms = cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-        gy, s, [BERT_H], mu, rs, sc, bi, [True, True, True]), reps=20, warmup=3)
+    # In turns: a time read right after the plain version's ~56 ms read up
+    # to 20% slow.
+    ms, library_ms = cuda_ms_in_turns(kernel, lambda: torch.ops.aten.native_layer_norm_backward(
+        gy, s, [BERT_H], mu, rs, sc, bi, [True, True, True]))
+    plain_ms = cuda_ms(plain_vjp, reps=3)
     del s, gy
     torch.cuda.empty_cache()
     w = BERT_H
@@ -3626,8 +3641,6 @@ def _time_f2_backward_at(rows: int, nbits=None) -> dict:
             "library_ms": library_ms, "library_covers":
                 "aten.native_layer_norm_backward (bf16 scale): the LayerNorm's "
                 "backward alone, no dropout",
-            "add_ln_bwd_ms": parts["add_ln_bwd"], "column_sum_ms": parts["column_sum"],
-            "column_sum_bound_ms": col_bound["bound_ms"],
             "shape": f"{rows:,} x {w} bf16->bf16"
                      + ("" if nbits is None else f", dr drop {nbits}")}
 
@@ -3636,9 +3649,11 @@ def time_f2(launches: int, backward_launches: int, by_variant: dict) -> list[dic
     """F2 at the W5M train step's rows (131,072 x 768): forward without
     dropout, writing the saved sum (as the kernel once always did), without it
     (`at_no_sum`: an encode's call), with 8- and 32-bit masks (`at_drop8`,
-    `at_drop32`: the training layers') and at the encode chunk's 786,432
-    rows (`at_encode`, no saved sum); backward with 8-bit masks (dr beside
-    ds), 32-bit ones and none (`at_drop32`, `at_no_dropout`)."""
+    `at_drop32`: the training layers'), the embedding LayerNorm's f32 x
+    alone (`at_emb`) and at the encode chunk's 786,432 rows (`at_encode`,
+    no saved sum); backward (one launch: ds, dr, dscale and dbias) with
+    8-bit masks (dr beside ds), 32-bit ones and none (`at_drop32`,
+    `at_no_dropout`)."""
     common = {"route": "cuda", "source": "blp_tpu_torch/csrc/fused_layer.cu",
               "replaces": "blp_tpu/models/bert.py:270",
               "xla_fusion": "no Pallas kernel: XLA fuses the residual add with "
@@ -3650,6 +3665,7 @@ def time_f2(launches: int, backward_launches: int, by_variant: dict) -> list[dic
              "at_no_sum": _time_f2_at(W5M_TOKENS, keep_sum=False),
              "at_drop8": _time_f2_at(W5M_TOKENS, 8),
              "at_drop32": _time_f2_at(W5M_TOKENS, 32),
+             "at_emb": _time_f2_at(W5M_TOKENS, keep_sum=False, with_r=False),
              "at_encode": _time_f2_at(ENCODE_TOKENS, keep_sum=False)},
             {"name": "add_layer_norm backward (F2)", **common,
              "launches": backward_launches,
@@ -3861,6 +3877,7 @@ def main() -> int:
     check_k1()
     check_k2()
     check_k3()
+    check_f2_one_launch()
 
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     data_dir = write_synth_dataset(os.path.join(WORK_DIR, "synth4096"),

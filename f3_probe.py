@@ -18,8 +18,10 @@ named otherwise:
     (ops/attn_softmax.py) the same way where the tree has it;
 (2) chip_smoke's phase 6 (c) W5M step (B 1,024, L 64, K 64, remat=8): six
     steps' wall ms, peak memory, and one step's device time by kernel name,
-    with the launches and device ms of torch's generator, of `where`, of
-    the scalar compares and of the copies summed;
+    with its device launches, those of F2's backward (add_ln_bwd, and
+    column_sum where the tree has it), and the launches and device ms of
+    torch's generator, of `where`, of the scalar compares and of the copies
+    summed;
 (3) phase 4's encode of 4,096 entities at L 32 with and without K2
     (`fused_attention`), best of 5, with its kernels;
 (4) `bench --w5m`'s point through chip_smoke's `w5m_point` (skip with
@@ -55,7 +57,14 @@ named otherwise:
     in turns (CUDA events over 20 calls, parent, tree, tree, parent, the
     better read of each), y, s, mean and rstd compared bit for bit (the
     largest difference where they differ), and the registers and spills
-    ptxas gives each tree's bf16 forward kernels.
+    ptxas gives each tree's bf16 forward and backward kernels; then F2's
+    backward (`add_layer_norm_backward`, the parent's with its own C
+    signature: before the one-launch backward it took no ticket buffer) the
+    same way at 131,072 x 768, bf16 with 8- and 32-bit masks and without,
+    and the embedding LayerNorm's (f32 sum, bf16 cotangent): ds, dr,
+    dscale and dbias compared bit for bit (`bit_equal`), and each side also
+    timed a call at a time right after a kernel that streams 256 MB
+    (`ms_after_flush`: L2 as a training step leaves it, in turns).
 Prints a summary and writes every table to --out (JSON). `--parts` picks
 some of them (default: all but f2, which needs --f2-parent).
 
@@ -87,6 +96,9 @@ F2_CASES = {"sum": (131_072, None, True, True), "no_sum": (131_072, None, True, 
             "drop8": (131_072, 8, True, True), "drop16": (131_072, 16, True, True),
             "drop32": (131_072, 32, True, True), "emb": (131_072, None, False, False),
             "encode": (786_432, None, True, False)}
+#: (10)'s backward cases: (rows, nbits or None, dtype of the sum s).
+F2_BWD_CASES = {"bwd_drop8": (131_072, 8, "bf16"), "bwd_drop32": (131_072, 32, "bf16"),
+                "bwd_none": (131_072, None, "bf16"), "bwd_emb": (131_072, None, "f32")}
 def kernel_table(fn) -> tuple[float, list]:
     """(wall ms, [(kernel name, device ms, count)] by device time) of one
     call of fn under torch.profiler."""
@@ -178,11 +190,16 @@ def w5m_step(res: dict, data_dir: str) -> None:
     groups = {g: [sum(ms for n, ms, _ in ks if any(p in n for p in pats)),
                   sum(c for n, _, c in ks if any(p in n for p in pats))]
               for g, pats in GROUPS.items()}
+    launches = sum(c for _, _, c in ks)
+    f2_bwd = {k: [sum(ms for n, ms, _ in ks if k in n), sum(c for n, _, c in ks if k in n)]
+              for k in ("add_ln_bwd", "column_sum")}
     res["w5m_step"] = {"ms": times, "peak_gib": peak / 2**30, "prof_wall_ms": wall_ms,
-                       "busy_ms": busy, "groups": groups,
+                       "busy_ms": busy, "launches": launches, "groups": groups,
+                       "f2_backward": f2_bwd,
                        "kernels": [(n[:300], ms, c) for n, ms, c in ks]}
     print(f"W5M step remat=8: {[round(t, 1) for t in times]} ms, peak "
           f"{peak / 2**30:.2f} GiB; profiled wall {wall_ms:.1f} busy {busy:.1f}; "
+          f"{launches} device launches; F2's backward kernels (ms, launches) {f2_bwd}; "
           + ", ".join(f"{g} {ms:.2f} ms x{c}" for g, (ms, c) in groups.items()),
           flush=True)
     for n, ms, c in ks[:30]:
@@ -391,9 +408,10 @@ def inference(res: dict) -> None:
 
 
 def f2_library(parent_root: str):
-    """The parent tree's F2 forward entry point: its csrc/fused_layer.cu built
-    with this tree's nvcc flags into <parent>/build/f3_probe/ (once), and
-    its ptxas log."""
+    """The parent tree's F2 entry points: its csrc/fused_layer.cu built with
+    this tree's nvcc flags into <parent>/build/f3_probe/ (once), its forward
+    and backward bound with their signatures (`old_backward`: the parent's
+    backward takes no ticket buffer), and its ptxas log."""
     import ctypes
     import subprocess
     src = os.path.join(parent_root, "blp_tpu_torch", "csrc", "fused_layer.cu")
@@ -407,19 +425,28 @@ def f2_library(parent_root: str):
             raise RuntimeError(f"nvcc failed on {src}:\n{done.stdout}{done.stderr}")
         with open(log, "w") as f:
             f.write(done.stdout + done.stderr)
-    fn = ctypes.CDLL(lib).add_layer_norm_forward
-    fn.restype, fn.argtypes = ctypes.c_int, fused_layer._SIGNATURES["add_layer_norm_forward"]
+    with open(src) as f:
+        old_backward = "column_sum(" in f.read()
+    cdll = ctypes.CDLL(lib)
+    fwd, bwd = cdll.add_layer_norm_forward, cdll.add_layer_norm_backward
+    fwd.restype, fwd.argtypes = ctypes.c_int, fused_layer._SIGNATURES["add_layer_norm_forward"]
+    bwd.restype = ctypes.c_int
+    # Before the one-launch backward (add_ln_bwd, then column_sum) the entry
+    # took no ticket buffer and no length of it.
+    p, i = ctypes.c_void_p, ctypes.c_int
+    bwd.argtypes = ([p] * 9 + [ctypes.c_longlong] + [i] * 4 + fused_layer._DROP + [p]
+                    if old_backward else fused_layer._SIGNATURES["add_layer_norm_backward"])
     with open(log) as f:
-        return fn, f.read()
+        return fwd, bwd, old_backward, f.read()
 
 
-def f2_registers(log_text: str) -> list:
-    """[(kernel, registers, spill line)] of the bf16 -> bf16 F2 forward
-    kernels in an nvcc -Xptxas -v log."""
+def f2_registers(log_text: str, kernel: str = "add_ln_fwd") -> list:
+    """[(kernel, registers, spill line)] of the bf16 -> bf16 F2 kernels
+    named `kernel` in an nvcc -Xptxas -v log."""
     out, name, spill = [], None, ""
     for line in log_text.splitlines():
         if "Compiling entry" in line:
-            name = line.split("'")[1] if "add_ln_fwd" in line else None
+            name = line.split("'")[1] if kernel in line else None
             spill = ""
         elif name and "spill" in line:
             spill = line.split(":", 1)[-1].strip()
@@ -429,9 +456,97 @@ def f2_registers(log_text: str) -> list:
     return [o for o in out if "13__nv_bfloat16S" in o[0]]
 
 
+def ms_after_flush(fn, flush, reps: int = 20) -> float:
+    """Mean device ms of fn, each call timed alone with CUDA events right
+    after `flush` (a kernel that streams a buffer larger than L2), as a
+    training step finds L2 after other kernels: no back-to-back reuse."""
+    fn()
+    times = []
+    for _ in range(reps):
+        flush()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sum(times) / reps
+
+
+def f2_backward(parent_bwd, old_backward: bool) -> dict:
+    """(10), the backward: each F2_BWD_CASES case through the parent's entry
+    and the tree's, timed in turns, outputs compared bit for bit."""
+    bf, w = torch.bfloat16, cs.BERT_H
+    tree_bwd = fused_layer._bound("add_layer_norm_backward")
+    out = {}
+    for name, (rows, nbits, s_name) in F2_BWD_CASES.items():
+        g = torch.Generator(device="cuda").manual_seed(91)
+        s_dt = bf if s_name == "bf16" else torch.float32
+        s = (1.0 + torch.randn((rows, w), generator=g, device="cuda")).to(s_dt)
+        mean = s.float().mean(-1)
+        rstd = torch.rsqrt(s.float().var(-1, unbiased=False) + 1e-12)
+        scale = 1.0 + 0.1 * torch.randn(w, generator=g, device="cuda")
+        gy = torch.randn((rows, w), generator=g, device="cuda").to(bf)
+        drop = fused_layer._drop_args(None if nbits is None else (12, 0.1, nbits, None),
+                                      (rows, w))
+        chunk = fused_layer.chunk_rows(rows)
+        n_chunks = -(-rows // chunk)
+
+        def outputs():
+            return (torch.empty((rows, w), dtype=s_dt, device="cuda"),
+                    None if nbits is None else torch.empty((rows, w), dtype=s_dt,
+                                                           device="cuda"),
+                    torch.empty(2 * w, device="cuda"),
+                    torch.empty((n_chunks, 2 * w), device="cuda"))
+
+        def call(fn, o, tree: bool):
+            head = (gy.data_ptr(), s.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                    scale.data_ptr(), o[0].data_ptr(), None if o[1] is None else
+                    o[1].data_ptr(), o[3].data_ptr(), o[2].data_ptr())
+            dts = (fused_layer._DTYPES[s_dt], fused_layer._DTYPES[bf], chunk)
+            stream = torch.cuda.current_stream().cuda_stream
+            if tree or not old_backward:
+                state = fused_layer._ticket_buffer("f2", s.device, fused_layer.F2_STATE)
+                args = (*head, state.data_ptr(), rows, w, *dts, state.numel(), *drop,
+                        stream)
+            else:
+                args = (*head, rows, w, *dts, *drop, stream)
+            return lambda: fused_layer._cuda.check(fn(*args), "add_layer_norm_backward")
+
+        o_par, o_tree = outputs(), outputs()
+        call(parent_bwd, o_par, False)()
+        call(tree_bwd, o_tree, True)()
+        torch.cuda.synchronize()
+        pairs = [(k, a, b) for k, a, b in zip(("ds", "dr", "dscale_dbias"), o_tree, o_par)
+                 if a is not None]
+        diffs = {k: (a.float() - b.float()).abs().max().item() for k, a, b in pairs}
+        equal = all(torch.equal(a, b) for _, a, b in pairs)
+        par_ms, tree_ms = cs.cuda_ms_in_turns(call(parent_bwd, o_par, False),
+                                              call(tree_bwd, o_tree, True))
+        big = torch.empty(64 << 20, device="cuda")           # 256 MB, 5x L2
+        flush = lambda: big.add_(1.0)  # noqa: E731
+        flushed = [ms_after_flush(f, flush) for f in (
+            call(parent_bwd, o_par, False), call(tree_bwd, o_tree, True),
+            call(tree_bwd, o_tree, True), call(parent_bwd, o_par, False))]
+        del big
+        # g read (bf16), s read and ds (and dr) written; mean and rstd read;
+        # scale read, dscale and dbias written
+        nbytes = ((2 + s.element_size() * (2 if nbits is None else 3)) * rows * w
+                  + 8.0 * rows + 12.0 * w)
+        out[name] = {"ms": tree_ms, "parent_ms": par_ms, "bit_equal": equal,
+                     "max_diff": diffs, "ms_after_flush": min(flushed[1:3]),
+                     "parent_ms_after_flush": min(flushed[0], flushed[3]),
+                     **cs._bound(nbytes, (cs.F2_BWD_OPS + cs._philox_ops(nbits)) * rows * w),
+                     "shape": f"{rows:,} x {w} {s_name} s, bf16 g"
+                              f"{'' if nbits is None else f', dr drop{nbits}'}"}
+        del s, gy, o_par, o_tree
+        torch.cuda.empty_cache()
+    return out
+
+
 def f2(res: dict, parent_root: str) -> None:
     """(10)."""
-    parent_fn, parent_log = f2_library(parent_root)
+    parent_fn, parent_bwd, old_backward, parent_log = f2_library(parent_root)
     tree_fn = fused_layer._bound("add_layer_norm_forward")
     bf, eps, w = torch.bfloat16, 1e-12, cs.BERT_H
     out = {}
@@ -478,9 +593,11 @@ def f2(res: dict, parent_root: str) -> None:
                               f"{', sum written' if keep_sum else ''} -> bf16"}
         del x, r, o_par, o_tree
         torch.cuda.empty_cache()
+    out.update(f2_backward(parent_bwd, old_backward))
     tree_log = _cuda.BUILD_DIR / "fused_layer.log"
-    out["registers"] = {"tree": f2_registers(tree_log.read_text()) if tree_log.exists()
-                        else [], "parent": f2_registers(parent_log)}
+    tree_text = tree_log.read_text() if tree_log.exists() else ""
+    out["registers"] = {side: f2_registers(text) + f2_registers(text, "add_ln_bwd")
+                        for side, text in (("tree", tree_text), ("parent", parent_log))}
     res["f2"] = out
     for k, v in out.items():
         if k == "registers":
@@ -489,7 +606,10 @@ def f2(res: dict, parent_root: str) -> None:
               f"{v['parent_ms']:.4f} ({100 * v['bound_ms'] / v['ms']:.1f}% and "
               f"{100 * v['bound_ms'] / v['parent_ms']:.1f}% of the bound "
               f"{v['bound_ms']:.4f} by {v['bound_by']}); bit-equal {v['bit_equal']}, "
-              f"largest differences {v['max_diff']}", flush=True)
+              f"largest differences {v['max_diff']}"
+              + (f"; each call after a 256 MB stream: {v['ms_after_flush']:.4f} against "
+                 f"{v['parent_ms_after_flush']:.4f}" if "ms_after_flush" in v else ""),
+              flush=True)
     for side, regs in out["registers"].items():
         for kname, n, spill in regs:
             print(f"F2 registers, {side}: {n} ({spill}) {kname[:120]}", flush=True)

@@ -1016,7 +1016,8 @@ def test_f1_back_to_back_row_counts_each_give_their_own():
     torch.cuda.synchronize()
     for (dh_a, db_a), (dh_q, db_q) in zip(alone, queued):
         assert torch.equal(dh_a, dh_q) and torch.equal(db_a, db_q)
-    assert all(int(t.abs().sum()) == 0 for t in fused_layer._tickets.values())
+    assert all(int(t.abs().sum()) == 0 for (kind, *_), t in fused_layer._tickets.items()
+               if kind == "f1")
 
 
 def test_f1_backward_refuses_a_ticket_buffer_too_short_for_its_tiles():
@@ -1554,9 +1555,9 @@ def test_f2_slab_masks_equal_the_plain_generator(nbits, w, offset):
 
 def test_f2_backward_zeroes_no_buffer(monkeypatch):
     """F2's backward allocates dscale and dbias empty when there are rows
-    (column_sum writes every column), so no torch.zeros and no memset
-    launch; its sums equal the plain ones and two calls give the same
-    bits."""
+    (its launch writes every column, and each launch carries its state
+    words on for the next), so no torch.zeros and no memset launch; its
+    sums equal the plain ones and two calls give the same bits."""
     x, r, scale, bias = _f2_rows(4097, 768, torch.bfloat16, 3)
     _, s, mean, rstd = fused_layer._add_layer_norm_kernel(x, r, scale, bias, 1e-12,
                                                           torch.bfloat16)
@@ -1572,6 +1573,133 @@ def test_f2_backward_zeroes_no_buffer(monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(first, again) if a is not None)
     want = [t.float().sum(0) for t in (gy.float() * (s.float() - mean) * rstd, gy)]
     assert _sum_close(again[2], want[0]) and _sum_close(again[3], want[1])
+
+
+def _f2_sums_in_order(g, s, mean, rstd):
+    """dscale and dbias in the order F2's backward documents, one f32
+    elementwise add a step: each chunk (fused_layer.chunk_rows) adds its
+    rows warp by warp (warp k: rows k, k + 8, ... of the chunk, in order),
+    then its 8 warp sums in warp order into the chunk's partial row; each
+    column adds the chunk partials in 32 strided streams (chunks y, y + 32,
+    ..., in order), then the 32 stream sums in order. Padding rows and
+    chunks are zeros: adding 0.0 to a sum that starts at +0.0 keeps its
+    bits."""
+    rows, w = s.shape
+    chunk = fused_layer.chunk_rows(rows)
+    n_chunks = -(-rows // chunk)
+    xhat = (s.float() - mean.reshape(rows, 1)) * rstd.reshape(rows, 1)
+    terms = torch.cat([g.float() * xhat, g.float()], dim=1)           # (rows, 2w)
+    pad = -(-chunk // 8) * 8
+    per_chunk = torch.zeros((n_chunks, pad, 2 * w), device=s.device)
+    for c in range(n_chunks):
+        part = terms[c * chunk:(c + 1) * chunk]
+        per_chunk[c, :part.shape[0]] = part
+    per_chunk = per_chunk.view(n_chunks, pad // 8, 8, 2 * w)
+    warps = torch.zeros((n_chunks, 8, 2 * w), device=s.device)
+    for i in range(pad // 8):
+        warps += per_chunk[:, i]
+    partial = torch.zeros((n_chunks, 2 * w), device=s.device)
+    for k in range(8):
+        partial += warps[:, k]
+    rounds = -(-n_chunks // 32)
+    padded = torch.zeros((rounds * 32, 2 * w), device=s.device)
+    padded[:n_chunks] = partial
+    streams = torch.zeros((32, 2 * w), device=s.device)
+    for i in range(rounds):
+        streams += padded[i * 32:(i + 1) * 32]
+    total = streams[0].clone()
+    for k in range(1, 32):
+        total += streams[k]
+    return total[:w], total[w:]
+
+
+def _f2_backward_inputs(rows, w, s_dt, g_dt, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s = (1.0 + torch.randn((rows, w), generator=g, device="cuda")).to(s_dt)
+    mean = s.float().mean(-1, keepdim=True)
+    rstd = torch.rsqrt(s.float().var(-1, unbiased=False, keepdim=True) + 1e-12)
+    scale = 1.0 + 0.1 * torch.randn(w, generator=g, device="cuda")
+    gy = torch.randn((rows, w), generator=g, device="cuda").to(g_dt)
+    return gy, s, mean, rstd, scale
+
+
+@pytest.mark.parametrize("rows,w,s_dt,nbits", [
+    (131_072, 768, "bf16", 8),      # the W5M train step: 1,024 chunks of 128
+    (131_072, 768, "bf16", 32),
+    (131_072, 768, "bf16", None),
+    (131_072, 768, "f32", None),    # the embedding LayerNorm (f32 sum, bf16 g)
+    (20, 768, "bf16", 8),           # one chunk, fewer rows than its 8 warps' 32
+    (1_001, 768, "bf16", 32),       # not a multiple of 8: a partial last chunk
+    (131_073, 768, "bf16", None),   # chunks of 129 rows, 1,017 of them
+    (5_003, 1024, "bf16", 8),
+    (3_001, 4096, "bf16", None),    # 16 vectors a lane
+    (3_001, 4096, "f32", 32),
+])
+def test_f2_backward_sums_follow_the_documented_order(rows, w, s_dt, nbits):
+    """dscale and dbias bit-equal to a torch evaluation of the order the
+    kernel documents, whatever the grid, the card or the blocks' order; one
+    launch each call."""
+    g_dt = torch.bfloat16
+    gy, s, mean, rstd, scale = _f2_backward_inputs(rows, w, DT[s_dt], g_dt, rows + w)
+    drop = None if nbits is None else (0xF2B + rows, 0.1, nbits, None)
+    before = fused_layer.add_layer_norm_backward_launches
+    ds, dr, dscale, dbias = fused_layer._add_layer_norm_backward_kernel(
+        gy, s, mean, rstd, scale, drop)
+    assert fused_layer.add_layer_norm_backward_launches == before + 1
+    want_scale, want_bias = _f2_sums_in_order(gy, s, mean, rstd)
+    assert torch.equal(dscale, want_scale) and torch.equal(dbias, want_bias)
+    assert dr is None if drop is None else torch.equal(
+        dr, fused_layer.site_dropout_plain(ds, drop))
+
+
+def test_f2_backward_same_bits_back_to_back_and_on_two_streams():
+    """Two calls back to back, and two calls on two streams at once (each
+    stream its own ticket buffer), give the same bits of ds, dr, dscale and
+    dbias."""
+    gy, s, mean, rstd, scale = _f2_backward_inputs(131_072, 768, torch.bfloat16,
+                                                   torch.bfloat16, 11)
+    drop = (0xB0B, 0.1, 8, None)
+    call = lambda: fused_layer._add_layer_norm_backward_kernel(  # noqa: E731
+        gy, s, mean, rstd, scale, drop)
+    first, second = call(), call()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs.append(call())
+    torch.cuda.synchronize()
+    for other in (second, *outs):
+        assert all(torch.equal(a, b) for a, b in zip(first, other))
+
+
+def test_f2_backward_refuses_a_short_state_buffer():
+    """The C entry refuses a state buffer shorter than its two words (or
+    none): cudaErrorInvalidValue, and nothing launched. A launch leaves the
+    two words equal (the blocks arrived, and that count for the next
+    launch)."""
+    gy, s, mean, rstd, scale = _f2_backward_inputs(64, 768, torch.bfloat16,
+                                                   torch.bfloat16, 12)
+    ds = torch.empty_like(s)
+    partial = torch.empty((2, 2 * 768), device="cuda")
+    dsb = torch.full((2 * 768,), 7.0, device="cuda")
+    state = torch.zeros(2, dtype=torch.int32, device="cuda")
+    entry = fused_layer._bound("add_layer_norm_backward")
+
+    def launch(state_ptr, n_state):
+        return entry(gy.data_ptr(), s.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                     scale.data_ptr(), ds.data_ptr(), None, partial.data_ptr(),
+                     dsb.data_ptr(), state_ptr, 64, 768, 1, 1, 32, n_state,
+                     *fused_layer._drop_args(None, s.shape),
+                     torch.cuda.current_stream().cuda_stream)
+
+    assert launch(state.data_ptr(), 1) == 1 and launch(None, 2) == 1
+    torch.cuda.synchronize()
+    assert bool((dsb == 7.0).all())
+    assert launch(state.data_ptr(), 2) == 0
+    torch.cuda.synchronize()
+    assert not bool((dsb == 7.0).any())
+    assert int(state[0]) == int(state[1]) > 0
 
 
 @pytest.mark.parametrize("offset", [None, 24])
