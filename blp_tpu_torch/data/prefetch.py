@@ -5,7 +5,9 @@ A daemon thread assembles batches and copies them to the device up to
 `size` ahead, so the numpy gathers and the host-to-device copies overlap the
 train steps already queued on the card. On CUDA the copy goes from pinned
 memory with `non_blocking=True`; the caching host allocator keeps the pinned
-buffer alive until the copy has run.
+buffer alive until the copy has run. The thread's spans (`profiling.span`):
+`prefetch.assemble`, the next host batch (the generator's gathers), and
+`prefetch.place`, its placement (pinning and the copy's enqueue).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
+
+from blp_tpu_torch.profiling import span
 
 _END = object()
 
@@ -57,8 +61,15 @@ def prefetch_to_device(
 
     def producer():
         try:
-            for b in batches:
-                q.put(placement(b))
+            it = iter(batches)
+            while True:
+                with span("prefetch.assemble"):
+                    b = next(it, _END)
+                if b is _END:
+                    break
+                with span("prefetch.place"):
+                    b = placement(b)
+                q.put(b)
         except BaseException as e:  # surfaced to the consumer
             q.put(_END)
             q.put(e)

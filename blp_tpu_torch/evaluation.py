@@ -11,7 +11,10 @@ materializing (B, N) scores. TransE ranks through K1 (ops/transe_rank.py:
 the CUDA kernel on the card, its plain version on the CPU); the bilinear
 scorers through the plain tiled stream (ops/ranking.py). Under a mesh each
 rank encodes and counts its own block of the table and the int32 counts are
-summed: the results equal the one-device evaluator's bit for bit.
+summed: the results equal the one-device evaluator's bit for bit. Phase
+2's spans (`profiling.span`): `eval.ent2idx`, `eval.filters` (the width
+pass), per batch `eval.batch_filters`, `eval.to_device` and
+`eval.rank_batch`, then `eval.read_counts` and `eval.finish`.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from blp_tpu_torch.data.filtering import FilterIndex, build_filters
 from blp_tpu_torch.models import blp
 from blp_tpu_torch.ops import ranking, transe_rank
 from blp_tpu_torch.parallel import eval_parallel
+from blp_tpu_torch.profiling import span
 from blp_tpu_torch.utils import make_ent2idx, resolve_device
 
 HIT_POSITIONS = (1, 3, 10)
@@ -199,8 +203,9 @@ def eval_link_prediction(
     if mesh is not None and not hasattr(mesh, "get_coordinate"):
         raise TypeError(f"mesh must be a DeviceMesh, got {type(mesh).__name__}")
     compute_filtered = filter_index is not None
-    max_ent_id = int(max(entities.max(), eval_triples[:, :2].max()))
-    ent2idx = make_ent2idx(entities, max_ent_id)
+    with span("eval.ent2idx"):
+        max_ent_id = int(max(entities.max(), eval_triples[:, :2].max()))
+        ent2idx = make_ent2idx(entities, max_ent_id)
     n = len(entities)
     # The tile is clamped to the candidates (under a mesh, to one rank's
     # share of them), so no pass streams a mostly padded table and every
@@ -252,7 +257,8 @@ def eval_link_prediction(
     filter_pad = 8
     if compute_filtered:
         # One bucketed width across all batches.
-        hf_all, tf_all = build_filters(eval_triples, filter_index, ent2idx)
+        with span("eval.filters"):
+            hf_all, tf_all = build_filters(eval_triples, filter_index, ent2idx)
         filter_pad = max(hf_all.shape[1], tf_all.shape[1])
     empty_filters = np.full((batch_size, filter_pad), -1, np.int32)
 
@@ -270,16 +276,20 @@ def eval_link_prediction(
         if head_pos.min() < 0 or tail_pos.min() < 0:
             raise ValueError("eval triple references an entity outside the "
                              "candidate set")
-        if compute_filtered:
-            hf, tf = build_filters(batch, filter_index, ent2idx,
-                                   pad_width=filter_pad)
-        else:
-            hf = tf = empty_filters
-        counts = _rank_batch(
-            ent_emb, on_dev(head_pos), on_dev(tail_pos), rel_emb_table,
-            on_dev(batch[:, 2]), n, on_dev(hf, torch.int32),
-            on_dev(tf, torch.int32), rel_model=cfg.rel_model, tile=tile,
-            shard=shard)
+        with span("eval.batch_filters"):
+            if compute_filtered:
+                hf, tf = build_filters(batch, filter_index, ent2idx,
+                                       pad_width=filter_pad)
+            else:
+                hf = tf = empty_filters
+        with span("eval.to_device"):
+            head_d, tail_d, rel_d = (on_dev(head_pos), on_dev(tail_pos),
+                                     on_dev(batch[:, 2]))
+            hf_d, tf_d = on_dev(hf, torch.int32), on_dev(tf, torch.int32)
+        with span("eval.rank_batch"):
+            counts = _rank_batch(
+                ent_emb, head_d, tail_d, rel_emb_table, rel_d, n, hf_d, tf_d,
+                rel_model=cfg.rel_model, tile=tile, shard=shard)
         # Counts stay on the device until the loop ends: one host sync.
         pending.append((counts, real))
         triples_seen.append(batch[:real])
@@ -287,15 +297,16 @@ def eval_link_prediction(
             log.info(f"[rank {bi + 1:,}/{n_batches:,}]")
 
     total_gt, total_geq, filt_gt, filt_geq = [], [], [], []
-    for counts, real in pending:
-        counts = {k: v.cpu().numpy()[:real] for k, v in counts.items()}
-        total_gt.append(np.concatenate([counts["h_gt"], counts["t_gt"]]))
-        total_geq.append(np.concatenate([counts["h_geq"], counts["t_geq"]]))
-        if compute_filtered:
-            filt_gt.append(np.concatenate([counts["h_gt"] - counts["h_fgt"],
-                                           counts["t_gt"] - counts["t_fgt"]]))
-            filt_geq.append(np.concatenate([counts["h_geq"] - counts["h_fgeq"],
-                                            counts["t_geq"] - counts["t_fgeq"]]))
+    with span("eval.read_counts"):
+        for counts, real in pending:
+            counts = {k: v.cpu().numpy()[:real] for k, v in counts.items()}
+            total_gt.append(np.concatenate([counts["h_gt"], counts["t_gt"]]))
+            total_geq.append(np.concatenate([counts["h_geq"], counts["t_geq"]]))
+            if compute_filtered:
+                filt_gt.append(np.concatenate([counts["h_gt"] - counts["h_fgt"],
+                                               counts["t_gt"] - counts["t_fgt"]]))
+                filt_geq.append(np.concatenate([counts["h_geq"] - counts["h_fgeq"],
+                                                counts["t_geq"] - counts["t_fgeq"]]))
 
     def finish(gts, geqs):
         # Per-batch blocks are [heads...tails]; the breakdowns need the global
@@ -311,25 +322,26 @@ def eval_link_prediction(
         hits = {k: float((ranks <= k).mean()) for k in HIT_POSITIONS}
         return float(rec.mean()), hits, rec
 
-    mrr, hits, _ = finish(total_gt, total_geq)
-    result = EvalResult(mrr=mrr, hits=hits)
+    with span("eval.finish"):
+        mrr, hits, _ = finish(total_gt, total_geq)
+        result = EvalResult(mrr=mrr, hits=hits)
 
-    all_triples = np.concatenate(triples_seen)
-    if compute_filtered:
-        mrr_f, hits_f, rec_f = finish(filt_gt, filt_geq)
-        result.mrr_filt, result.hits_filt = mrr_f, hits_f
-        if new_entities is not None:
-            mask = np.zeros(max_ent_id + 1, bool)
-            mask[np.asarray(new_entities, np.int64)] = True
-            sums, cnts = metrics.split_by_new_position(
-                torch.from_numpy(all_triples), torch.from_numpy(rec_f),
-                torch.from_numpy(mask))
-            result.mrr_by_position = sums.numpy() / np.maximum(cnts.numpy(), 1.0)
-        if rel_categories is not None:
-            sums, cnts = metrics.split_by_category(
-                torch.from_numpy(all_triples), torch.from_numpy(rec_f),
-                torch.from_numpy(np.asarray(rel_categories)))
-            result.mrr_by_category = sums.numpy() / np.maximum(cnts.numpy(), 1.0)
+        all_triples = np.concatenate(triples_seen)
+        if compute_filtered:
+            mrr_f, hits_f, rec_f = finish(filt_gt, filt_geq)
+            result.mrr_filt, result.hits_filt = mrr_f, hits_f
+            if new_entities is not None:
+                mask = np.zeros(max_ent_id + 1, bool)
+                mask[np.asarray(new_entities, np.int64)] = True
+                sums, cnts = metrics.split_by_new_position(
+                    torch.from_numpy(all_triples), torch.from_numpy(rec_f),
+                    torch.from_numpy(mask))
+                result.mrr_by_position = sums.numpy() / np.maximum(cnts.numpy(), 1.0)
+            if rel_categories is not None:
+                sums, cnts = metrics.split_by_category(
+                    torch.from_numpy(all_triples), torch.from_numpy(rec_f),
+                    torch.from_numpy(np.asarray(rel_categories)))
+                result.mrr_by_category = sums.numpy() / np.maximum(cnts.numpy(), 1.0)
 
     if return_embeddings:
         if shard is not None:

@@ -1,11 +1,15 @@
 """Tracing and profiling (port of blp_tpu/profiling.py, on torch.profiler,
 the host clock and torch.cuda's memory statistics).
 
+  * `span(name)`: the program's spans at its layer boundaries, recorded
+    inside `recording()` and while torch.profiler profiles (on every
+    thread, on the clock the profiler stamps host events on), and kept in
+    memory (`kept_spans()`); otherwise a flag check.
   * `trace(dir)`: a torch.profiler session (CPU ops, and CUDA kernels and
-    copies on a card) whose Chrome trace is written under `dir`, for
-    Perfetto or TensorBoard; `summarize_trace_stats(dir)` reads it back as
-    device time by kernel group and the top kernels.
-  * `annotate(name)`: a named span in the trace.
+    copies on a card) whose Chrome trace, with the spans recorded in it, is
+    written under `dir`, for Perfetto or TensorBoard;
+    `summarize_trace_stats(dir)` reads it back as device time by kernel
+    group and the top kernels.
   * `StepTimer`: wall-clock step times, with a sync on a probe tensor every
     `sync_every` steps (work is queued asynchronously on a card, so an
     unsynced time is the time to enqueue it).
@@ -18,14 +22,18 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import itertools
 import json
 import os
+import socket
+import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from typing import Iterable
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from blp_tpu_torch.utils import resolve_device
 
@@ -33,26 +41,120 @@ from blp_tpu_torch.utils import resolve_device
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+#: The most spans kept in memory; past it the oldest go.
+KEPT_SPANS = 1 << 17
+
+_kept: deque = deque(maxlen=KEPT_SPANS)
+_seq = itertools.count()
+_local = threading.local()
+_lock = threading.Lock()
+_recordings = 0
+_NULL = contextlib.nullcontext()
+
+
+class Span:
+    """A recorded span: its `name`, its `start` and `end` in ns on
+    `time.time_ns()` (the clock torch.profiler stamps its host events on),
+    its thread's OS id (`thread`) and Python id (`ident`, pthread_self:
+    the profiler's launch events carry its low 32 bits for a thread the
+    profiler does not follow), its number `seq` in the order spans opened,
+    and the `seq` of its `parent`, the span open on the same thread when it
+    opened (-1 for none). `end` is None while it is open."""
+
+    __slots__ = ("name", "start", "end", "thread", "ident", "seq", "parent")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.end = None
+
+    def __enter__(self):
+        try:
+            stack = _local.stack
+        except AttributeError:
+            stack = _local.stack = []
+        self.parent = stack[-1].seq if stack else -1
+        self.thread = threading.get_native_id()
+        self.ident = threading.get_ident()
+        self.seq = next(_seq)
+        stack.append(self)
+        _kept.append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end = time.time_ns()
+        _local.stack.pop()
+        return False
+
+
+def span(name: str):
+    """A named span of the program, for `with`: recorded inside
+    `recording()` and while torch.profiler profiles, on any thread; at
+    other times the one shared null context, after a flag check."""
+    if _recordings or _autograd_profiler._is_profiler_enabled:
+        return Span(name)
+    return _NULL
+
+
+def kept_spans() -> list[Span]:
+    """The closed spans kept in memory (the last KEPT_SPANS recorded),
+    in the order they opened."""
+    return [s for s in list(_kept) if s.end is not None]
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans on every thread in the body. Yields a list that, once
+    the body is left, holds the spans opened in it that have closed, in the
+    order they opened."""
+    global _recordings
+    first = next(_seq)
+    with _lock:
+        _recordings += 1
+    out: list[Span] = []
+    try:
+        yield out
+    finally:
+        with _lock:
+            _recordings -= 1
+        out.extend(s for s in kept_spans() if s.seq > first)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Profile the body; its Chrome trace is written under `log_dir` on
-    exit. Yields the torch.profiler.profile object."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    """Profile the body, recording the program's spans; on exit its Chrome
+    trace, the spans among its events, is written under `log_dir`. Yields
+    the torch.profiler.profile object."""
+    from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+    with recording() as spans, profile(activities=activities) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+    path = os.path.join(log_dir, f"{socket.gethostname()}_{os.getpid()}."
+                                 f"{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    _add_spans(path, spans)
 
 
-def annotate(name: str):
-    """Named span visible in profiler traces."""
-    return torch.profiler.record_function(name)
+def _add_spans(path: str, spans: Iterable[Span]) -> None:
+    """Append `spans` to the Chrome trace at `path` as complete events on
+    their threads, on the trace's time base (microseconds after its
+    `baseTimeNanoseconds`)."""
+    with open(path) as f:
+        data = json.load(f)
+    base = int(data.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    data["traceEvents"].extend(
+        {"ph": "X", "cat": "user_annotation", "name": s.name, "pid": pid,
+         "tid": s.thread, "ts": (s.start - base) / 1e3, "dur": (s.end - s.start) / 1e3}
+        for s in spans)
+    with open(path, "w") as f:
+        json.dump(data, f)
 
 
 def realize(x) -> float:
@@ -120,9 +222,22 @@ def device_memory_stats(device="cuda") -> list[dict]:
     return out
 
 
+#: Substrings of a lower-cased kernel name and the group each names, the
+#: first match winning after K1-K3: the layers of the benchmark's
+#: `benchmark/kernel_layers.json`.
+GROUPS = (
+    (("bias_act", "add_ln", "attn_softmax", "site_dropout"), "F1 F2 F3 site"),
+    (("indexing_backward", "index_put", "radixsort", "radix_sort", "segmented_sort",
+      "sort_kernel", "sortpairs", "devicescan"), "index backward"),
+    (("gemm", "xmma", "cutlass", "nvjet", "sm90_"), "GEMM (cuBLAS)"),
+    (("copy", "memcpy"), "copies"),
+    (("memset",), "memsets"),
+)
+
+
 def kernel_group(name: str) -> str:
     """The group a kernel's (or op's) time is reported under: the port's
-    three kernels by name, cuBLAS GEMMs, and the rest."""
+    three kernels by name, then GROUPS, then the rest."""
     low = name.lower()
     if "packed_attention" in low:
         return "K2 packed_attention"
@@ -132,9 +247,10 @@ def kernel_group(name: str) -> str:
         return "K3 sddmm backward"
     if "sddmm" in low:
         return "K3 sddmm forward"
-    if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
-        return "GEMM (cuBLAS)"
-    return "other (elementwise, reductions, copies)"
+    for keys, group in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other (elementwise, reductions)"
 
 
 def device_time_by_group(times: Iterable[tuple[str, float]]) -> dict[str, float]:

@@ -20,6 +20,9 @@ The updates use `torch._foreach_*` over the leaves. The functions are
 functional (they return new tensors and leave their arguments as they
 were), like optax's. The step samples the negatives on the device, so a
 step enqueues its work and returns a 0-d device loss without a host sync.
+Its spans (`profiling.span`): `train.sample` (the negatives),
+`train.forward`, `train.backward` and `train.optimizer` (Adam's update and
+`apply_updates`).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from blp_tpu_torch.checkpoint import tree_leaves, tree_unflatten
 from blp_tpu_torch.data.sampling import sample_negative_indices
 from blp_tpu_torch.models import bert as bert_mod
 from blp_tpu_torch.models import blp
+from blp_tpu_torch.profiling import span
 from blp_tpu_torch.utils import fold_seed, resolve_device
 
 
@@ -177,12 +181,14 @@ def value_and_grad(params, cfg: blp.ModelConfig, batch: dict, *,
     the loss a 0-d device tensor, the gradients a tree shaped like `params`
     (zeros for leaves the loss does not reach, as jax.grad gives)."""
     leaves = tree_leaves(params)
-    live = [p.detach().requires_grad_() for p in leaves]
-    loss = blp.train_loss(tree_unflatten(params, live), cfg, batch,
-                          deterministic=False, dropout_seed=dropout_seed)
-    grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
+    with span("train.forward"):
+        live = [p.detach().requires_grad_() for p in leaves]
+        loss = blp.train_loss(tree_unflatten(params, live), cfg, batch,
+                              deterministic=False, dropout_seed=dropout_seed)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)
 
 
@@ -208,12 +214,15 @@ def make_train_step(cfg: blp.ModelConfig, optimizer: Adam, *, batch_size: int,
 
     def step(params, opt_state, key, batch):
         neg_seed, drop_seed = step_seeds(key)
-        gen = torch.Generator(device=dev).manual_seed(neg_seed)
-        batch = dict(batch)
-        batch["neg_idx"] = sample_negative_indices(gen, batch_size,
-                                                   num_negatives, dev)
+        with span("train.sample"):
+            gen = torch.Generator(device=dev).manual_seed(neg_seed)
+            batch = dict(batch)
+            batch["neg_idx"] = sample_negative_indices(gen, batch_size,
+                                                       num_negatives, dev)
         loss, grads = value_and_grad(params, cfg, batch, dropout_seed=drop_seed)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        return apply_updates(params, updates), opt_state, loss
+        with span("train.optimizer"):
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = apply_updates(params, updates)
+        return params, opt_state, loss
 
     return step
