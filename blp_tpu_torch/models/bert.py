@@ -75,6 +75,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from blp_tpu_torch.ops.attn_softmax import attn_softmax
 from blp_tpu_torch.ops.fused_layer import add_layer_norm, bias_act, site_dropout
 from blp_tpu_torch.ops.fused_layer import poly_gelu  # noqa: F401  (public name)
+from blp_tpu_torch.ops.row_gather import gather_rows
 from blp_tpu_torch.parallel import comm
 from blp_tpu_torch.utils import fold_seed
 
@@ -413,7 +414,7 @@ def embed_inputs(params: dict, input_ids, attention_mask, cfg: BertConfig):
     B, S = input_ids.shape
     emb = params["embeddings"]
     res_dt = None if cfg.compute_dtype == torch.float32 else cfg.compute_dtype
-    x = emb["word"][input_ids.long()]
+    x = gather_rows(emb["word"], input_ids)
     x = x + emb["position"][:S][None, :, :]
     x = x + emb["token_type"][0][None, None, :]
     x = add_layer_norm(x, None, emb["ln_scale"], emb["ln_bias"],

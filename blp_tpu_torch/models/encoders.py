@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from blp_tpu_torch.ops.row_gather import gather_rows
+
 
 def bow_encode(word_embeddings, text_tok, text_mask):
     """Masked mean of word embeddings.
@@ -31,7 +33,7 @@ def bow_encode(word_embeddings, text_tok, text_mask):
     if text_mask is None:
         text_mask = torch.ones(text_tok.shape, device=text_tok.device)
     text_mask = text_mask.to(torch.float32)
-    embs = word_embeddings[text_tok.long()]                  # (B, L, E)
+    embs = gather_rows(word_embeddings, text_tok)            # (B, L, E)
     lengths = text_mask.sum(-1, keepdim=True)
     summed = torch.einsum("bl,ble->be", text_mask, embs)
     return summed / lengths
@@ -81,7 +83,7 @@ def dkrl_encode(params: dict, word_embeddings, text_tok, text_mask, *,
         text_mask = torch.ones((B, L), device=text_tok.device)
     text_mask = text_mask.to(torch.float32)
 
-    embs = word_embeddings[text_tok.long()] * text_mask[..., None]   # (B, L, E)
+    embs = gather_rows(word_embeddings, text_tok) * text_mask[..., None]  # (B, L, E)
 
     h = _conv_k2_same_right(embs, params["conv1_w"], params["conv1_b"])
     h = h * text_mask[..., None]

@@ -29,7 +29,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("transe_rank", "packed_attention", "sddmm", "fused_layer",
-           "attn_softmax")
+           "attn_softmax", "row_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

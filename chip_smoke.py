@@ -236,7 +236,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    which covers part of the function (`library_covers`); for F1 at "none"
    h + b in bf16, all of it; for F1's backward at "none" (db alone: dh is
    g) g's f32 column sum, all of it, and from a head-major cotangent its
-   permute copy alone.
+   permute copy alone. The word tables' gather backward (`index_put_segsum`,
+   no Pallas counterpart: XLA's scatter-add) at the W5M step's ids as the
+   benchmark's w5m-train traffic draws them, over glove-dkrl's 400,001 x 300
+   table and (`at_w768`) blp-bert-base's 28,996 x 768: bit-equal to its plain
+   version and between calls, within the f32 summation bound of a float64
+   sum; `ms` the kernel alone, `with_sort_ms` the whole call, `library_ms`
+   torch's index backward and `embedding_backward_ms`
+   aten.embedding_dense_backward on the same ids.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -260,6 +267,7 @@ import time
 import numpy as np
 import torch
 
+import word_grad_probe
 from blp_tpu_torch import (evaluation, native, profiling, retrieval, serve,
                            train, training)
 from blp_tpu_torch import checkpoint as ckpt
@@ -273,7 +281,8 @@ from blp_tpu_torch.data.synth import write_synth_dataset, write_tiny_glove
 from blp_tpu_torch.data.tokenizers import GloVeTokenizer, WordPieceTokenizer
 from blp_tpu_torch.models import bert, blp
 from blp_tpu_torch.ops import (_cuda, attn_softmax, dropout_rng, fused_layer,
-                               packed_attention, sddmm, transe_rank)
+                               packed_attention, row_gather, sddmm,
+                               transe_rank)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -323,7 +332,8 @@ COUNTERS = {"K1": (transe_rank, "launches"),
             "F2 backward": (fused_layer, "add_layer_norm_backward_launches"),
             "F3": (attn_softmax, "launches"),
             "F3 backward": (attn_softmax, "backward_launches"),
-            "site dropout": (fused_layer, "site_dropout_launches")}
+            "site dropout": (fused_layer, "site_dropout_launches"),
+            "word-table backward": (row_gather, "launches")}
 #: Launch counts split by shape or variant (Counters).
 BY_KEYS = ("K1 by variant", "K2 by seg", "F by variant")
 
@@ -3719,6 +3729,84 @@ def time_site_dropout(launches: int, by_variant: dict) -> dict:
             "at_drop8": _time_site_dropout_at(W5M_TOKENS, 8)}
 
 
+def _time_row_gather_at(config: str) -> dict:
+    """The word tables' gather backward at a train cell's W5M step (131,072
+    positions drawn as the benchmark's w5m-train traffic draws them: ~9% on
+    the padding row, Zipf words): `segment_sum` held bit-equal to
+    `segment_sum_plain`, to itself on a second call, and to the f32
+    summation bound of a float64 sum (tests/test_torch_cuda.py's). `ms` is
+    `index_put_segsum` alone, device time by the profiler; by CUDA events,
+    `with_sort_ms` the whole call (zero fills, the ids' cast, the sort, the
+    kernel) and, in turns with it, `library_ms` torch's index backward (zero
+    fill, sort, indexing_backward_kernel), what the port ran before;
+    `embedding_backward_ms` aten.embedding_dense_backward, the library's own
+    segmented sum, on the same ids; `plain_ms`."""
+    ids, rows, width = word_grad_probe.cell_ids(config)
+    g = torch.randn(tuple(ids.shape) + (width,), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(55))
+    call = lambda: row_gather.segment_sum(g, ids, rows)  # noqa: E731
+    got = call()
+    require(torch.equal(got, row_gather.segment_sum_plain(g, ids, rows)),
+            f"index_put_segsum at {config}'s ids differs from the plain version")
+    require(torch.equal(got, call()), f"index_put_segsum at {config}'s ids: "
+                                      "two calls differ")
+    flat, g64 = ids.reshape(-1), g.reshape(-1, width).double()
+    exact = torch.zeros((rows, width), dtype=torch.float64, device="cuda")
+    exact.index_add_(0, flat, g64)
+    mass = torch.zeros_like(exact).index_add_(0, flat, g64.abs())
+    counts = torch.bincount(flat, minlength=rows)
+    chain = row_gather.CHUNK + 1 + (counts + row_gather.CHUNK - 1) // row_gather.CHUNK
+    gap = (got.double() - exact).abs()
+    require(bool((gap <= chain[:, None].double() * 2.0 ** -24 * mass).all())
+            and bool((got[counts == 0] == 0).all()),
+            f"index_put_segsum at {config}'s ids: outside the f32 summation bound")
+    err, touched = gap.max().item(), int((counts > 0).sum())
+    del got, exact, mass, gap, g64
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    # The mean over the launches the profiler kept: late in this script it
+    # can drop some of a loop's events, which a division by the calls
+    # would read as a faster kernel.
+    kept = [e for e in prof.key_averages() if "index_put_segsum" in e.key]
+    ms = sum(e.self_device_time_total for e in kept) / sum(e.count for e in kept) / 1e3
+    table = torch.zeros((rows, width), device="cuda", requires_grad=True)
+    gathered = table[ids]
+    with_sort_ms, library_ms = cuda_ms_in_turns(
+        call, lambda: torch.autograd.grad(gathered, table, g, retain_graph=True))
+    embedding_backward_ms = cuda_ms(
+        lambda: torch.ops.aten.embedding_dense_backward(g, ids, rows, -1, False),
+        reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: row_gather.segment_sum_plain(g, ids, rows), reps=2)
+    del table, gathered, g
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "with_sort_ms": with_sort_ms,
+            "plain_ms": plain_ms,
+            # g read once, each touched row written once.
+            **_bound(4.0 * (flat.numel() + touched) * width, 0.0),
+            "library_ms": library_ms, "library_covers":
+                "torch's index backward: zero fill, sort, indexing_backward_kernel",
+            "embedding_backward_ms": embedding_backward_ms,
+            "shape": f"{flat.numel():,} positions x {width} f32 over {rows:,} rows "
+                     f"({config}'s ids, {touched:,} rows touched)"}
+
+
+def time_row_gather(launches: int) -> dict:
+    """The word tables' gather backward at glove-dkrl's W5M step (131,072 x
+    300 over 400,001 rows) and, under `at_w768`, blp-bert-base's (131,072 x
+    768 over 28,996)."""
+    return {"name": "index_put_segsum (word-table backward)", "route": "cuda",
+            "source": "blp_tpu_torch/csrc/row_gather.cu",
+            "replaces": "no Pallas kernel: XLA does the VJP's scatter-add of the "
+                        "word tables' gather (blp_tpu/models/encoders.py, bert.py)",
+            "launches": launches,
+            **_time_row_gather_at("glove-dkrl"),
+            "at_w768": _time_row_gather_at("blp-bert-base")}
+
+
 def _f3_bias_bytes(bias) -> float:
     """Bytes of the bias the kernel reads: each distinct f32 element once."""
     return 4.0 * math.prod(n for n, st in zip(bias.shape, bias.stride()) if st)
@@ -4001,7 +4089,8 @@ def main() -> int:
                *time_f1(launches["F1"], launches["F1 backward"], f_by),
                *time_f2(launches["F2"], launches["F2 backward"], f_by),
                *time_f3(launches["F3"], launches["F3 backward"], f_by),
-               time_site_dropout(launches["site dropout"], f_by)]
+               time_site_dropout(launches["site dropout"], f_by),
+               time_row_gather(launches["word-table backward"])]
     for kr in kernels:
         for rec in (kr, *(v for k, v in kr.items() if k.startswith("at_"))):
             log(f"{kr['name']}: {rec['ms']:.4f} ms (plain "

@@ -52,7 +52,7 @@ from blp_tpu_torch.data import sampling
 from blp_tpu_torch.data.filtering import FilterIndex
 from blp_tpu_torch.models import bert, blp
 from blp_tpu_torch.ops import (_cuda, attn_softmax, dropout_rng, fused_layer,
-                               packed_attention, sddmm, transe_rank)
+                               packed_attention, row_gather, sddmm, transe_rank)
 
 pytestmark = pytest.mark.cuda
 
@@ -504,11 +504,12 @@ def _train_setup(sddmm_pallas, b=8, k=4, seq=8):
 def test_train_step_on_card_matches_cpu(sddmm_pallas):
     cfg, params, batch = _train_setup(sddmm_pallas)
     loss_c, g_c = training.value_and_grad(params, cfg, batch, dropout_seed=3)
-    before = sddmm.launches
+    before = (sddmm.launches, row_gather.launches)
     loss_g, g_g = training.value_and_grad(
         blp.to_device(params, "cuda"), cfg,
         {k: v.cuda() for k, v in batch.items()}, dropout_seed=3)
-    assert sddmm.launches == before + int(sddmm_pallas)
+    assert sddmm.launches == before[0] + int(sddmm_pallas)
+    assert row_gather.launches == before[1] + 1     # the word table's backward
     torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
     for x, y in zip(checkpoint.tree_leaves(g_g), checkpoint.tree_leaves(g_c)):
         torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=1e-6)
@@ -596,12 +597,13 @@ def test_word_model_train_pass_on_card_matches_cpu(model):
              "neg_idx": sampling.sample_negative_indices(
                  torch.Generator().manual_seed(1), b, k, device="cpu")}
     loss_c, g_c = training.value_and_grad(params, cfg, batch, dropout_seed=0)
-    before = (sddmm.launches, sddmm.backward_launches)
+    before = (sddmm.launches, sddmm.backward_launches, row_gather.launches)
     loss_g, g_g = training.value_and_grad(
         blp.to_device(params, "cuda"), cfg,
         {k_: v.cuda() for k_, v in batch.items()}, dropout_seed=0)
     torch.cuda.synchronize()
-    assert (sddmm.launches, sddmm.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert (sddmm.launches, sddmm.backward_launches, row_gather.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
     torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=0)
     for x, y in zip(checkpoint.tree_leaves(g_g), checkpoint.tree_leaves(g_c)):
         torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=1e-6)
@@ -1803,3 +1805,107 @@ def test_device_philox_equals_curand(tmp_path):
         want = dropout_rng.philox4x32(tuple(row[j:j + 1] for j in range(4)),
                                       (int(row[4]), int(row[5])))
         assert [int(w) for w in want] == got[i, :4].tolist()
+
+
+# -- the word tables' gather backward (index_put_segsum) ------------------------
+#
+# Tolerance against a float64 sum of the same contributions: the bound of
+# recursive f32 summation for the kernel's longest chain, (CHUNK + 1 + the
+# row's chunk count) * 2^-24 * sum |g| per element (each piece is a sequential
+# sum of at most CHUNK rows, each run a sequential sum of its pieces). The
+# kernel adds in `segment_sum_plain`'s order, which CUDA's elementwise adds
+# reproduce, so the two are also held equal bit for bit.
+
+def _zipf_ids(rng, n, first_id, ranks, exponent=1.0):
+    w = np.arange(1, ranks + 1, dtype=np.float64) ** -exponent
+    cdf = np.cumsum(w) / w.sum()
+    return first_id + np.minimum(np.searchsorted(cdf, rng.random(n)), ranks - 1)
+
+
+def _cell_ids(rng, vocab, special=(), descriptions=2048, L=64):
+    """The train cells' positions: 2,048 descriptions of 64, 80% at the cap
+    and the rest 8..63 long (so ~9% of the positions are padding, id 0),
+    Zipf ids; with `special`, [CLS] first and [SEP] last in every row."""
+    lengths = np.where(rng.random(descriptions) < 0.8, L,
+                       rng.integers(8, L, descriptions))
+    ids = _zipf_ids(rng, descriptions * L, 1 + 3 * bool(special), vocab - 4).reshape(
+        descriptions, L)
+    if special:
+        ids[:, 0] = special[0]
+        ids[np.arange(descriptions), lengths - 1] = special[1]
+    ids[np.arange(L) >= lengths[:, None]] = 0
+    return torch.from_numpy(ids)
+
+
+def _boundary_ids():
+    c = row_gather.CHUNK
+    return torch.cat([torch.full((c,), 2), torch.full((c + 1,), 5),     # ends on a
+                      torch.full((c - 1,), 6), torch.tensor([8]),       # boundary, one
+                      torch.full((2 * c,), 9)])                         # past it
+
+
+SEGSUM_CASES = {
+    # name: (ids, rows, width, offset of g's first element in floats)
+    "one id, 131,072 positions": (lambda rng: torch.zeros(131072, dtype=torch.long), 5, 300, 0),
+    "cells' mix, BERT": (lambda rng: _cell_ids(rng, 28996, (101, 102)), 28996, 768, 0),
+    "cells' mix, GloVe": (lambda rng: _cell_ids(rng, 400001), 400001, 300, 0),
+    "chunk boundaries": (lambda rng: _boundary_ids(), 12, 300, 0),
+    "chunk boundaries, scalar loads": (lambda rng: _boundary_ids(), 12, 300, 1),
+    "chunk boundaries, two slabs": (lambda rng: _boundary_ids(), 12, 1100, 0),
+    "last row": (lambda rng: torch.tensor([3] * 5 + [999] * 300), 1000, 768, 0),
+    "runs of 1": (lambda rng: torch.from_numpy(rng.permutation(50000)), 60000, 300, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(SEGSUM_CASES))
+def test_segsum_kernel_matches_float64_and_its_order(case):
+    make, rows, width, offset = SEGSUM_CASES[case]
+    rng = np.random.default_rng(len(case))
+    ids = make(rng).cuda()
+    n = ids.numel()
+    buf = torch.randn(n * width + offset, device="cuda")
+    g = buf[offset:].view(tuple(ids.shape) + (width,))
+    before = row_gather.launches
+    got = [row_gather.segment_sum(g, ids, rows) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 2
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0], row_gather.segment_sum_plain(g, ids, rows))
+    flat, g64 = ids.reshape(-1), g.reshape(-1, width).double()
+    exact = torch.zeros((rows, width), dtype=torch.float64, device="cuda")
+    exact.index_add_(0, flat, g64)
+    mass = torch.zeros_like(exact).index_add_(0, flat, g64.abs())
+    counts = torch.bincount(flat, minlength=rows)
+    chain = row_gather.CHUNK + 1 + (counts + row_gather.CHUNK - 1) // row_gather.CHUNK
+    bound = chain[:, None].double() * 2.0 ** -24 * mass
+    assert ((got[0].double() - exact).abs() <= bound).all()
+    assert (got[0][counts == 0] == 0).all()
+
+
+def test_segsum_chunk_equals_the_kernels():
+    assert _cuda.load("row_gather").index_put_segsum_chunk() == row_gather.CHUNK
+
+
+def test_gather_rows_backward_is_the_kernel_on_card():
+    rng = np.random.default_rng(0)
+    ids = _cell_ids(rng, 1000, (101, 102), descriptions=64).cuda()
+    table = torch.randn((1000, 300), device="cuda", requires_grad=True)
+    g = torch.randn(tuple(ids.shape) + (300,), device="cuda")
+    before = row_gather.launches
+    rows = row_gather.gather_rows(table, ids)
+    assert torch.equal(rows, table.detach()[ids])
+    (grad,) = torch.autograd.grad(rows, table, g)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1
+    assert torch.equal(grad, row_gather.segment_sum_plain(g, ids, 1000))
+    with torch.no_grad():
+        assert torch.equal(row_gather.gather_rows(table, ids), rows)
+    assert row_gather.launches == before + 1
+
+
+def test_gather_rows_backward_refuses_bf16_on_card():
+    table = torch.randn((50, 16), device="cuda", dtype=torch.bfloat16,
+                        requires_grad=True)
+    rows = row_gather.gather_rows(table, torch.tensor([[1, 1, 0]], device="cuda"))
+    with pytest.raises(TypeError, match="float32"):
+        torch.autograd.grad(rows.float().sum(), table)

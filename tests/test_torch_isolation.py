@@ -34,7 +34,7 @@ names = [m.name for m in pkgutil.walk_packages(blp_tpu_torch.__path__,
                                                 "blp_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke, f3_probe, k1_probe, k2_probe, mesh_probe
+import chip_smoke, f3_probe, k1_probe, k2_probe, mesh_probe, word_grad_probe
 leaked = sorted(m for m in sys.modules
                 if m == "blp_tpu" or m.startswith(("blp_tpu.", "jax.", "jaxlib")))
 print(json.dumps({"names": names, "leaked": leaked}))
